@@ -1,0 +1,24 @@
+"""indoor_nerf_tpu_torch — the PyTorch and CUDA port of indoor_nerf_tpu.
+
+The JAX package ``indoor_nerf_tpu`` is the reference; this package computes
+the same functions on the same layouts (the ``[L*R, F*lpf]`` block table,
+MLP weights stored ``[in, out]``, ``(point, level)`` rows with the level
+index varying fastest), so its tests compare like with like. It imports
+``torch`` and never ``jax``.
+
+The slice ported so far is the non-baked novel-view serving path
+(``serve.py``): rays -> occupancy-guided sampling -> block-hash encode
+(the hand-written ``tent_contract`` CUDA kernel, ``csrc/``) -> NeRFSmall ->
+compositing. Everything runs forward only, under ``torch.inference_mode``.
+"""
+
+import torch
+
+# float32 must mean float32 on the card: the reference computes every
+# float32 product in full precision, and TF32 (on by default for cuDNN,
+# and opt-in for matmuls) keeps only ~3 decimal digits, which would move
+# the MLP outputs far past the tolerances the parity tests hold.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.1.0"

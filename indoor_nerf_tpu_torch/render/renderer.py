@@ -1,0 +1,178 @@
+"""Volumetric rendering for serving (render/renderer.py of the JAX package).
+
+``render_rays`` runs the occupancy-guided single pass (the flagship) or the
+stratified single pass (``n_importance == 0``); the hierarchical fine pass
+comes with ROADMAP.md Queue 1 item 4. Full images are rendered as a Python
+loop over fixed ray tiles in place of the JAX ``lax.map``. Serving draws no
+random numbers: ``test_mode`` sets ``perturb = 0`` and no sigma noise.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from indoor_nerf_tpu_torch.models.field import FieldConfig, query_field, serving_params
+from indoor_nerf_tpu_torch.ops.occupancy import OccState, OccupancyConfig, occupancy_z_vals
+from indoor_nerf_tpu_torch.ops.rays import get_rays
+from indoor_nerf_tpu_torch.ops.sampling import stratified_z_vals
+from indoor_nerf_tpu_torch.ops.volume import raw2outputs
+
+MAP_KEYS = ("rgb_map", "depth_map", "acc_map", "disp_map")
+
+# Device bytes one ray of the flagship render holds at its peak (occupancy
+# ladder of 128 candidates, 32 samples x 8 levels of encode intermediates,
+# the MLP activations): 31.7-32.6 KB measured with max_memory_allocated at
+# tiles of 16k-640k rays on an H100 (PERF.md). Sizes tiles from free memory.
+BYTES_PER_RAY = 32 * 1024
+# The JAX server's tile for i_embed 3 (scripts/serve.py:122): the CPU tile.
+CPU_TILE_RAYS = 2048
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderConfig:
+    """Static rendering configuration (the JAX RenderConfig)."""
+
+    field: FieldConfig
+    n_samples: int = 64
+    n_importance: int = 0
+    perturb: float = 1.0
+    lindisp: bool = False
+    white_bkgd: bool = False
+    raw_noise_std: float = 0.0
+    ndc: bool = False
+    occupancy: Optional[OccupancyConfig] = None
+    n_occ_samples: int = 64
+
+    def test_mode(self) -> "RenderConfig":
+        """Test-time variant: no jitter, no sigma noise."""
+        return dataclasses.replace(self, perturb=0.0, raw_noise_std=0.0)
+
+
+def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
+                rays_d: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                near: torch.Tensor, far: torch.Tensor, config: RenderConfig,
+                occ_state: Optional[OccState] = None,
+                step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+    """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
+    ``[N, 1]``) deterministically. Returns rgb/depth/acc/disp maps, the
+    entropy ``sparsity_loss``, ``weights`` and ``z_vals``."""
+    if config.perturb != 0.0 or config.raw_noise_std != 0.0:
+        raise NotImplementedError(
+            "jittered sampling and sigma noise are training-time draws; they "
+            "come with ROADMAP.md Queue 1 item 2 (render with test_mode())")
+    fc = config.field
+    if config.occupancy is not None and occ_state is not None:
+        with record_function("sample"):
+            z_vals = occupancy_z_vals(rays_o, rays_d, near, far, occ_state,
+                                      config.occupancy, config.n_occ_samples,
+                                      step)
+        mlp_name = "fine" if "fine" in params else "coarse"
+    elif config.n_importance == 0:
+        z_vals = stratified_z_vals(near, far, config.n_samples,
+                                   lindisp=config.lindisp)
+        mlp_name = "coarse"
+    else:
+        raise NotImplementedError(
+            "the hierarchical fine pass (N_importance > 0 without occupancy) "
+            "comes with ROADMAP.md Queue 1 item 4 (the parity path)")
+    pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+    raw = query_field(params, mlp_name, pts, viewdirs, fc)
+    with record_function("composite"):
+        out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd)
+    out["z_vals"] = z_vals
+    return out
+
+
+def _prepare_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
+                  far: float, config: RenderConfig
+                  ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                             torch.Tensor, torch.Tensor]:
+    """Unit viewdirs + flat rays + per-ray bounds (no NDC yet)."""
+    if config.ndc:
+        raise NotImplementedError(
+            "NDC rays come with ROADMAP.md Queue 1 item 4 (the parity path)")
+    viewdirs = None
+    if config.field.use_viewdirs:
+        viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+        viewdirs = viewdirs.reshape(-1, 3)
+    rays_o = rays_o.reshape(-1, 3)
+    rays_d = rays_d.reshape(-1, 3)
+    near_a = near * torch.ones_like(rays_d[..., :1])
+    far_a = far * torch.ones_like(rays_d[..., :1])
+    return rays_o, rays_d, viewdirs, near_a, far_a
+
+
+def default_tile_rays(device: torch.device) -> int:
+    """Rays per tile: a quarter of the card's free memory at
+    ``BYTES_PER_RAY``, as a power of two in [2^12, 2^20]; 2048 on the CPU."""
+    if device.type != "cuda":
+        return CPU_TILE_RAYS
+    free, _ = torch.cuda.mem_get_info(device)
+    n = max(1, free // 4 // BYTES_PER_RAY)
+    return int(min(1 << 20, max(1 << 12, 1 << (n.bit_length() - 1))))
+
+
+@torch.inference_mode()
+def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
+                       K: torch.Tensor, near: float, far: float,
+                       config: RenderConfig, H: int, W: int, tile_rays: int,
+                       occ_state: Optional[OccState] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Render ``c2ws`` ``[B, 3, 4]`` poses; maps carry a leading B axis."""
+    B = c2ws.shape[0]
+    rays = [get_rays(H, W, K, c2w) for c2w in c2ws]
+    rays_o = torch.stack([r[0] for r in rays])
+    rays_d = torch.stack([r[1] for r in rays])
+    rays_o, rays_d, viewdirs, near_a, far_a = _prepare_rays(
+        rays_o, rays_d, near, far, config)
+    test_cfg = config.test_mode()
+    outs = {k: [] for k in MAP_KEYS}
+    for s in range(0, rays_o.shape[0], tile_rays):
+        sl = slice(s, s + tile_rays)
+        out = render_rays(
+            params, rays_o[sl], rays_d[sl],
+            None if viewdirs is None else viewdirs[sl],
+            near_a[sl], far_a[sl], test_cfg, occ_state=occ_state, step=None)
+        for k in MAP_KEYS:
+            outs[k].append(out[k])
+    flat = {k: torch.cat(v) for k, v in outs.items()}
+    return {
+        "rgb_map": flat["rgb_map"].reshape(B, H, W, 3),
+        "depth_map": flat["depth_map"].reshape(B, H, W),
+        "acc_map": flat["acc_map"].reshape(B, H, W),
+        "disp_map": flat["disp_map"].reshape(B, H, W),
+    }
+
+
+def make_image_renderer(config: RenderConfig, H: int, W: int,
+                        tile_rays: Optional[int] = None):
+    """A full-image renderer ``(params, c2w, K, near, far[, occ_state]) ->
+    maps`` on the device of ``params["table"]``. ``tile_rays=None`` sizes
+    tiles from the card's memory (``default_tile_rays``)."""
+
+    def render_fn(params, c2w, K, near, far, occ_state=None):
+        dev = params["table"].device
+        tile = tile_rays or default_tile_rays(dev)
+        c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=dev)
+        K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+        out = _render_pose_block(params, c2w[None], K, float(near),
+                                 float(far), config, H, W, tile, occ_state)
+        return {k: v[0] for k, v in out.items()}
+
+    return render_fn
+
+
+def render_image(params: Dict[str, Any], H: int, W: int, K: np.ndarray,
+                 c2w: np.ndarray, near: float, far: float,
+                 config: RenderConfig, tile_rays: Optional[int] = None,
+                 occ_state: Optional[OccState] = None) -> Dict[str, np.ndarray]:
+    """Convenience single-image render to numpy; see make_image_renderer."""
+    params = serving_params(params, config.field)
+    out = make_image_renderer(config, H, W, tile_rays)(
+        params, c2w, K, near, far, occ_state)
+    return {k: v.cpu().numpy() for k, v in out.items()}

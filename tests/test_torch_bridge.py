@@ -1,0 +1,44 @@
+"""The params bridge: JAX state -> port -> numpy is bitwise the JAX state."""
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from _torch_parity import configs, jax_state_numpy
+from indoor_nerf_tpu_torch.bridge import params_from_numpy, params_to_numpy
+from indoor_nerf_tpu_torch.models.field import init_field_params
+
+torch.set_num_threads(1)
+
+
+@pytest.mark.parametrize("with_occ_rng", [False, True])
+def test_round_trip_is_bitwise(rng, with_occ_rng):
+    jcfg, _, _ = configs()
+    tree = jax_state_numpy(jcfg, seed=3, occ_rng=rng if with_occ_rng else None)
+    back = params_to_numpy(params_from_numpy(tree))
+    flat, treedef = jax.tree_util.tree_flatten(tree)
+    flat_back, treedef_back = jax.tree_util.tree_flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
+
+
+def test_bridged_params_have_the_port_init_shapes():
+    jcfg, tcfg, _ = configs()
+    bridged = params_from_numpy(jax_state_numpy(jcfg))["params"]
+    own = init_field_params(torch.Generator().manual_seed(0), tcfg.render.field)
+    assert bridged.keys() == own.keys()
+    assert bridged["table"].shape == own["table"].shape
+    assert {k: v.shape for k, v in bridged["coarse"].state_dict().items()} == \
+        {k: v.shape for k, v in own["coarse"].state_dict().items()}
+
+
+def test_biased_layers_are_refused():
+    tree = {"params": {"table": np.zeros((2, 2), np.float32),
+                       "coarse": {"sigma_net": [{"w": np.zeros((2, 2)),
+                                                 "b": np.zeros(2)}],
+                                  "color_net": []}}}
+    with pytest.raises(ValueError, match="bias-free"):
+        params_from_numpy(tree)
