@@ -1,15 +1,16 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one NVIDIA card: build, check, serve.
+"""Smoke run of the PyTorch port on one NVIDIA card: build, check, serve, train.
 
     python3 chip_smoke.py
 
-Four phases, each printing its lines; any failure raises and the run exits
+Phases, each printing its lines; any failure raises and the run exits
 non-zero. There is no CPU fallback: without a CUDA card it exits 1 before
 printing any result.
 
   (a) device: name, torch / CUDA versions, nvidia-smi name and power limit;
-  (b) build: compiles csrc/tent_contract.cu with nvcc for sm_90a;
-  (c) kernel against its plain PyTorch version at the serving shapes
+  (b) build: compiles csrc/tent_contract.cu and csrc/table_scatter.cu with
+      nvcc for sm_90a, one nvcc per source, started together;
+  (c) tent_contract against its plain PyTorch version at the serving shapes
       (flagship side 4 / lpf 64 / F 4 over a bf16 [65536, 256] table with
       M = 16384 rays x 32 samples x 8 levels; side 5 / lpf 128 / F 2; a
       ragged M), max |diff| <= 1e-5, both timed with CUDA events;
@@ -17,7 +18,19 @@ printing any result.
       127.0.0.1 at 800x800 with the flagship preset answer /health and
       three renders; every render must launch the kernel. Then one
       100x100 image is rendered through the kernel and through the plain
-      version: rgb max |diff| <= 1e-4.
+      version: rgb max |diff| <= 1e-4;
+  (e) table_scatter against its plain version at the flagship training
+      shape (M = 4096 rays x 32 samples x 8 levels = 1,048,576 rows, F 4,
+      lpf 64, side 4, bf16 rounding, a [65536, 256] f32 table): random
+      rows with integer and side - 1 positions, and every row on one table
+      row; within 1e-4 relative and 1e-6 of the largest entry; both timed;
+  (f) training: trainer.train on the flagship CLI for 200 steps at full
+      width; both kernels must launch, the loss stay finite and the mean
+      loss of the last 10 steps fall below that of the first 10;
+  (g) one step from the trained params with both kernels and with both
+      replaced by their plain versions, on the same draws: loss, grid and
+      RAdam moments within the stated tolerances;
+  (h) the training benchmark (indoor_nerf_tpu_torch.bench) JSON line.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -26,6 +39,7 @@ The line before the last is {"kernels": [...]}; the last line is
 from __future__ import annotations
 
 import argparse
+import copy
 import io
 import json
 import subprocess
@@ -42,6 +56,11 @@ SERVE_FLAGS = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
                "--white_bkgd"]
 KERNEL_TOL = 1e-5  # f32 accumulation both sides; summation order differs
 RENDER_TOL = 1e-4
+# table_scatter: f32 sums of the same rounded entries, in atomic orders
+# that change from run to run (the plain version's index_add_ too).
+SCATTER_RTOL = 1e-4
+SCATTER_ATOL = 1e-6  # times the largest |entry|
+TRAIN_STEPS = 200
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -70,16 +89,18 @@ def phase_device(torch) -> str:
 
 
 def phase_build() -> None:
-    from indoor_nerf_tpu_torch.cuda_build import ARCH_FLAGS, load_library
+    from indoor_nerf_tpu_torch.cuda_build import ARCH_FLAGS, build_all
 
     t0 = time.perf_counter()
-    built = load_library("tent_contract")
-    print(f"[b] built indoor_nerf_tpu_torch/csrc/tent_contract.cu with nvcc "
-          f"{' '.join(ARCH_FLAGS)} in {built.seconds:.2f} s "
-          f"(load {time.perf_counter() - t0:.2f} s) -> {built.path.name}")
-    for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[b] ptxas: {line.strip()}")
+    built = build_all(["tent_contract", "table_scatter"])
+    print(f"[b] built {len(built)} kernels in parallel in "
+          f"{time.perf_counter() - t0:.2f} s")
+    for name, lib in built.items():
+        print(f"[b] indoor_nerf_tpu_torch/csrc/{name}.cu with nvcc "
+              f"{' '.join(ARCH_FLAGS)}: {lib.seconds:.2f} s -> {lib.path.name}")
+        for line in lib.log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[b] ptxas: {line.strip()}")
 
 
 def phase_kernel(torch) -> dict:
@@ -174,7 +195,7 @@ def phase_serving(torch) -> int:
     ]
     torch.cuda.reset_peak_memory_stats()
     try:
-        tc.reset_launch_count()  # the main path's run starts here
+        tc.reset_launch_count()  # the serving path's run starts here
         status, _, data, dt = _request(base + "/health")
         health = json.loads(data)
         if status != 200 or health["status"] != "ok":
@@ -203,7 +224,7 @@ def phase_serving(torch) -> int:
             print(f"[d] latency {label}: {latency * 1e3:.1f} ms round trip, "
                   f"render {render_s * 1e3:.1f} ms")
             print(f"[d] rays/s {label}: {800 * 800 / render_s:.0f}")
-        launches = tc.launch_count()  # the main path's run ends here
+        launches = tc.launch_count()  # the serving path's run ends here
     finally:
         srv.shutdown()
         srv.server_close()
@@ -258,6 +279,160 @@ def phase_render_check(torch) -> None:
         raise AssertionError(f"render rgb kernel vs plain {err} > {RENDER_TOL}")
 
 
+def phase_scatter(torch) -> dict:
+    """(e) table_scatter against its plain version at the training shape."""
+    from indoor_nerf_tpu_torch.ops import table_scatter as ts
+
+    dev = torch.device("cuda:0")
+    g0 = torch.Generator(device=dev).manual_seed(2)
+    side, F, lpf, L, R = 4, 4, 64, 8, 8192
+    M = 4096 * 32 * L
+    flagship = None
+    for label, one_row in (("flagship", False), ("one_row", True)):
+        g = torch.randn((M, F), generator=g0, device=dev)
+        if one_row:
+            g = g.abs()  # sums of ~10^5 terms that do not cancel
+        p = torch.rand((M, 3), generator=g0, device=dev) * (side - 1)
+        p[:4096] = torch.randint(0, side, (4096, 3), generator=g0,
+                                 device=dev).float()  # tent kinks
+        p[4096:8192] = side - 1
+        local = (torch.zeros(M, dtype=torch.int64, device=dev) if one_row else
+                 torch.randint(0, R, (M,), generator=g0, device=dev))
+        level = torch.arange(M, device=dev) % L  # level-minor, as the encode
+        flat_row = (local + level * R).to(torch.int32)
+        args = (g, p, flat_row, L * R, side, lpf, torch.bfloat16)
+        got = ts.table_scatter(*args)
+        want = ts.table_scatter_plain(*args)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        scale = float(want.abs().max())
+        bound = SCATTER_ATOL * scale + SCATTER_RTOL * want.abs()
+        if not (got.shape == (L * R, F * lpf) and scale > 0
+                and bool(((got - want).abs() <= bound).all())):
+            raise AssertionError(
+                f"{label}: table_scatter vs plain max |diff| {err} beyond "
+                f"rtol {SCATTER_RTOL}, atol {SCATTER_ATOL} x {scale}")
+
+        def run_k():
+            ts.table_scatter(*args)
+
+        def run_p():
+            ts.table_scatter_plain(*args)
+
+        t = [cuda_ms(torch, f, 10) for f in (run_p, run_k, run_k, run_p)]
+        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        print(f"[e] {label}: M {M} F {F} lpf {lpf} side {side} bf16 rounding, "
+              f"table {L * R}x{F * lpf} f32: max |diff| {err:.3e} (largest "
+              f"entry {scale:.3e}); kernel {ms:.4f} ms ({t[1]:.4f}, "
+              f"{t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f})")
+        if label == "flagship":
+            flagship = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        del g, p, flat_row, got, want, bound, args
+    torch.cuda.empty_cache()
+    return flagship
+
+
+def phase_training(torch):
+    """(f) 200 flagship steps through trainer.train, the CLI's entry point."""
+    from indoor_nerf_tpu_torch.ops import table_scatter as ts
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import train
+
+    args = parse_args(SERVE_FLAGS + ["--n_iters", str(TRAIN_STEPS),
+                                     "--i_print", "50"])
+    torch.cuda.reset_peak_memory_stats()
+    tc.reset_launch_count()  # the training path's run starts here
+    ts.reset_launch_count()
+    out = train(args)
+    launches = {"tent_contract": tc.launch_count(),
+                "table_scatter": ts.launch_count()}  # ... and ends here
+    losses = np.asarray(out["losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    steps_s = TRAIN_STEPS / out["seconds"]
+    print(f"[f] {TRAIN_STEPS} steps of {args.N_rand} rays: {steps_s:.2f} "
+          f"steps/s, {steps_s * args.N_rand:.0f} rays/s; loss mean of the "
+          f"first 10 steps {first:.6f}, last 10 {last:.6f}; PSNR "
+          f"{out['psnrs'][0]:.2f} -> {out['psnrs'][-1]:.2f} dB; launches "
+          f"{launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError("training loss went non-finite")
+    if not last < first:
+        raise AssertionError(f"loss did not fall: {first} -> {last}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"training launched no {name} kernel")
+    return out, launches
+
+
+def phase_step_check(torch, trained) -> None:
+    """(g) One step with both kernels and with both plain versions."""
+    from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.ops import blockhash
+    from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter_plain
+    from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract_plain
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import draw_step, make_train_state, train_step
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    dev = torch.device("cuda:0")
+    cli = parse_args(SERVE_FLAGS)
+    scene = load_dataset(cli)
+    cfg = build_train_config(cli, scene)
+    H, W, _ = scene.hwf
+    b = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                          scene.K, cli.N_rand, seed=5).next()
+    batch = {k: torch.from_numpy(b[k]).to(dev)
+             for k in ("rays_o", "rays_d", "target")}
+    params = {k: v.detach() for k, v in trained["params"].items()
+              if not isinstance(v, torch.nn.Module)}
+    params["coarse"] = copy.deepcopy(trained["params"]["coarse"])
+    draws = draw_step(torch.Generator(device=dev).manual_seed(3), cfg, 0,
+                      cli.N_rand)
+
+    def one_step():
+        # Zero moments: after this first step mu = 0.1 g and nu = 0.01 g^2.
+        state = make_train_state(copy.deepcopy(params), trained["occ"].copy())
+        return train_step(state, batch, cfg, draws=draws)
+
+    kern, km = one_step()
+    with mock.patch.object(blockhash, "tent_contract", tent_contract_plain), \
+            mock.patch.object(blockhash, "table_scatter", table_scatter_plain):
+        plain, pm = one_step()
+    torch.cuda.synchronize()
+    loss_err = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
+    occ_err = float((kern["occ"]["density"] - plain["occ"]["density"]).abs().max())
+    # A cotangent an f32 ulp apart can round to the neighbouring bf16
+    # value: one bf16 ulp (2^-8) of one term of the table's gradient entry.
+    checks = [("loss (relative)", loss_err, 1e-5),
+              ("occ density", occ_err, 1e-4 * float(plain["occ"]["density"].abs().max()))]
+    for key, tol in (("mu", 2.0 ** -8), ("nu", 2.0 ** -7)):
+        for name, want in plain["opt"][key].items():
+            got = kern["opt"][key][name]
+            rel = 1e-4 if name != "table" else tol
+            checks.append((f"{key} {name}", float((got - want).abs().max()),
+                           rel * float(want.abs().max())))
+        gt, wt = kern["opt"][key]["table"], plain["opt"][key]["table"]
+        checks.append((f"{key} table (relative norm)",
+                       float(torch.linalg.norm(gt - wt) / torch.linalg.norm(wt)),
+                       1e-3))
+    for what, err, tol in checks:
+        if not err <= tol:
+            raise AssertionError(f"kernels vs plain step: {what} {err} > {tol}")
+    print(f"[g] one step, kernels vs plain versions: loss "
+          f"{float(km['loss']):.6f} vs {float(pm['loss']):.6f}; "
+          + "; ".join(f"{w} {e:.3e} (tol {t:.3e})" for w, e, t in checks))
+
+
+def phase_bench(torch) -> None:
+    """(h) The training benchmark's JSON line."""
+    from indoor_nerf_tpu_torch import bench
+
+    print(f"[h] {json.dumps(bench.run())}")
+
+
 def main() -> int:
     import torch
 
@@ -271,17 +446,31 @@ def main() -> int:
     torch.cuda.set_device(0)
     name = phase_device(torch)
     phase_build()
-    flagship = phase_kernel(torch)
-    launches = phase_serving(torch)
+    tent = phase_kernel(torch)
+    serve_launches = phase_serving(torch)
     phase_render_check(torch)
-    print(json.dumps({"kernels": [{
-        "name": "tent_contract",
-        "route": "cuda",
-        "source": "indoor_nerf_tpu_torch/csrc/tent_contract.cu",
-        "replaces": "indoor_nerf_tpu/ops/pallas/tent_contract.py:167",
-        "launches": launches,
-        **flagship,
-    }]}))
+    scatter = phase_scatter(torch)
+    trained, train_launches = phase_training(torch)
+    phase_step_check(torch, trained["state"])
+    phase_bench(torch)
+    # "launches" is the count of the training path, this slice's main path;
+    # "launches_by_path" gives each path that runs the kernel its own count,
+    # each read from its own reset-then-read window.
+    print(json.dumps({"kernels": [
+        {"name": "tent_contract", "route": "cuda",
+         "source": "indoor_nerf_tpu_torch/csrc/tent_contract.cu",
+         "replaces": "indoor_nerf_tpu/ops/pallas/tent_contract.py:167",
+         "launches": train_launches["tent_contract"],
+         "launches_by_path": {"serving": serve_launches,
+                              "training": train_launches["tent_contract"]},
+         **tent},
+        {"name": "table_scatter", "route": "cuda",
+         "source": "indoor_nerf_tpu_torch/csrc/table_scatter.cu",
+         "replaces": "indoor_nerf_tpu/ops/pallas/table_scatter.py:399",
+         "launches": train_launches["table_scatter"],
+         "launches_by_path": {"training": train_launches["table_scatter"]},
+         **scatter},
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -6,10 +6,16 @@ MLP weights stored ``[in, out]``, ``(point, level)`` rows with the level
 index varying fastest), so its tests compare like with like. It imports
 ``torch`` and never ``jax``.
 
-The slice ported so far is the non-baked novel-view serving path
-(``serve.py``): rays -> occupancy-guided sampling -> block-hash encode
-(the hand-written ``tent_contract`` CUDA kernel, ``csrc/``) -> NeRFSmall ->
-compositing. Everything runs forward only, under ``torch.inference_mode``.
+The slices ported so far:
+
+- the non-baked novel-view serving path (``serve.py``): rays ->
+  occupancy-guided sampling -> block-hash encode (the hand-written
+  ``tent_contract`` CUDA kernel, ``csrc/``) -> NeRFSmall -> compositing,
+  forward only under ``torch.inference_mode``;
+- the flagship training step (``train/step.py``, ``train/trainer.py``,
+  ``bench.py``): the same forward with jittered draws, MSE + entropy +
+  block TV, the encode backward (the hand-written ``table_scatter`` CUDA
+  kernel), RAdam and the occupancy-grid refresh.
 """
 
 import torch

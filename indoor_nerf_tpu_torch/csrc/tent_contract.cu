@@ -11,12 +11,11 @@
 // no [M, F*lpf] rows array ever reaches device memory.
 //
 // Only the 8 vertices bracketing p have nonzero tent weight, so each
-// thread reads those 8 lanes of its feature and nothing else. With
-// i0 = clamp(floor(p), 0, side-2) per axis, the weights of lanes i0 and
-// i0+1 are computed with the same tent formula as the full-lane sum, and
-// every other lane's weight is exactly 0, so the result equals the
-// full-lane tent sum up to summation order. Accumulation is f32; the
-// table may be f32 or bf16 (bf16 widens to f32 exactly by a 16-bit shift).
+// thread reads those 8 lanes of its feature and nothing else
+// (tent_bracket.cuh: the weights are bitwise the full-lane ones, and every
+// other lane's weight is exactly 0), so the result equals the full-lane
+// tent sum up to summation order. Accumulation is f32; the table may be
+// f32 or bf16 (bf16 widens to f32 exactly by a 16-bit shift).
 //
 // What bounds it on an H100: gather transactions. Each (point, level)
 // touches 8 scattered 2-byte values per feature inside one 512-byte table
@@ -33,6 +32,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tent_bracket.cuh"
+
 namespace {
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
@@ -40,10 +41,6 @@ __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const uint16_t* p) {
   // bfloat16 is the top half of a float32.
   return __uint_as_float(static_cast<uint32_t>(__ldg(p)) << 16);
-}
-
-__device__ __forceinline__ float tent(float l, float p) {
-  return fmaxf(0.0f, 1.0f - fabsf(l - p));
 }
 
 template <typename T>
@@ -64,29 +61,21 @@ __global__ void tent_contract_kernel(const T* __restrict__ table,
     out[t] = __int_as_float(0x7fc00000);
     return;
   }
-  const float px = p[3 * m], py = p[3 * m + 1], pz = p[3 * m + 2];
-  const float hi = static_cast<float>(side - 2);
-  // fminf/fmaxf pick the number over a NaN, so the casts stay defined.
-  const int ix = static_cast<int>(fminf(fmaxf(floorf(px), 0.0f), hi));
-  const int iy = static_cast<int>(fminf(fmaxf(floorf(py), 0.0f), hi));
-  const int iz = static_cast<int>(fminf(fmaxf(floorf(pz), 0.0f), hi));
-  const float tx[2] = {tent(ix, px), tent(ix + 1, px)};
-  const float ty[2] = {tent(iy, py), tent(iy + 1, py)};
-  const float tz[2] = {tent(iz, pz), tent(iz + 1, pz)};
+  const tent_bracket::Bracket b =
+      tent_bracket::bracket(p[3 * m], p[3 * m + 1], p[3 * m + 2], side);
 
   const T* r = table + static_cast<int64_t>(row) * F * lpf +
-               static_cast<int64_t>(f) * lpf;
-  const int s2 = side * side;
+               static_cast<int64_t>(f) * lpf + b.lane0;
   float acc = 0.0f;
 #pragma unroll
   for (int dx = 0; dx < 2; ++dx) {
 #pragma unroll
     for (int dy = 0; dy < 2; ++dy) {
-      const float wxy = tx[dx] * ty[dy];
-      const T* ry = r + (ix + dx) * s2 + (iy + dy) * side + iz;
+      const float wxy = b.tx[dx] * b.ty[dy];
+      const T* ry = r + dx * b.stride_x + dy * b.stride_y;
 #pragma unroll
       for (int dz = 0; dz < 2; ++dz) {
-        acc += load_f32(ry + dz) * (wxy * tz[dz]);
+        acc += load_f32(ry + dz) * (wxy * b.tz[dz]);
       }
     }
   }

@@ -1,11 +1,12 @@
 """Build the package's CUDA kernels with nvcc and load them with ctypes.
 
-Each kernel is one ``csrc/<name>.cu`` file with a plain C interface. It is
-compiled at first use for Hopper (``sm_90a``) into ``build/`` inside the
-package (listed in ``.gitignore``), under a name that carries a hash of the
-source, so an edited source never loads a stale library. Nothing here runs
-at import time: the CPU tests import every module on machines without
-``nvcc``.
+Each kernel is one ``csrc/<name>.cu`` file with a plain C interface; the
+headers beside it (``csrc/*.cuh``) hold code that kernels share. A kernel
+is compiled at first use for Hopper (``sm_90a``) into ``build/`` inside the
+package (listed in ``.gitignore``), under a name that carries a hash of its
+source and of every header in ``csrc/``, so an edited source or header
+never loads a stale library. Nothing here runs at import time: the CPU
+tests import every module on machines without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -17,9 +18,10 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -35,7 +37,7 @@ class BuiltLibrary:
     log: str  # nvcc/ptxas output (registers, shared memory, spills)
 
 
-_LOCK = threading.Lock()
+_LOCK = threading.Lock()  # guards _LOADED
 _LOADED: Dict[str, BuiltLibrary] = {}
 
 
@@ -52,30 +54,57 @@ def _nvcc() -> str:
         "kernels of indoor_nerf_tpu_torch are built from csrc/ at first use")
 
 
+def source_digest(name: str, csrc_dir: Path = CSRC_DIR) -> str:
+    """Hash of ``<name>.cu`` and every ``*.cuh`` beside it (names and bytes)."""
+    h = hashlib.sha256()
+    for path in [csrc_dir / f"{name}.cu", *sorted(csrc_dir.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0")
+        h.update(path.read_bytes())
+        h.update(b"\0")
+    return h.hexdigest()[:16]
+
+
+def _compile(name: str) -> Tuple[Path, float, str]:
+    """Compile ``csrc/<name>.cu`` unless this source version is built.
+
+    Returns (library path, compile seconds, nvcc log). Safe to run
+    concurrently: the library appears by an atomic rename."""
+    src = CSRC_DIR / f"{name}.cu"
+    out = BUILD_DIR / f"lib{name}-{source_digest(name)}.so"
+    if out.exists():
+        return out, 0.0, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
+           "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-o", str(tmp), str(src)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    seconds = time.perf_counter() - t0
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {src}:\n{log}")
+    os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
+    return out, seconds, log
+
+
 def load_library(name: str) -> BuiltLibrary:
     """Compile ``csrc/<name>.cu`` (once per source version) and load it."""
     with _LOCK:
-        if name in _LOADED:
-            return _LOADED[name]
-        src = CSRC_DIR / f"{name}.cu"
-        digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-        out = BUILD_DIR / f"lib{name}-{digest}.so"
-        seconds, log = 0.0, ""
-        if not out.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = out.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *ARCH_FLAGS, "-std=c++17", "-O3", "-shared",
-                   "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-                   "-o", str(tmp), str(src)]
-            t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            seconds = time.perf_counter() - t0
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}) building {src}:\n{log}")
-            os.replace(tmp, out)  # atomic: a concurrent process never loads half a file
-        built = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
-        _LOADED[name] = built
-        return built
+        if name not in _LOADED:
+            out, seconds, log = _compile(name)
+            _LOADED[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
+        return _LOADED[name]
+
+
+def build_all(names: Sequence[str]) -> Dict[str, BuiltLibrary]:
+    """Build several kernels at once, one ``nvcc`` per source, all started
+    together, then load each. Raises the first build failure."""
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        compiled = dict(zip(names, pool.map(_compile, names)))
+    with _LOCK:
+        for name, (out, seconds, log) in compiled.items():
+            if name not in _LOADED:
+                _LOADED[name] = BuiltLibrary(ctypes.CDLL(str(out)), out,
+                                             seconds, log)
+        return {name: _LOADED[name] for name in names}

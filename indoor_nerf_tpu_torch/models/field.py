@@ -70,7 +70,9 @@ def init_field_params(generator: torch.Generator, config: FieldConfig,
     """Fresh params: the block table and the coarse (and fine) NeRFSmall.
 
     Same shapes and distributions as the JAX init; the numbers differ
-    (torch.Generator is not jax.random), so parity tests bridge weights."""
+    (torch.Generator is not jax.random), so parity tests bridge weights.
+    The MLP weights are ``nn.Parameter``s; the table is a plain tensor
+    until a train state marks every leaf trainable (``train/step.py``)."""
     def nerf_small():
         return init_nerf_small(
             generator, input_ch=config.input_ch,
@@ -93,9 +95,10 @@ def serving_params(params: Params, config: FieldConfig) -> Params:
     """Params with the table cast once to the gather dtype (bf16 for the
     flagship). The JAX encode recasts the f32 master on every call; a
     server holds the table fixed, so it casts once. The copy is valid only
-    while the params do not change: re-derive it after any update."""
+    while the params do not change: re-derive it after any update. It
+    carries no gradient."""
     out = dict(params)
-    out["table"] = gather_table(params["table"], config.block_grid)
+    out["table"] = gather_table(params["table"].detach(), config.block_grid)
     return out
 
 

@@ -23,7 +23,7 @@ def init_linear(generator: torch.Generator, in_dim: int, out_dim: int,
     def uniform(*shape):
         u = torch.rand(shape, generator=generator, dtype=torch.float32,
                        device=device)
-        return nn.Parameter(u * (2 * bound) - bound, requires_grad=False)
+        return nn.Parameter(u * (2 * bound) - bound)
 
     p = nn.ParameterDict({"w": uniform(in_dim, out_dim)})
     if bias:

@@ -1,12 +1,11 @@
-"""Block-hash grid encoder, forward half (ops/blockhash.py of the JAX package).
+"""Block-hash grid encoder (ops/blockhash.py of the JAX package).
 
 The table is ``[L * R, F * lpf]``: one row holds a halo'd ``side^3``-vertex
 tile of F features, so one (point, level) reads ONE row. Interpolation is
-the tent-product contraction of that row (``ops/tent_contract.py``), run by
-the hand-written CUDA kernel on the card.
-
-Forward only: the fused backward (``_encode_fused_bwd``, the
-``scatter_add_table`` kernel) comes with the training slice.
+the tent-product contraction of that row (``ops/tent_contract.py``), and
+the table gradient is the tent-weighted scatter-add of the output
+cotangent (``ops/table_scatter.py``); on the card both run hand-written
+CUDA kernels. ``block_tv_loss`` is the table's TV regularizer.
 """
 
 from __future__ import annotations
@@ -16,15 +15,14 @@ from typing import Tuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
+from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter
 from indoor_nerf_tpu_torch.ops.tent_contract import lanes_per_feature, tent_contract
 
 _BLOCK_PRIMES = (2654435761, 805459861, 3674653429, 2097192037)
 _MASK32 = 0xFFFFFFFF
-_BACKWARD_ITEM = ("the encode backward (_encode_fused_bwd and the "
-                  "scatter_add_table kernel) comes with ROADMAP.md Queue 1 "
-                  "item 2, the flagship training step")
 
 
 def _stagger(n_levels: int, block: int) -> np.ndarray:
@@ -39,8 +37,9 @@ def _stagger(n_levels: int, block: int) -> np.ndarray:
 class BlockHashConfig:
     """Static geometry of the block-hash grid (same fields as the JAX one).
 
-    The port runs ``gather_dtype`` float32 and bfloat16; ``scatter_dtype``
-    only selects the backward, which the serving slice does not run."""
+    The port runs ``gather_dtype`` float32 and bfloat16. ``scatter_dtype``
+    is the dtype the backward rounds each cotangent entry to before the f32
+    sum (bfloat16 for the flagship)."""
 
     bbox_min: Tuple[float, float, float]
     bbox_max: Tuple[float, float, float]
@@ -58,6 +57,8 @@ class BlockHashConfig:
             raise NotImplementedError(
                 f"gather_dtype {self.gather_dtype!r}: the int8 gather comes "
                 "with ROADMAP.md Queue 1 item 5 (training extensions)")
+        if self.scatter_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"scatter_dtype {self.scatter_dtype!r}")
 
     @property
     def rows_per_level(self) -> int:
@@ -74,6 +75,10 @@ class BlockHashConfig:
     @property
     def out_dim(self) -> int:
         return self.n_levels * self.n_features_per_level
+
+    @property
+    def torch_scatter_dtype(self) -> torch.dtype:
+        return torch.bfloat16 if self.scatter_dtype == "bfloat16" else torch.float32
 
 
 def init_block_table(generator: torch.Generator, config: BlockHashConfig,
@@ -161,17 +166,90 @@ def _gather_interp(table: torch.Tensor, flat_row: torch.Tensor,
                          config.side, config.n_features_per_level)
 
 
+class _Encode(torch.autograd.Function):
+    """The encode's row gather + tent contraction with its fused backward
+    (the JAX ``_encode_fused`` custom VJP, ops/blockhash.py:442-567).
+
+    Forward: ``tent_contract`` (rows in ``gather_dtype``, f32 sums).
+    Backward: ``table_scatter`` — each cotangent entry rounded to
+    ``scatter_dtype`` and summed in f32 into an f32 gradient of the
+    master's shape. No gradient flows to ``flat_row`` or ``p``: the encode
+    gives none w.r.t. the points, as the JAX fused VJP (:562-564)."""
+
+    @staticmethod
+    def forward(ctx, table, flat_row, p, config):
+        ctx.save_for_backward(flat_row, p)
+        ctx.config = config
+        ctx.n_rows = table.shape[0]
+        return _gather_interp(table, flat_row, p, config)
+
+    @staticmethod
+    def backward(ctx, g):
+        flat_row, p = ctx.saved_tensors
+        c = ctx.config
+        with record_function("encode_bwd"):
+            grad = table_scatter(g.contiguous(), p, flat_row, ctx.n_rows,
+                                 c.side, c.lanes_per_feature,
+                                 c.torch_scatter_dtype)
+        return grad, None, None, None
+
+
 def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
                       config: BlockHashConfig
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode ``[N, 3]`` points -> (features ``[N, L*F]`` f32, keep_mask ``[N]``).
 
-    ``table`` is the f32 master or its cached ``gather_table`` copy."""
-    if torch.is_grad_enabled() and (table.requires_grad or x.requires_grad):
+    ``table`` is the f32 master (its gradient is f32, of the master's
+    shape) or its cached ``gather_table`` copy (no gradient). The gradient
+    w.r.t. ``x`` is None. The JAX package gives the same zero ``dx`` at
+    ``scatter_dtype`` bfloat16, but a nonzero one through XLA autodiff at
+    float32, so a float32 encode refuses an ``x`` that requires grad."""
+    grad_on = torch.is_grad_enabled()
+    if grad_on and table.requires_grad and table.dtype != torch.float32:
+        raise TypeError(f"a trainable table must be the float32 master, got "
+                        f"{table.dtype}")
+    if grad_on and x.requires_grad and config.scatter_dtype == "float32":
         raise NotImplementedError(
-            "block_hash_encode is forward-only in this port; "
-            + _BACKWARD_ITEM)
+            "the gradient w.r.t. the encoded points: the port's encode gives "
+            "none (ROADMAP.md Queue 3), while the JAX float32 encode "
+            "differentiates through the tent weights")
     n = x.shape[0]
-    flat_row, p, keep_mask = _tile_coords(x, config)
-    out = _gather_interp(table, flat_row, p, config)
+    flat_row, p, keep_mask = _tile_coords(x.detach(), config)
+    out = _Encode.apply(table, flat_row, p, config)
     return out.reshape(n, config.out_dim), keep_mask
+
+
+def draw_tv_rows(generator: torch.Generator, config: BlockHashConfig,
+                 rows_per_level: int = 256) -> torch.Tensor:
+    """The TV loss's row draw (JAX :278-280): ``min(rows_per_level, R)``
+    rows per level, uniform, as global row ids ``[L * m]`` int64."""
+    L, R = config.n_levels, config.rows_per_level
+    m = min(rows_per_level, R)
+    dev = generator.device
+    local = torch.randint(0, R, (L, m), generator=generator, device=dev)
+    levels = torch.arange(L, dtype=torch.int64, device=dev)
+    return (local + levels[:, None] * R).reshape(-1)
+
+
+def block_tv_loss(table: torch.Tensor, config: BlockHashConfig,
+                  rows_idx: torch.Tensor) -> torch.Tensor:
+    """Total-variation regularizer of the block table (JAX :246-293).
+
+    Squared differences between each live vertex and its +z/+y/+x tile
+    neighbours (lanes l+1, l+side, l+side^2) over the rows ``rows_idx``
+    (``draw_tv_rows``), divided by the rows drawn per level. Its gradient
+    is plain autograd (``index_select`` -> ``index_add``), as the JAX one
+    is XLA's."""
+    L, F = config.n_levels, config.n_features_per_level
+    side, lpf = config.side, config.lanes_per_feature
+    m = rows_idx.shape[0] // L
+    lane = torch.arange(lpf, device=table.device)
+    lx, ly, lz = lane // (side * side), (lane // side) % side, lane % side
+    live = lane < side ** 3
+    rows = table.index_select(0, rows_idx)  # [L*m, F*lpf]
+    x = rows.reshape(L * m * F, lpf)
+    tv = 0.0
+    for k, coord in ((1, lz), (side, ly), (side * side, lx)):
+        mask = ((coord < side - 1) & live).to(torch.float32)
+        tv = tv + torch.sum(mask * (torch.roll(x, -k, dims=1) - x) ** 2)
+    return tv / m

@@ -3,14 +3,15 @@
 A dense low-resolution density grid over the scene bbox is the free
 coarse pass: a ladder of candidate depths is weighted by the grid and
 inverted through its CDF, so the network only sees ``n_samples`` points
-per ray, concentrated on occupied space. The grid's training-time refresh
-(``occupancy_update``) comes with the training slice.
+per ray, concentrated on occupied space. ``occupancy_update`` is the
+grid's training-time refresh; its random draws are inputs
+(``draw_occupancy_update``).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -62,6 +63,45 @@ def occupancy_lookup(pts: torch.Tensor, occ: OccState,
     """Nearest-cell density estimate for ``[..., 3]`` points."""
     idx = _cell_index(pts, config)
     return occ["density"][idx.reshape(-1)].reshape(idx.shape)
+
+
+def draw_occupancy_update(generator: torch.Generator,
+                          config: OccupancyConfig
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The refresh's draws (JAX :101-108): ``n_cells * update_fraction``
+    cells, uniform with replacement (int64), and a jitter ``[m, 3]`` in
+    [0, 1) per drawn cell."""
+    m = int(config.n_cells * config.update_fraction)
+    dev = generator.device
+    cells = torch.randint(0, config.n_cells, (m,), generator=generator,
+                          device=dev)
+    jitter = torch.rand((m, 3), generator=generator, device=dev)
+    return cells, jitter
+
+
+def occupancy_update(occ: OccState,
+                     sigma_fn: Callable[[torch.Tensor], torch.Tensor],
+                     config: OccupancyConfig, cells: torch.Tensor,
+                     jitter: torch.Tensor) -> OccState:
+    """One EMA refresh round (JAX :90-117).
+
+    The grid decays by ``config.decay``; each drawn cell is re-evaluated at
+    its jittered position with ``sigma_fn(pts [m, 3]) -> [m]`` and takes
+    max(decayed, fresh). A cell drawn more than once takes the largest of
+    its fresh values (``scatter_reduce`` amax), where the JAX
+    ``.at[cells].set`` leaves the winner unspecified: a deliberate,
+    deterministic divergence (ROADMAP.md Queue 3)."""
+    g = config.resolution
+    dev = occ["density"].device
+    ijk = torch.stack([(cells // (g * g)) % g, (cells // g) % g, cells % g],
+                      dim=-1).to(torch.float32)
+    bmin = torch.tensor(config.bbox_min, dtype=torch.float32, device=dev)
+    bmax = torch.tensor(config.bbox_max, dtype=torch.float32, device=dev)
+    pts = bmin + (ijk + jitter) / g * (bmax - bmin)
+    sigma = torch.relu(sigma_fn(pts))
+    decayed = occ["density"] * config.decay
+    refreshed = torch.maximum(decayed[cells], sigma)
+    return {"density": decayed.scatter_reduce(0, cells, refreshed, "amax")}
 
 
 def occupancy_z_vals(rays_o: torch.Tensor, rays_d: torch.Tensor,

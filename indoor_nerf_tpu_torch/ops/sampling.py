@@ -2,7 +2,8 @@
 
 Random draws are inputs: the port cannot reproduce ``jax.random`` streams,
 so a caller that wants jitter passes the uniform draws, and ``None`` means
-the deterministic (serving) schedule.
+the deterministic (serving) schedule. ``draw_stratified`` and ``draw_pdf_u``
+make those draws from a ``torch.Generator`` on its device.
 """
 
 from __future__ import annotations
@@ -24,6 +25,23 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     t = t * torch.tensor(1.0 / (n - 1), dtype=torch.float32, device=device)
     t[-1] = 1.0
     return t
+
+
+def draw_stratified(generator: torch.Generator, n_rays: int,
+                    n_samples: int) -> torch.Tensor:
+    """``t_rand`` ``[n_rays, n_samples]`` uniform in [0, 1): the stratum jitter."""
+    return torch.rand((n_rays, n_samples), generator=generator,
+                      device=generator.device)
+
+
+def draw_pdf_u(generator: torch.Generator, n_rays: int,
+               n_samples: int) -> torch.Tensor:
+    """Sorted inverse-CDF draws ``u = (i + xi) / S`` ``[n_rays, S]``, xi
+    uniform in [0, 1) (the JAX non-det branch of ``sample_pdf``, :90-93)."""
+    dev = generator.device
+    xi = torch.rand((n_rays, n_samples), generator=generator, device=dev)
+    i = torch.arange(n_samples, dtype=torch.float32, device=dev)
+    return (i + xi) / n_samples
 
 
 def stratified_z_vals(near: torch.Tensor, far: torch.Tensor, n_samples: int,

@@ -59,8 +59,9 @@ def lanes_per_feature(side: int) -> int:
     return 128 if side ** 3 > 64 else 64
 
 
-def tent_weights(p: torch.Tensor, side: int, lanes: int) -> torch.Tensor:
-    """Tent-product weights ``[M, lanes]`` for in-tile positions ``[M, 3]``.
+def tent_factors(p: torch.Tensor, side: int, lanes: int):
+    """Per-axis tent weights (tx, ty, tz), each ``[M, lanes]``, for in-tile
+    positions ``[M, 3]``.
 
     Lane l decodes to tile vertex (l//side^2, (l//side)%side, l%side); pad
     lanes >= side^3 decode to x >= side and get zero weight
@@ -72,6 +73,12 @@ def tent_weights(p: torch.Tensor, side: int, lanes: int) -> torch.Tensor:
     tx = torch.clamp_min(1.0 - torch.abs(lx[None, :] - p[:, 0:1]), 0.0)
     ty = torch.clamp_min(1.0 - torch.abs(ly[None, :] - p[:, 1:2]), 0.0)
     tz = torch.clamp_min(1.0 - torch.abs(lz[None, :] - p[:, 2:3]), 0.0)
+    return tx, ty, tz
+
+
+def tent_weights(p: torch.Tensor, side: int, lanes: int) -> torch.Tensor:
+    """Tent-product weights ``[M, lanes]`` for in-tile positions ``[M, 3]``."""
+    tx, ty, tz = tent_factors(p, side, lanes)
     return tx * ty * tz
 
 

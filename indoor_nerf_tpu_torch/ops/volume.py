@@ -7,6 +7,13 @@ from typing import Dict, Optional
 import torch
 
 
+def draw_sigma_noise(generator: torch.Generator, shape, std: float
+                     ) -> torch.Tensor:
+    """The ``raw_noise_std`` draw: standard normal ``shape`` times ``std``."""
+    return torch.randn(shape, generator=generator,
+                       device=generator.device) * std
+
+
 def raw2outputs(raw: torch.Tensor, z_vals: torch.Tensor, rays_d: torch.Tensor,
                 white_bkgd: bool = False,
                 sigma_noise: Optional[torch.Tensor] = None

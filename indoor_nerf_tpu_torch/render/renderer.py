@@ -1,10 +1,11 @@
-"""Volumetric rendering for serving (render/renderer.py of the JAX package).
+"""Volumetric rendering (render/renderer.py of the JAX package).
 
 ``render_rays`` runs the occupancy-guided single pass (the flagship) or the
 stratified single pass (``n_importance == 0``); the hierarchical fine pass
 comes with ROADMAP.md Queue 1 item 4. Full images are rendered as a Python
 loop over fixed ray tiles in place of the JAX ``lax.map``. Serving draws no
 random numbers: ``test_mode`` sets ``perturb = 0`` and no sigma noise.
+Training passes the jitter and sigma-noise draws (``draw_render``).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ from torch.profiler import record_function
 from indoor_nerf_tpu_torch.models.field import FieldConfig, query_field, serving_params
 from indoor_nerf_tpu_torch.ops.occupancy import OccState, OccupancyConfig, occupancy_z_vals
 from indoor_nerf_tpu_torch.ops.rays import get_rays
-from indoor_nerf_tpu_torch.ops.sampling import stratified_z_vals
-from indoor_nerf_tpu_torch.ops.volume import raw2outputs
+from indoor_nerf_tpu_torch.ops.sampling import draw_pdf_u, draw_stratified, stratified_z_vals
+from indoor_nerf_tpu_torch.ops.volume import draw_sigma_noise, raw2outputs
 
 MAP_KEYS = ("rgb_map", "depth_map", "acc_map", "disp_map")
 
@@ -53,28 +54,71 @@ class RenderConfig:
         return dataclasses.replace(self, perturb=0.0, raw_noise_std=0.0)
 
 
+def _draw_shapes(config: RenderConfig, n_rays: int) -> Dict[str, Tuple[int, int]]:
+    """The draws a render of ``n_rays`` rays takes under ``config``."""
+    occ = config.occupancy
+    n_samples = config.n_samples if occ is None else config.n_occ_samples
+    shapes = {}
+    if config.perturb != 0.0:
+        if occ is None:
+            shapes["t_rand"] = (n_rays, config.n_samples)
+        else:
+            shapes["t_rand"] = (n_rays, occ.n_candidates)
+            shapes["u"] = (n_rays, config.n_occ_samples)
+    if config.raw_noise_std > 0.0:
+        shapes["sigma_noise"] = (n_rays, n_samples)
+    return shapes
+
+
+def draw_render(generator: torch.Generator, n_rays: int,
+                config: RenderConfig) -> Dict[str, torch.Tensor]:
+    """A training render's draws from ``generator`` (on its device):
+    ``t_rand`` (stratum jitter), ``u`` (inverse-CDF draws, occupancy path)
+    and ``sigma_noise`` (already scaled by ``raw_noise_std``), each only
+    where ``config`` uses it. Empty for ``test_mode()`` configs."""
+    out = {}
+    for k, shape in _draw_shapes(config, n_rays).items():
+        if k == "t_rand":
+            out[k] = draw_stratified(generator, *shape)
+        elif k == "u":
+            out[k] = draw_pdf_u(generator, *shape)
+        else:
+            out[k] = draw_sigma_noise(generator, shape, config.raw_noise_std)
+    return out
+
+
 def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                 rays_d: torch.Tensor, viewdirs: Optional[torch.Tensor],
                 near: torch.Tensor, far: torch.Tensor, config: RenderConfig,
                 occ_state: Optional[OccState] = None,
-                step: Optional[int] = None) -> Dict[str, torch.Tensor]:
+                step: Optional[int] = None,
+                draws: Optional[Dict[str, torch.Tensor]] = None
+                ) -> Dict[str, torch.Tensor]:
     """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
-    ``[N, 1]``) deterministically. Returns rgb/depth/acc/disp maps, the
-    entropy ``sparsity_loss``, ``weights`` and ``z_vals``."""
-    if config.perturb != 0.0 or config.raw_noise_std != 0.0:
-        raise NotImplementedError(
-            "jittered sampling and sigma noise are training-time draws; they "
-            "come with ROADMAP.md Queue 1 item 2 (render with test_mode())")
+    ``[N, 1]``). Returns rgb/depth/acc/disp maps, the entropy
+    ``sparsity_loss``, ``weights`` and ``z_vals``.
+
+    A ``test_mode()`` config renders deterministically. Otherwise
+    ``draws`` (``draw_render``) carries the jitter and sigma noise, as the
+    JAX ``render_rays`` key does with ``train=True``."""
+    draws = draws or {}
+    missing = sorted(set(_draw_shapes(config, rays_o.shape[0])) - set(draws))
+    if missing:
+        raise ValueError(f"render with perturb={config.perturb}, raw_noise_std="
+                         f"{config.raw_noise_std} needs the draws {missing} "
+                         "(draw_render), or a test_mode() config")
     fc = config.field
     if config.occupancy is not None and occ_state is not None:
         with record_function("sample"):
             z_vals = occupancy_z_vals(rays_o, rays_d, near, far, occ_state,
                                       config.occupancy, config.n_occ_samples,
-                                      step)
+                                      step, t_rand=draws.get("t_rand"),
+                                      u=draws.get("u"))
         mlp_name = "fine" if "fine" in params else "coarse"
     elif config.n_importance == 0:
         z_vals = stratified_z_vals(near, far, config.n_samples,
-                                   lindisp=config.lindisp)
+                                   lindisp=config.lindisp,
+                                   t_rand=draws.get("t_rand"))
         mlp_name = "coarse"
     else:
         raise NotImplementedError(
@@ -83,7 +127,8 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw = query_field(params, mlp_name, pts, viewdirs, fc)
     with record_function("composite"):
-        out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd)
+        out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd,
+                          sigma_noise=draws.get("sigma_noise"))
     out["z_vals"] = z_vals
     return out
 

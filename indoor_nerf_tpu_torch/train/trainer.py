@@ -1,37 +1,66 @@
-"""Static config assembly (train/trainer.py::build_train_config of the JAX
-package), for the block-hash and occupancy subset the serving slice runs."""
+"""The training entry point (train/trainer.py of the JAX package, its
+flagship subset) and the static config assembly that serving shares.
+
+    python -m indoor_nerf_tpu_torch.train.trainer -- --flagship \
+        --dataset_type synthetic --use_viewdirs --white_bkgd --n_iters 200
+
+trains on the first CUDA card when there is one (the encode then runs the
+hand-written ``tent_contract`` and ``table_scatter`` kernels), else on the
+CPU, and prints loss and PSNR every ``--i_print`` steps. Checkpoints, test
+renders, videos and the metrics files come with ROADMAP.md Queue 1 item 3.
+"""
 
 from __future__ import annotations
 
-import dataclasses
+import sys
+import time
+from typing import Dict
 
 import numpy as np
+import torch
 
-from indoor_nerf_tpu_torch.data.load import SceneData
+from indoor_nerf_tpu_torch.data.load import SceneData, load_dataset
+from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
 from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
+from indoor_nerf_tpu_torch.train.config import parse_args
+from indoor_nerf_tpu_torch.train.step import TrainConfig, init_train_state, train_step
 
-
-@dataclasses.dataclass(frozen=True)
-class TrainConfig:
-    """The render config and scene bounds (the JAX TrainConfig's serving
-    subset; the loss and optimizer fields come with the training slice)."""
-
-    render: RenderConfig
-    near: float = 2.0
-    far: float = 6.0
-
-
-# Flags whose non-default value changes the forward path, with the ROADMAP
-# item that brings each.
+_ITEM5 = "Queue 1 item 5 (training extensions)"
+# Flags whose non-default value changes the model or the step, with the
+# ROADMAP item that brings each.
 _UNPORTED = (
-    ("ray_strides", None, "item 6 (ray-structured encodes)"),
-    ("ray_groups", None, "item 6 (ray-structured encodes)"),
-    ("use_quantization", False, "item 5 (training extensions)"),
-    ("predict_normals", False, "item 5 (training extensions)"),
+    ("ray_strides", None, "Queue 1 item 6 (ray-structured encodes)"),
+    ("ray_groups", None, "Queue 1 item 6 (ray-structured encodes)"),
+    ("use_quantization", False, _ITEM5),
+    ("use_acaq", False, _ITEM5),
+    ("predict_normals", False, _ITEM5),
+    ("use_structural_priors", False, _ITEM5),
+    ("distortion_loss_weight", 0.0, _ITEM5),
+    ("table_decay_weight", 0.0, _ITEM5),
+    ("ema_decay", 0.0, _ITEM5),
+    ("reg_views", 0, _ITEM5),
+    ("use_appearance", False, _ITEM5),
+    ("freq_anneal_iters", 0, _ITEM5),
+    ("view_anneal_iters", 0, _ITEM5),
 )
+# Flags of the training loop only, refused by ``train``.
+_UNPORTED_LOOP = (
+    ("no_batching", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
+    ("render_only", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
+    ("ft_path", None, "Queue 1 item 3 (trainer, CLI and loaders)"),
+    ("multihost", False, "Queue 1 item 8 (multi-device)"),
+    ("mesh_shape", None, "Queue 1 item 8 (multi-device)"),
+    ("use_pallas", False, "Queue 2 item 4 (tile_interp)"),
+)
+
+
+def _refuse(args, flags) -> None:
+    for flag, default, item in flags:
+        if getattr(args, flag, default) != default:
+            raise NotImplementedError(f"--{flag} comes with ROADMAP.md {item}")
 
 
 def build_train_config(args, scene: SceneData) -> TrainConfig:
@@ -41,10 +70,7 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
             f"--i_embed {args.i_embed}: the port runs the block-hash grid "
             "(--i_embed 3, e.g. --flagship); the others come with ROADMAP.md "
             "Queue 1 item 4 (the parity path)")
-    for flag, default, item in _UNPORTED:
-        if getattr(args, flag, default) != default:
-            raise NotImplementedError(
-                f"--{flag} comes with ROADMAP.md Queue 1 {item}")
+    _refuse(args, _UNPORTED)
     if scene.bounding_box is None:
         raise ValueError(f"dataset {args.dataset_type} provides no bounding "
                          "box; the block-hash grid needs one")
@@ -103,4 +129,69 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         occupancy=occupancy,
         n_occ_samples=args.occ_samples,
     )
-    return TrainConfig(render=render, near=scene.near, far=scene.far)
+    return TrainConfig(
+        render=render,
+        near=scene.near,
+        far=scene.far,
+        n_rand=args.N_rand,
+        lrate=args.lrate,
+        lrate_decay=args.lrate_decay,
+        sparse_loss_weight=args.sparse_loss_weight,
+        tv_loss_weight=args.tv_loss_weight,
+    )
+
+
+def train(args) -> Dict:
+    """Train ``args.n_iters`` steps on the batched ray sampler.
+
+    Returns {"losses": [...], "psnrs": [...] per step, "seconds" of the
+    step loop (closed by a device synchronize), "state"}."""
+    _refuse(args, _UNPORTED_LOOP)
+    scene = load_dataset(args)
+    H, W, _ = scene.hwf
+    cfg = build_train_config(args, scene)
+    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
+                             cfg, device)
+    # The JAX trainer's per-step keys split from PRNGKey(seed + 1).
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                                scene.K, args.N_rand, seed=args.seed)
+    print(f"training {args.n_iters} steps of {args.N_rand} rays on {device}; "
+          f"TRAIN views {scene.i_train.tolist()}")
+    losses, psnrs = [], []
+    t0 = time.perf_counter()
+    for i in range(1, args.n_iters + 1):
+        b = sampler.next()
+        batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
+                 for k in ("rays_o", "rays_d", "target")}
+        state, metrics = train_step(state, batch, cfg, gen)
+        losses.append(metrics["loss"])
+        psnrs.append(metrics["psnr"])
+        if i % args.i_print == 0 or i == args.n_iters:
+            loss = float(metrics["loss"])
+            if not np.isfinite(loss):
+                raise FloatingPointError(f"non-finite loss {loss} at iteration {i}")
+            print(f"[TRAIN] Iter: {i} Loss: {loss:.6f} "
+                  f"PSNR: {float(metrics['psnr']):.3f} lr: {metrics['lr']:.3e}")
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    seconds = time.perf_counter() - t0
+    print(f"{args.n_iters} steps in {seconds:.2f} s "
+          f"({args.n_iters / seconds:.2f} steps/s, "
+          f"{args.n_iters * args.N_rand / seconds:.0f} rays/s); checkpoints "
+          "and test renders come with ROADMAP.md Queue 1 item 3")
+    return {"losses": [float(v) for v in losses],
+            "psnrs": [float(v) for v in psnrs],
+            "seconds": seconds, "state": state}
+
+
+def main(argv=None) -> None:
+    argv = list(sys.argv[1:] if argv is None else argv)
+    if argv and argv[0] == "--":
+        argv = argv[1:]
+    train(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -6,13 +6,15 @@ through ``indoor_nerf_tpu_torch.bridge``.
 """
 
 import jax
+import jax.numpy as jnp
 import numpy as np
+import torch
 
 from indoor_nerf_tpu.data.load import load_dataset as j_load_dataset
 from indoor_nerf_tpu.train.config import parse_args
 from indoor_nerf_tpu.train.step import init_train_state
 from indoor_nerf_tpu.train.trainer import build_train_config as j_build
-from indoor_nerf_tpu_torch.bridge import params_from_numpy
+from indoor_nerf_tpu_torch.bridge import params_from_numpy, state_from_numpy
 from indoor_nerf_tpu_torch.data.load import load_dataset as t_load_dataset
 from indoor_nerf_tpu_torch.train.trainer import build_train_config as t_build
 
@@ -52,3 +54,49 @@ def both_states(jcfg, seed=0, occ_rng=None):
     tree = jax_state_numpy(jcfg, seed, occ_rng)
     jstate = jax.tree_util.tree_map(jax.numpy.asarray, tree)
     return jstate, params_from_numpy(tree)
+
+
+def jax_train_state_numpy(jstate):
+    """A JAX train state's leaves that the port carries, as numpy."""
+    keys = ("params", "opt", "occ", "step", "best_loss", "loss_ema",
+            "loss_ema_slow")
+    return jax.tree_util.tree_map(np.asarray, {k: jstate[k] for k in keys})
+
+
+def both_train_states(jcfg, seed=0):
+    """(JAX train state, port train state) holding the same values."""
+    jstate = init_train_state(jax.random.PRNGKey(seed), jcfg)
+    return jstate, state_from_numpy(jax_train_state_numpy(jstate))
+
+
+def jax_step_draws(key, jcfg, n_rays, step):
+    """The draws the JAX ``train_step(key)`` makes at ``step``, replayed
+    for the port's ``draws=``: the key splits of train/step.py:187,
+    render/renderer.py:89 and ops/occupancy.py:102,142."""
+    rc = jcfg.render
+    oc = rc.occupancy
+    bg = rc.field.block_grid
+    k_render, k_tv, _, k_occ = jax.random.split(key, 4)
+    k_strat, _, k_noise0, _ = jax.random.split(k_render, 4)
+    k_cand, k_pdf = jax.random.split(k_strat)
+    S = rc.n_occ_samples
+    xi = np.asarray(jax.random.uniform(k_pdf, (n_rays, S)))
+    draws = {
+        "t_rand": np.asarray(jax.random.uniform(k_cand, (n_rays, oc.n_candidates))),
+        "u": (np.arange(S, dtype=np.float32) + xi) / np.float32(S),
+    }
+    if rc.raw_noise_std > 0:
+        draws["sigma_noise"] = np.asarray(
+            jax.random.normal(k_noise0, (n_rays, S))) * np.float32(rc.raw_noise_std)
+    if jcfg.tv_loss_weight > 0 and step <= jcfg.tv_cutoff_iter:
+        L, R = bg.n_levels, bg.rows_per_level
+        rows = jax.random.randint(k_tv, (L, min(256, R)), 0, R) \
+            + jnp.arange(L, dtype=jnp.int32)[:, None] * R
+        draws["tv_rows"] = np.asarray(rows).reshape(-1).astype(np.int64)
+    if step % oc.update_interval == 0:
+        k_cell, k_jit = jax.random.split(k_occ)
+        m = int(oc.n_cells * oc.update_fraction)
+        draws["occ_cells"] = np.asarray(jax.random.randint(
+            k_cell, (m,), 0, oc.n_cells, jnp.int32)).astype(np.int64)
+        draws["occ_jitter"] = np.asarray(jax.random.uniform(k_jit, (m, 3)))
+    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}

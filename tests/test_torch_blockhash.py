@@ -123,15 +123,28 @@ def test_encode_matches_jax_tent_kernel(rng, monkeypatch, knobs, tol):
                                rtol=tol, atol=tol)
 
 
-def test_encode_is_forward_only(rng):
-    _, tcfg = _configs()
+@pytest.mark.parametrize("gather", ["bfloat16", "float32"])
+def test_encode_backward_runs_and_gives_no_point_gradient(rng, gather):
+    """The table gets an f32 gradient of the master's shape; the points
+    get none (the JAX fused VJP's zero dx). A float32 encode refuses
+    points that require grad: the JAX float32 encode differentiates them."""
+    _, tcfg = _configs(gather=gather)
     table = torch.from_numpy(_table(rng, tcfg)).requires_grad_(True)
-    x = torch.from_numpy(_points(rng, 8))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-        tbh.block_hash_encode(x, table, tcfg)
-    with torch.inference_mode():
-        feats, _ = tbh.block_hash_encode(x, table, tcfg)
+    x = torch.from_numpy(_points(rng, 8)).requires_grad_(True)
+    if gather == "float32":
+        with pytest.raises(NotImplementedError, match="Queue 3"):
+            tbh.block_hash_encode(x, table, tcfg)
+        x = x.detach()
+    feats, _ = tbh.block_hash_encode(x, table, tcfg)
     assert feats.shape == (8, tcfg.out_dim)
+    feats.sum().backward()
+    assert table.grad.dtype == torch.float32
+    assert table.grad.shape == table.shape
+    assert float(table.grad.abs().max()) > 0.0
+    assert x.grad is None
+    with torch.inference_mode():
+        again, _ = tbh.block_hash_encode(x, table, tcfg)
+    np.testing.assert_array_equal(again.numpy(), feats.detach().numpy())
 
 
 def test_int8_gather_is_refused():

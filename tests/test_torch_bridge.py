@@ -5,8 +5,14 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import configs, jax_state_numpy
-from indoor_nerf_tpu_torch.bridge import params_from_numpy, params_to_numpy
+from _torch_parity import configs, jax_state_numpy, jax_train_state_numpy
+from indoor_nerf_tpu.train.step import init_train_state
+from indoor_nerf_tpu_torch.bridge import (
+    params_from_numpy,
+    params_to_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
 from indoor_nerf_tpu_torch.models.field import init_field_params
 
 torch.set_num_threads(1)
@@ -42,3 +48,24 @@ def test_biased_layers_are_refused():
                                   "color_net": []}}}
     with pytest.raises(ValueError, match="bias-free"):
         params_from_numpy(tree)
+
+
+def test_train_state_round_trip_is_bitwise(rng):
+    """Params, RAdam moments and counters, occ and the loss EMAs."""
+    jcfg, _, _ = configs()
+    tree = jax_train_state_numpy(init_train_state(jax.random.PRNGKey(1), jcfg))
+    # Non-trivial moments, counters and EMAs.
+    tree = jax.tree_util.tree_map(
+        lambda a: (rng.standard_normal(a.shape).astype(a.dtype)
+                   if a.dtype == np.float32 else a + 7), tree)
+    state = state_from_numpy(tree)
+    assert state["step"] == 7 and state["opt"]["step"] == 7
+    assert all(t.requires_grad for t in
+               [state["params"]["table"], *state["params"]["coarse"].parameters()])
+    back = state_to_numpy(state)
+    flat, treedef = jax.tree_util.tree_flatten(tree)
+    flat_back, treedef_back = jax.tree_util.tree_flatten(back)
+    assert treedef == treedef_back
+    for a, b in zip(flat, flat_back):
+        assert a.dtype == b.dtype and a.shape == b.shape
+        np.testing.assert_array_equal(a, b)
