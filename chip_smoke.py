@@ -8,8 +8,9 @@ non-zero. There is no CPU fallback: without a CUDA card it exits 1 before
 printing any result.
 
   (a) device: name, torch / CUDA versions, nvidia-smi name and power limit;
-  (b) build: compiles csrc/tent_contract.cu and csrc/table_scatter.cu with
-      nvcc for sm_90a, one nvcc per source, started together;
+  (b) build: compiles csrc/tent_contract.cu, csrc/table_scatter.cu and
+      csrc/group_scatter.cu with nvcc for sm_90a, one nvcc per source,
+      started together;
   (c) tent_contract against its plain PyTorch version at the serving shapes
       (flagship side 4 / lpf 64 / F 4 over a bf16 [65536, 256] table with
       M = 16384 rays x 32 samples x 8 levels; side 5 / lpf 128 / F 2; a
@@ -30,7 +31,21 @@ printing any result.
   (g) one step from the trained params with both kernels and with both
       replaced by their plain versions, on the same draws: loss, grid and
       RAdam moments within the stated tolerances;
-  (h) the training benchmark (indoor_nerf_tpu_torch.bench) JSON line.
+  (h) the training benchmark (indoor_nerf_tpu_torch.bench) JSON line;
+  (i) group_scatter against its plain version at the flagship grouped
+      shape (4096 rays x 32 samples x 8 levels, G 4,4,2,2,1,1,1,1: 720,896
+      groups, F 4, lpf 64, side 4, bf16 rounding, a [65536, 256] f32
+      table): random anchor rows with integer and side - 1 positions, and
+      every group on one row; tolerances as (e); both timed;
+  (j) grouped training: trainer.train on the flagship CLI with
+      --ray_groups 4,4,2,2,1,1,1,1 for 200 steps; tent_contract and
+      group_scatter must launch, the loss fall as in (f);
+  (k) one grouped step from those params through the kernels and through
+      the plain versions, held as (g);
+  (l) strided training: --ray_strides 4,4,2,2,1,1,1,1 for 100 steps;
+      tent_contract and table_scatter must launch, the loss fall;
+  (m) the bench step with and without ray_groups 4,4,2,2,1,1,1,1 in
+      eight alternating windows of 30 steps, in this one process.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -40,6 +55,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import io
 import json
 import subprocess
@@ -54,6 +70,9 @@ import numpy as np
 
 SERVE_FLAGS = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
                "--white_bkgd"]
+GROUPS = (4, 4, 2, 2, 1, 1, 1, 1)  # the 8-level --ray_groups of the help text
+GROUP_FLAGS = SERVE_FLAGS + ["--ray_groups", ",".join(map(str, GROUPS))]
+STRIDE_FLAGS = SERVE_FLAGS + ["--ray_strides", ",".join(map(str, GROUPS))]
 KERNEL_TOL = 1e-5  # f32 accumulation both sides; summation order differs
 RENDER_TOL = 1e-4
 # table_scatter: f32 sums of the same rounded entries, in atomic orders
@@ -61,6 +80,8 @@ RENDER_TOL = 1e-4
 SCATTER_RTOL = 1e-4
 SCATTER_ATOL = 1e-6  # times the largest |entry|
 TRAIN_STEPS = 200
+STRIDED_STEPS = 100
+TIMED_STEPS = 30  # per window of (m)
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -92,7 +113,7 @@ def phase_build() -> None:
     from indoor_nerf_tpu_torch.cuda_build import ARCH_FLAGS, build_all
 
     t0 = time.perf_counter()
-    built = build_all(["tent_contract", "table_scatter"])
+    built = build_all(["tent_contract", "table_scatter", "group_scatter"])
     print(f"[b] built {len(built)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in built.items():
@@ -279,6 +300,31 @@ def phase_render_check(torch) -> None:
         raise AssertionError(f"render rgb kernel vs plain {err} > {RENDER_TOL}")
 
 
+def hold_scatter(torch, tag, what, kernel, plain, args, shape) -> dict:
+    """A scatter kernel's result against its plain version's on ``args``
+    (within SCATTER_RTOL and SCATTER_ATOL of the largest entry), then both
+    timed alternately; returns the numbers of the kernels line."""
+    got = kernel(*args)
+    want = plain(*args)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    bound = SCATTER_ATOL * scale + SCATTER_RTOL * want.abs()
+    if not (got.shape == shape and scale > 0
+            and bool(((got - want).abs() <= bound).all())):
+        raise AssertionError(
+            f"{what}: {kernel.__name__} vs plain max |diff| {err} beyond "
+            f"rtol {SCATTER_RTOL}, atol {SCATTER_ATOL} x {scale}")
+    del got, want, bound
+    t = [cuda_ms(torch, lambda f=f: f(*args), 10)
+         for f in (plain, kernel, kernel, plain)]
+    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    print(f"[{tag}] {what}: max |diff| {err:.3e} (largest entry {scale:.3e}); "
+          f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain "
+          f"{plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
 def phase_scatter(torch) -> dict:
     """(e) table_scatter against its plain version at the training shape."""
     from indoor_nerf_tpu_torch.ops import table_scatter as ts
@@ -301,56 +347,37 @@ def phase_scatter(torch) -> dict:
         level = torch.arange(M, device=dev) % L  # level-minor, as the encode
         flat_row = (local + level * R).to(torch.int32)
         args = (g, p, flat_row, L * R, side, lpf, torch.bfloat16)
-        got = ts.table_scatter(*args)
-        want = ts.table_scatter_plain(*args)
-        torch.cuda.synchronize()
-        err = float((got - want).abs().max())
-        scale = float(want.abs().max())
-        bound = SCATTER_ATOL * scale + SCATTER_RTOL * want.abs()
-        if not (got.shape == (L * R, F * lpf) and scale > 0
-                and bool(((got - want).abs() <= bound).all())):
-            raise AssertionError(
-                f"{label}: table_scatter vs plain max |diff| {err} beyond "
-                f"rtol {SCATTER_RTOL}, atol {SCATTER_ATOL} x {scale}")
-
-        def run_k():
-            ts.table_scatter(*args)
-
-        def run_p():
-            ts.table_scatter_plain(*args)
-
-        t = [cuda_ms(torch, f, 10) for f in (run_p, run_k, run_k, run_p)]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
-        print(f"[e] {label}: M {M} F {F} lpf {lpf} side {side} bf16 rounding, "
-              f"table {L * R}x{F * lpf} f32: max |diff| {err:.3e} (largest "
-              f"entry {scale:.3e}); kernel {ms:.4f} ms ({t[1]:.4f}, "
-              f"{t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f})")
-        if label == "flagship":
-            flagship = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-        del g, p, flat_row, got, want, bound, args
+        stats = hold_scatter(
+            torch, "e", f"{label}: M {M} F {F} lpf {lpf} side {side} bf16 "
+            f"rounding, table {L * R}x{F * lpf} f32", ts.table_scatter,
+            ts.table_scatter_plain, args, (L * R, F * lpf))
+        flagship = flagship or stats
+        del g, p, flat_row, args
     torch.cuda.empty_cache()
     return flagship
 
 
-def phase_training(torch):
-    """(f) 200 flagship steps through trainer.train, the CLI's entry point."""
+def phase_training(torch, tag, flags, steps, expect):
+    """(f), (j), (l): ``steps`` flagship steps through trainer.train, the
+    CLI's entry point; every kernel in ``expect`` must launch."""
+    from indoor_nerf_tpu_torch.ops import group_scatter as gs
     from indoor_nerf_tpu_torch.ops import table_scatter as ts
     from indoor_nerf_tpu_torch.ops import tent_contract as tc
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.trainer import train
 
-    args = parse_args(SERVE_FLAGS + ["--n_iters", str(TRAIN_STEPS),
-                                     "--i_print", "50"])
+    modules = {"tent_contract": tc, "table_scatter": ts, "group_scatter": gs}
+    args = parse_args(flags + ["--n_iters", str(steps), "--i_print", "50"])
     torch.cuda.reset_peak_memory_stats()
-    tc.reset_launch_count()  # the training path's run starts here
-    ts.reset_launch_count()
+    for m in modules.values():  # this path's run starts here
+        m.reset_launch_count()
     out = train(args)
-    launches = {"tent_contract": tc.launch_count(),
-                "table_scatter": ts.launch_count()}  # ... and ends here
+    launches = {k: m.launch_count() for k, m in modules.items()}  # ... and ends here
     losses = np.asarray(out["losses"])
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
-    steps_s = TRAIN_STEPS / out["seconds"]
-    print(f"[f] {TRAIN_STEPS} steps of {args.N_rand} rays: {steps_s:.2f} "
+    steps_s = steps / out["seconds"]
+    print(f"[{tag}] {' '.join(flags[len(SERVE_FLAGS):]) or 'flat encode'}: "
+          f"{steps} steps of {args.N_rand} rays: {steps_s:.2f} "
           f"steps/s, {steps_s * args.N_rand:.0f} rays/s; loss mean of the "
           f"first 10 steps {first:.6f}, last 10 {last:.6f}; PSNR "
           f"{out['psnrs'][0]:.2f} -> {out['psnrs'][-1]:.2f} dB; launches "
@@ -360,17 +387,18 @@ def phase_training(torch):
         raise AssertionError("training loss went non-finite")
     if not last < first:
         raise AssertionError(f"loss did not fall: {first} -> {last}")
-    for name, n in launches.items():
-        if n <= 0:
+    for name in expect:
+        if launches[name] <= 0:
             raise AssertionError(f"training launched no {name} kernel")
     return out, launches
 
 
-def phase_step_check(torch, trained) -> None:
-    """(g) One step with both kernels and with both plain versions."""
+def phase_step_check(torch, tag, flags, trained) -> None:
+    """(g), (k) One step with the kernels and with their plain versions."""
     from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
     from indoor_nerf_tpu_torch.data.load import load_dataset
     from indoor_nerf_tpu_torch.ops import blockhash
+    from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter_plain
     from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter_plain
     from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract_plain
     from indoor_nerf_tpu_torch.train.config import parse_args
@@ -378,7 +406,7 @@ def phase_step_check(torch, trained) -> None:
     from indoor_nerf_tpu_torch.train.trainer import build_train_config
 
     dev = torch.device("cuda:0")
-    cli = parse_args(SERVE_FLAGS)
+    cli = parse_args(flags)
     scene = load_dataset(cli)
     cfg = build_train_config(cli, scene)
     H, W, _ = scene.hwf
@@ -399,7 +427,8 @@ def phase_step_check(torch, trained) -> None:
 
     kern, km = one_step()
     with mock.patch.object(blockhash, "tent_contract", tent_contract_plain), \
-            mock.patch.object(blockhash, "table_scatter", table_scatter_plain):
+            mock.patch.object(blockhash, "table_scatter", table_scatter_plain), \
+            mock.patch.object(blockhash, "group_scatter", group_scatter_plain):
         plain, pm = one_step()
     torch.cuda.synchronize()
     loss_err = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
@@ -421,9 +450,83 @@ def phase_step_check(torch, trained) -> None:
     for what, err, tol in checks:
         if not err <= tol:
             raise AssertionError(f"kernels vs plain step: {what} {err} > {tol}")
-    print(f"[g] one step, kernels vs plain versions: loss "
+    print(f"[{tag}] one step, kernels vs plain versions: loss "
           f"{float(km['loss']):.6f} vs {float(pm['loss']):.6f}; "
           + "; ".join(f"{w} {e:.3e} (tol {t:.3e})" for w, e, t in checks))
+
+
+def phase_group_scatter(torch) -> dict:
+    """(i) group_scatter against its plain version at the grouped shape."""
+    from indoor_nerf_tpu_torch.ops import group_scatter as gs
+
+    dev = torch.device("cuda:0")
+    g0 = torch.Generator(device=dev).manual_seed(4)
+    side, F, lpf, L, R = 4, 4, 64, 8, 8192
+    Rn, S = 4096, 32
+    n_groups = Rn * sum(S // G for G in GROUPS)
+    flagship = None
+    for label, one_row in (("flagship", False), ("one_row", True)):
+        g = torch.randn((Rn, S, L * F), generator=g0, device=dev)
+        if one_row:
+            g = g.abs()  # sums of ~10^5 terms that do not cancel
+        p = torch.rand((Rn, S, L, 3), generator=g0, device=dev) * (side - 1)
+        flat = p.view(-1, 3)
+        flat[:4096] = torch.randint(0, side, (4096, 3), generator=g0,
+                                    device=dev).float()  # tent kinks
+        flat[4096:8192] = side - 1
+        row = torch.empty((Rn, S, L), dtype=torch.int32, device=dev)
+        for l, G in enumerate(GROUPS):  # one anchor row per group
+            local = (torch.zeros((Rn, S // G), dtype=torch.int64, device=dev)
+                     if one_row else torch.randint(0, R, (Rn, S // G),
+                                                   generator=g0, device=dev))
+            row[:, :, l] = (local.repeat_interleave(G, dim=1) + l * R).int()
+        args = (g, row, p, GROUPS, L * R, side, lpf, torch.bfloat16)
+        stats = hold_scatter(
+            torch, "i", f"{label}: {Rn} rays x {S} samples x {L} levels, G "
+            f"{GROUPS} ({n_groups} groups), F {F} lpf {lpf} side {side} bf16 "
+            f"rounding, table {L * R}x{F * lpf} f32", gs.group_scatter,
+            gs.group_scatter_plain, args, (L * R, F * lpf))
+        flagship = flagship or stats
+        del g, p, flat, row, args
+    torch.cuda.empty_cache()
+    return flagship
+
+
+def phase_group_timing(torch) -> None:
+    """(m) The bench step with and without grouping, in alternating windows."""
+    from indoor_nerf_tpu_torch import bench
+    from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
+
+    dev = torch.device("cuda:0")
+    flat = bench.bench_config()
+    fc = flat.render.field
+    grouped = dataclasses.replace(flat, render=dataclasses.replace(
+        flat.render, field=dataclasses.replace(fc, block_grid=dataclasses.replace(
+            fc.block_grid, ray_groups=GROUPS))))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in bench.bench_batch().items()}
+    runs = {}
+    for name, cfg in (("ungrouped", flat), ("grouped", grouped)):
+        state = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                 cfg, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(TIMED_STEPS):  # warm-up, as the bench
+            state, _ = train_step(state, batch, cfg, gen)
+        runs[name] = (cfg, state, gen)
+    torch.cuda.synchronize(dev)
+    ms = {"ungrouped": [], "grouped": []}
+    for name in ("ungrouped", "grouped", "grouped", "ungrouped") * 2:
+        cfg, state, gen = runs[name]
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            state, metrics = train_step(state, batch, cfg, gen)
+        torch.cuda.synchronize(dev)
+        ms[name].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{name} bench step: non-finite loss")
+    print(f"[m] bench step, {TIMED_STEPS} steps per window, alternating: "
+          + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)} ms/step "
+                      f"({bench.N_RAND / (sum(vs) / len(vs)) * 1e3:.0f} rays/s)"
+                      for k, vs in ms.items()))
 
 
 def phase_bench(torch) -> None:
@@ -450,26 +553,47 @@ def main() -> int:
     serve_launches = phase_serving(torch)
     phase_render_check(torch)
     scatter = phase_scatter(torch)
-    trained, train_launches = phase_training(torch)
-    phase_step_check(torch, trained["state"])
+    trained, flat_launches = phase_training(
+        torch, "f", SERVE_FLAGS, TRAIN_STEPS, ("tent_contract", "table_scatter"))
+    phase_step_check(torch, "g", SERVE_FLAGS, trained["state"])
     phase_bench(torch)
-    # "launches" is the count of the training path, this slice's main path;
-    # "launches_by_path" gives each path that runs the kernel its own count,
-    # each read from its own reset-then-read window.
+    grouped = phase_group_scatter(torch)
+    trained, group_launches = phase_training(
+        torch, "j", GROUP_FLAGS, TRAIN_STEPS, ("tent_contract", "group_scatter"))
+    phase_step_check(torch, "k", GROUP_FLAGS, trained["state"])
+    _, stride_launches = phase_training(
+        torch, "l", STRIDE_FLAGS, STRIDED_STEPS, ("tent_contract", "table_scatter"))
+    phase_group_timing(torch)
+    # "launches" is the count of the path of this slice that runs the
+    # kernel (grouped training for tent_contract and group_scatter, strided
+    # training for table_scatter); "launches_by_path" gives every path that
+    # runs it its own count, each read from its own reset-then-read window.
+    paths = {"training": flat_launches, "training_grouped": group_launches,
+             "training_strided": stride_launches}
+
+    def by_path(name):
+        return {p: n[name] for p, n in paths.items()}
+
     print(json.dumps({"kernels": [
         {"name": "tent_contract", "route": "cuda",
          "source": "indoor_nerf_tpu_torch/csrc/tent_contract.cu",
          "replaces": "indoor_nerf_tpu/ops/pallas/tent_contract.py:167",
-         "launches": train_launches["tent_contract"],
+         "launches": group_launches["tent_contract"],
          "launches_by_path": {"serving": serve_launches,
-                              "training": train_launches["tent_contract"]},
+                              **by_path("tent_contract")},
          **tent},
         {"name": "table_scatter", "route": "cuda",
          "source": "indoor_nerf_tpu_torch/csrc/table_scatter.cu",
          "replaces": "indoor_nerf_tpu/ops/pallas/table_scatter.py:399",
-         "launches": train_launches["table_scatter"],
-         "launches_by_path": {"training": train_launches["table_scatter"]},
+         "launches": stride_launches["table_scatter"],
+         "launches_by_path": by_path("table_scatter"),
          **scatter},
+        {"name": "group_scatter", "route": "cuda",
+         "source": "indoor_nerf_tpu_torch/csrc/group_scatter.cu",
+         "replaces": "indoor_nerf_tpu/ops/pallas/table_scatter.py:494",
+         "launches": group_launches["group_scatter"],
+         "launches_by_path": by_path("group_scatter"),
+         **grouped},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -15,7 +15,10 @@ The slices ported so far:
 - the flagship training step (``train/step.py``, ``train/trainer.py``,
   ``bench.py``): the same forward with jittered draws, MSE + entropy +
   block TV, the encode backward (the hand-written ``table_scatter`` CUDA
-  kernel), RAdam and the occupancy-grid refresh.
+  kernel), RAdam and the occupancy-grid refresh;
+- the ray-structured encodes of that step (``--ray_groups``, whose
+  backward is the hand-written ``group_scatter`` CUDA kernel, and
+  ``--ray_strides``).
 """
 
 import torch

@@ -1,9 +1,10 @@
 """The radiance field: block-hash encode + NeRFSmall + out-of-bbox masking.
 
 Port of models/field.py of the JAX package for ``i_embed 3`` (the
-block-hash grid) without quantization, level/view annealing, appearance
-latents or tensor parallelism. ``params`` is a dict: ``"table"`` (the
-``[L*R, F*lpf]`` tensor) and ``"coarse"`` (a ``NeRFSmall``).
+block-hash grid, flat or ray-structured) without quantization, level/view
+annealing, appearance latents or tensor parallelism. ``params`` is a dict:
+``"table"`` (the ``[L*R, F*lpf]`` tensor) and ``"coarse"`` (a
+``NeRFSmall``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,8 @@ from indoor_nerf_tpu_torch.models.mlp import init_nerf_small
 from indoor_nerf_tpu_torch.ops.blockhash import (
     BlockHashConfig,
     block_hash_encode,
+    block_hash_encode_grouped,
+    block_hash_encode_strided,
     gather_table,
     init_block_table,
 )
@@ -129,11 +132,20 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
                 ) -> torch.Tensor:
     """Query the field on an ``[R, S, 3]`` sample grid -> raw ``[R, S, 4]``.
 
+    With ``ray_groups`` or ``ray_strides`` set on the block grid the encode
+    is the ray-structured one (JAX field.py:519-546); else the flat one.
     ``viewdirs`` ``[R, 3]`` unit directions are encoded once per ray and
     broadcast over the samples. Sigma is zeroed outside the bbox."""
     r, s, _ = pts.shape
+    bg = config.block_grid
     with record_function("encode"):
-        feats, keep = encode_position(pts.reshape(-1, 3), params, config)
+        if bg.ray_groups is not None or bg.ray_strides is not None:
+            enc = (block_hash_encode_grouped if bg.ray_groups is not None
+                   else block_hash_encode_strided)
+            feats3, keep2 = enc(pts, params["table"], bg)
+            feats, keep = feats3.reshape(r * s, -1), keep2.reshape(r * s)
+        else:
+            feats, keep = encode_position(pts.reshape(-1, 3), params, config)
 
     view_feats = None
     if config.use_viewdirs and viewdirs is not None:

@@ -5,9 +5,12 @@ flagship subset) and the static config assembly that serving shares.
         --dataset_type synthetic --use_viewdirs --white_bkgd --n_iters 200
 
 trains on the first CUDA card when there is one (the encode then runs the
-hand-written ``tent_contract`` and ``table_scatter`` kernels), else on the
-CPU, and prints loss and PSNR every ``--i_print`` steps. Checkpoints, test
-renders, videos and the metrics files come with ROADMAP.md Queue 1 item 3.
+hand-written ``tent_contract`` kernel, and its backward ``table_scatter``,
+or ``group_scatter`` with ``--ray_groups``), else on the CPU, and prints
+loss and PSNR every ``--i_print`` steps. ``--ray_groups`` and
+``--ray_strides`` (one value per level) select the ray-structured encodes.
+Checkpoints, test renders, videos and the metrics files come with
+ROADMAP.md Queue 1 item 3.
 """
 
 from __future__ import annotations
@@ -32,8 +35,6 @@ _ITEM5 = "Queue 1 item 5 (training extensions)"
 # Flags whose non-default value changes the model or the step, with the
 # ROADMAP item that brings each.
 _UNPORTED = (
-    ("ray_strides", None, "Queue 1 item 6 (ray-structured encodes)"),
-    ("ray_groups", None, "Queue 1 item 6 (ray-structured encodes)"),
     ("use_quantization", False, _ITEM5),
     ("use_acaq", False, _ITEM5),
     ("predict_normals", False, _ITEM5),
@@ -55,6 +56,11 @@ _UNPORTED_LOOP = (
     ("mesh_shape", None, "Queue 1 item 8 (multi-device)"),
     ("use_pallas", False, "Queue 2 item 4 (tile_interp)"),
 )
+
+
+def _per_level(arg):
+    """A comma list of per-level ints (``--ray_strides 4,4,2,1``) or None."""
+    return tuple(int(v) for v in arg.split(",")) if arg else None
 
 
 def _refuse(args, flags) -> None:
@@ -97,6 +103,8 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         scatter_dtype=("bfloat16" if args.block_io in ("bf16", "int8")
                        else "float32"),
         block_size=args.block_size,
+        ray_strides=_per_level(args.ray_strides),
+        ray_groups=_per_level(args.ray_groups),
     )
     field = FieldConfig(
         block_grid=block_grid,

@@ -5,17 +5,25 @@ JAX package initialises the weights, and the port receives the same arrays
 through ``indoor_nerf_tpu_torch.bridge``.
 """
 
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 from indoor_nerf_tpu.data.load import load_dataset as j_load_dataset
+from indoor_nerf_tpu.data.pipeline import BatchedRaySampler as JBatchedRaySampler
 from indoor_nerf_tpu.train.config import parse_args
-from indoor_nerf_tpu.train.step import init_train_state
+from indoor_nerf_tpu.train.step import init_train_state, train_step as j_train_step
 from indoor_nerf_tpu.train.trainer import build_train_config as j_build
-from indoor_nerf_tpu_torch.bridge import params_from_numpy, state_from_numpy
+from indoor_nerf_tpu_torch.bridge import (
+    params_from_numpy,
+    state_from_numpy,
+    state_to_numpy,
+)
 from indoor_nerf_tpu_torch.data.load import load_dataset as t_load_dataset
+from indoor_nerf_tpu_torch.train.step import train_step
 from indoor_nerf_tpu_torch.train.trainer import build_train_config as t_build
 
 # The flagship preset at test size: 4 levels x 4 features, 2^7 rows per
@@ -100,3 +108,62 @@ def jax_step_draws(key, jcfg, n_rays, step):
             k_cell, (m,), 0, oc.n_cells, jnp.int32)).astype(np.int64)
         draws["occ_jitter"] = np.asarray(jax.random.uniform(k_jit, (m, 3)))
     return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
+def jax_batch_sampler(scene, n, seed=0):
+    """The JAX package's ray sampler over the scene's training views."""
+    H, W, _ = scene.hwf
+    return JBatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                              scene.K, n, seed=seed)
+
+
+def jax_step_fn(jcfg):
+    return jax.jit(functools.partial(j_train_step, config=jcfg))
+
+
+def assert_tree_close(got, want, rtol, what):
+    """Each leaf within ``rtol`` relative, and ``rtol`` of its largest
+    entry absolute (entries near zero carry the absolute error of sums
+    of larger terms)."""
+    for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                            jax.tree_util.tree_leaves(got)):
+        np.testing.assert_allclose(g, w, rtol=rtol,
+                                   atol=rtol * float(np.abs(w).max()),
+                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
+
+
+def check_train_step_matches_jax(flags=TINY_FLAGSHIP, n_rays=64):
+    """One step of both packages from one state with the JAX draws, held to
+    the tolerances ``test_train_step_matches_jax`` states. The caller sets
+    the JAX encode backward's f32-accumulating Pallas path."""
+    jcfg, tcfg, scene = configs(flags)
+    jstate, tstate = both_train_states(jcfg)
+    b = jax_batch_sampler(scene, n_rays).next()
+    batch = {k: b[k] for k in ("rays_o", "rays_d", "target")}
+    key = jax.random.PRNGKey(5)
+    jnew, jm = jax_step_fn(jcfg)(
+        jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
+    tnew, tm = train_step(tstate, {k: torch.from_numpy(v) for k, v in batch.items()},
+                          tcfg, draws=jax_step_draws(key, jcfg, n_rays, 0))
+    for k in ("loss", "img_loss", "psnr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(tm["lr"], float(jm["lr"]), rtol=1e-7)
+    want = jax_train_state_numpy(jnew)
+    got = state_to_numpy(tnew)
+    assert int(got["step"]) == 1 and int(got["opt"]["step"]) == 1
+    for k in ("loss_ema", "loss_ema_slow", "best_loss"):
+        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
+    np.testing.assert_allclose(got["occ"]["density"], want["occ"]["density"],
+                               rtol=1e-5, atol=1e-6)
+    for key_, tol in (("mu", 2.0 ** -8), ("nu", 2.0 ** -7)):
+        mlp_got = {k: v for k, v in got["opt"][key_].items() if k != "table"}
+        mlp_want = {k: v for k, v in want["opt"][key_].items() if k != "table"}
+        assert_tree_close(mlp_got, mlp_want, 1e-4, key_)
+        gt, wt = got["opt"][key_]["table"], want["opt"][key_]["table"]
+        scale = float(np.abs(wt).max())
+        assert scale > 0.0
+        np.testing.assert_allclose(gt, wt, rtol=0, atol=tol * scale)
+        assert np.linalg.norm(gt - wt) <= 1e-3 * np.linalg.norm(wt)
+    # RAdam's first step leaves every parameter where it was.
+    assert_tree_close(got["params"], jax_train_state_numpy(jstate)["params"],
+                      0, "params")

@@ -82,8 +82,8 @@ def test_build_train_config_matches_jax():
 def test_unported_flags_name_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
         configs(["--dataset_type", "synthetic"])  # i_embed 1
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        configs(TINY_FLAGSHIP + ["--ray_groups", "2,2,1,1"])
+    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+        configs(TINY_FLAGSHIP + ["--use_quantization"])
 
 
 def test_png_round_trip(rng):

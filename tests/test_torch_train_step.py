@@ -8,8 +8,6 @@ the TPU runs, and the port's numerics; the JAX CPU default accumulates in
 bf16 instead.
 """
 
-import functools
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -19,10 +17,14 @@ import torch
 import indoor_nerf_tpu.ops.blockhash as jbh
 from _torch_parity import (
     TINY_FLAGSHIP,
+    assert_tree_close,
     both_states,
     both_train_states,
+    check_train_step_matches_jax,
     configs,
+    jax_batch_sampler,
     jax_step_draws,
+    jax_step_fn,
     jax_train_state_numpy,
 )
 from indoor_nerf_tpu.data.pipeline import BatchedRaySampler as JBatchedRaySampler
@@ -34,7 +36,6 @@ from indoor_nerf_tpu.train.optim import (
     pocketnerf_hyper_fn as j_hyper_fn,
     radam_update as j_radam_update,
 )
-from indoor_nerf_tpu.train.step import train_step as j_train_step
 from indoor_nerf_tpu_torch import bench
 from indoor_nerf_tpu_torch.bridge import state_to_numpy
 from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
@@ -207,27 +208,6 @@ def test_radam_matches_jax_over_8_steps(rng):
             assert moved == (step >= 5), (n, step)
 
 
-def _batch(scene, n=N_RAYS, seed=0):
-    H, W, _ = scene.hwf
-    return JBatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                              scene.K, n, seed=seed)
-
-
-def _jax_step(jcfg):
-    return jax.jit(functools.partial(j_train_step, config=jcfg))
-
-
-def _assert_tree_close(got, want, rtol, what):
-    """Each leaf within ``rtol`` relative, and ``rtol`` of its largest
-    entry absolute (entries near zero carry the absolute error of sums
-    of larger terms)."""
-    for (path, w), g in zip(jax.tree_util.tree_flatten_with_path(want)[0],
-                            jax.tree_util.tree_leaves(got)):
-        np.testing.assert_allclose(g, w, rtol=rtol,
-                                   atol=rtol * float(np.abs(w).max()),
-                                   err_msg=f"{what} {jax.tree_util.keystr(path)}")
-
-
 def test_train_step_matches_jax(f32_scatter):
     """One flagship step (tiny size) from one state with the JAX draws.
 
@@ -239,36 +219,7 @@ def test_train_step_matches_jax(f32_scatter):
     one bf16 ulp (2^-8) of one term: the table's mu is held at 2^-8 of its
     largest entry, nu (which squares the sum) at 2^-7, and both at 1e-3
     relative in norm."""
-    jcfg, tcfg, scene = configs()
-    jstate, tstate = both_train_states(jcfg)
-    b = _batch(scene).next()
-    batch = {k: b[k] for k in ("rays_o", "rays_d", "target")}
-    key = jax.random.PRNGKey(5)
-    jnew, jm = _jax_step(jcfg)(jstate, {k: jnp.asarray(v) for k, v in batch.items()}, key)
-    tnew, tm = train_step(tstate, {k: T(v) for k, v in batch.items()}, tcfg,
-                          draws=jax_step_draws(key, jcfg, N_RAYS, 0))
-    for k in ("loss", "img_loss", "psnr"):
-        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5, err_msg=k)
-    np.testing.assert_allclose(tm["lr"], float(jm["lr"]), rtol=1e-7)
-    want = jax_train_state_numpy(jnew)
-    got = state_to_numpy(tnew)
-    assert int(got["step"]) == 1 and int(got["opt"]["step"]) == 1
-    for k in ("loss_ema", "loss_ema_slow", "best_loss"):
-        np.testing.assert_allclose(got[k], want[k], rtol=1e-5, err_msg=k)
-    np.testing.assert_allclose(got["occ"]["density"], want["occ"]["density"],
-                               rtol=1e-5, atol=1e-6)
-    for key_, tol in (("mu", 2.0 ** -8), ("nu", 2.0 ** -7)):
-        mlp_got = {k: v for k, v in got["opt"][key_].items() if k != "table"}
-        mlp_want = {k: v for k, v in want["opt"][key_].items() if k != "table"}
-        _assert_tree_close(mlp_got, mlp_want, 1e-4, key_)
-        gt, wt = got["opt"][key_]["table"], want["opt"][key_]["table"]
-        scale = float(np.abs(wt).max())
-        assert scale > 0.0
-        np.testing.assert_allclose(gt, wt, rtol=0, atol=tol * scale)
-        assert np.linalg.norm(gt - wt) <= 1e-3 * np.linalg.norm(wt)
-    # RAdam's first step leaves every parameter where it was.
-    _assert_tree_close(got["params"], jax_train_state_numpy(jstate)["params"],
-                       0, "params")
+    check_train_step_matches_jax()
 
 
 def test_train_8_steps_match_jax_params(f32_scatter):
@@ -283,8 +234,8 @@ def test_train_8_steps_match_jax_params(f32_scatter):
     jcfg, tcfg, scene = configs()
     jstate, tstate = both_train_states(jcfg)
     start = jax_train_state_numpy(jstate)["params"]
-    sampler = _batch(scene, seed=1)
-    step_fn = _jax_step(jcfg)
+    sampler = jax_batch_sampler(scene, N_RAYS, seed=1)
+    step_fn = jax_step_fn(jcfg)
     key = jax.random.PRNGKey(11)
     for step in range(8):
         key, sub = jax.random.split(key)
@@ -297,7 +248,7 @@ def test_train_8_steps_match_jax_params(f32_scatter):
     got = state_to_numpy(tstate)["params"]
     lr = float(jcfg.lrate)
     for k in ("coarse",):
-        _assert_tree_close(got[k], want[k], 1e-4, k)
+        assert_tree_close(got[k], want[k], 1e-4, k)
     moved = want["table"] - start["table"]
     assert np.abs(moved).max() > 0.1 * lr
     diff = np.abs(got["table"] - want["table"])
