@@ -8,9 +8,9 @@ non-zero. There is no CPU fallback: without a CUDA card it exits 1 before
 printing any result.
 
   (a) device: name, torch / CUDA versions, nvidia-smi name and power limit;
-  (b) build: compiles csrc/tent_contract.cu, csrc/table_scatter.cu and
-      csrc/group_scatter.cu with nvcc for sm_90a, one nvcc per source,
-      started together;
+  (b) build: compiles csrc/tent_contract.cu, csrc/table_scatter.cu,
+      csrc/group_scatter.cu, csrc/tile_interp.cu and csrc/lane_gather.cu
+      with nvcc for sm_90a, one nvcc per source, started together;
   (c) tent_contract against its plain PyTorch version at the serving shapes
       (flagship side 4 / lpf 64 / F 4 over a bf16 [65536, 256] table with
       M = 16384 rays x 32 samples x 8 levels; side 5 / lpf 128 / F 2; a
@@ -45,10 +45,37 @@ printing any result.
   (l) strided training: --ray_strides 4,4,2,2,1,1,1,1 for 100 steps;
       tent_contract and table_scatter must launch, the loss fall;
   (m) the bench step with and without ray_groups 4,4,2,2,1,1,1,1 in
-      eight alternating windows of 30 steps, in this one process.
+      eight alternating windows of 30 steps, in this one process;
+  (n) tile_interp_fwd and tile_interp_bwd_rows against their plain versions
+      at the --use_pallas training shape (M = 4096 rays x 32 samples x 16
+      levels = 2,097,152 gathered rows [M, 256] f32, p in [0, 4] with 4,096
+      integer positions and 4,096 at side - 1) and at a ragged M: forward
+      max |diff| <= 1e-5, d rows bit for bit; both timed, alternating.
+      Then tile_interp_fwd(table[flat_row], p) against tent_contract(table,
+      flat_row, p, 5, 2), kernel against kernel, <= 1e-5, timed side by side;
+  (o) lane_select forward and backward against torch.gather and the one-hot
+      sum at N = 2,097,152, k = 8 and at k = 128 with repeated indices:
+      forward bit for bit, backward <= 1e-6 of the largest entry; the
+      kernels, the plain versions and the single library calls
+      (torch.gather, zeros.scatter_add_) timed;
+  (p) tile-interp training: trainer.train on the --use_pallas CLI at the
+      block-hash defaults (16 levels x 2 features, block_size 4, f32 IO)
+      for 100 steps; tile_interp_fwd and tile_interp_bwd_rows must launch,
+      tent_contract and table_scatter must not, the loss fall as in (f);
+  (q) one step from those params on the same draws three ways: the tile
+      route through the kernels, through the plain versions, and the
+      default route of the same config (tent_contract + table_scatter,
+      f32); then the two routes' steps timed in alternating windows;
+  (r) one 100x100 test-mode render at that config on the tile route and on
+      the default route: rgb max |diff| <= 1e-4; tile size and peak memory.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}: for each of the seven
+kernels its launches on the main path, its error and time against its plain
+version, the least time the card could take for the same work ("bound_ms":
+the larger of bytes moved once over 3.35 TB/s and operations over 67
+TFLOP/s f32, computed from the run's shapes) and, where one PyTorch call
+computes the same function on the same inputs, that call's time
+("library_ms", else null). The last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -82,6 +109,61 @@ SCATTER_ATOL = 1e-6  # times the largest |entry|
 TRAIN_STEPS = 200
 STRIDED_STEPS = 100
 TIMED_STEPS = 30  # per window of (m)
+# The --use_pallas path: the block-hash grid at the parser's defaults.
+TILE_FLAGS = ["--i_embed", "3", "--use_pallas", "--use_occupancy",
+              "--N_importance", "0", "--occ_samples", "32", "--occ_weighting",
+              "transmittance", "--dataset_type", "synthetic", "--use_viewdirs",
+              "--white_bkgd"]
+TILE_STEPS = 100
+TILE_TIMED_STEPS = 20  # per window of (q)
+LANE_RTOL = 1e-6  # lane_select_grad: sums of <= k terms, of the largest entry
+# The card's published peaks (H100 SXM): device memory rate, and the f32
+# rate outside the tensor cores, which is the type all seven kernels use.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS_PER_S = 67e12
+KERNELS = ("tent_contract", "table_scatter", "group_scatter",
+           "tile_interp_fwd", "tile_interp_bwd_rows", "lane_select_fwd",
+           "lane_select_grad")
+
+
+def bound(n_bytes: float, n_flops: float) -> dict:
+    """The least time the card could take: bytes moved once over the memory
+    rate, or operations over the f32 rate, whichever is larger."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def launch_counts() -> dict:
+    """Every kernel's launch count, by the names of the kernels line."""
+    from indoor_nerf_tpu_torch.ops import group_scatter as gs
+    from indoor_nerf_tpu_torch.ops import lane_gather as lg
+    from indoor_nerf_tpu_torch.ops import table_scatter as ts
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.ops import tile_interp as ti
+
+    out = {"tent_contract": tc.launch_count(),
+           "table_scatter": ts.launch_count(),
+           "group_scatter": gs.launch_count()}
+    out.update({k: ti.launch_count(k) for k in ti.KERNELS})
+    out.update({k: lg.launch_count(k) for k in lg.KERNELS})
+    return out
+
+
+def reset_launch_counts() -> None:
+    from indoor_nerf_tpu_torch.ops import group_scatter as gs
+    from indoor_nerf_tpu_torch.ops import lane_gather as lg
+    from indoor_nerf_tpu_torch.ops import table_scatter as ts
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.ops import tile_interp as ti
+
+    for m in (tc, ts, gs, ti, lg):
+        m.reset_launch_count()
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -96,6 +178,15 @@ def cuda_ms(torch, fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def alternate(torch, plain, kernel, iters, plain_iters=None):
+    """CUDA-event times of plain, kernel, kernel, plain in this order:
+    (kernel ms, plain ms, the four times)."""
+    t = [cuda_ms(torch, f, n) for f, n in (
+        (plain, plain_iters or iters), (kernel, iters), (kernel, iters),
+        (plain, plain_iters or iters))]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
 def phase_device(torch) -> str:
@@ -113,7 +204,8 @@ def phase_build() -> None:
     from indoor_nerf_tpu_torch.cuda_build import ARCH_FLAGS, build_all
 
     t0 = time.perf_counter()
-    built = build_all(["tent_contract", "table_scatter", "group_scatter"])
+    built = build_all(["tent_contract", "table_scatter", "group_scatter",
+                       "tile_interp", "lane_gather"])
     print(f"[b] built {len(built)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in built.items():
@@ -150,23 +242,21 @@ def phase_kernel(torch) -> dict:
         if not (got.shape == (M, F) and err <= KERNEL_TOL):
             raise AssertionError(f"{label}: kernel vs plain max |diff| {err} "
                                  f"> {KERNEL_TOL} (shape {tuple(got.shape)})")
-        iters = 20 if M > 100000 else 200
-        def run_k():
-            tc.tent_contract(table, flat_row, p, side, F)
-
-        def run_p():
-            tc.tent_contract_plain(table, flat_row, p, side, F)
-
-        # Alternate plain, kernel, kernel, plain within this one process.
-        t = [cuda_ms(torch, f, iters) for f in (run_p, run_k, run_k, run_p)]
-        ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        ms, plain_ms, t = alternate(
+            torch, lambda: tc.tent_contract_plain(table, flat_row, p, side, F),
+            lambda: tc.tent_contract(table, flat_row, p, side, F),
+            20 if M > 100000 else 200)
         print(f"[c] {label}: side {side} lpf {lpf} F {F} table "
               f"{tuple(table.shape)} {str(dtype)[6:]} M {M}: max |diff| "
               f"{err:.3e} (tol {KERNEL_TOL}); kernel {ms:.4f} ms "
               f"({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms "
               f"({t[0]:.4f}, {t[3]:.4f})")
         if label == "flagship":
-            flagship = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # table, flat_row and p read once, out written once; 8 lanes x
+            # (3 weight products + 1 multiply-add) per (m, f).
+            flagship = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        **bound(nbytes(table, flat_row, p, got), M * F * 8 * 5),
+                        "library_ms": None}
         del table, flat_row, p, got, want
     torch.cuda.empty_cache()
     return flagship
@@ -303,26 +393,32 @@ def phase_render_check(torch) -> None:
 def hold_scatter(torch, tag, what, kernel, plain, args, shape) -> dict:
     """A scatter kernel's result against its plain version's on ``args``
     (within SCATTER_RTOL and SCATTER_ATOL of the largest entry), then both
-    timed alternately; returns the numbers of the kernels line."""
+    timed alternately; returns the numbers of the kernels line. The bound
+    counts every tensor argument read once and the table written once, and
+    3 weight products, a rounding and an add for each of the 8 entries per
+    (row, feature) of the cotangent ``args[0]``; no one PyTorch call takes
+    (g, p, rows) to the table gradient, so there is no library time."""
     got = kernel(*args)
     want = plain(*args)
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
     scale = float(want.abs().max())
-    bound = SCATTER_ATOL * scale + SCATTER_RTOL * want.abs()
+    bound_ = SCATTER_ATOL * scale + SCATTER_RTOL * want.abs()
     if not (got.shape == shape and scale > 0
-            and bool(((got - want).abs() <= bound).all())):
+            and bool(((got - want).abs() <= bound_).all())):
         raise AssertionError(
             f"{what}: {kernel.__name__} vs plain max |diff| {err} beyond "
             f"rtol {SCATTER_RTOL}, atol {SCATTER_ATOL} x {scale}")
-    del got, want, bound
-    t = [cuda_ms(torch, lambda f=f: f(*args), 10)
-         for f in (plain, kernel, kernel, plain)]
-    ms, plain_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    least = bound(nbytes(got, *(a for a in args if torch.is_tensor(a))),
+                  args[0].numel() * 8 * 5)
+    del got, want, bound_
+    ms, plain_ms, t = alternate(torch, lambda: plain(*args),
+                                lambda: kernel(*args), 10)
     print(f"[{tag}] {what}: max |diff| {err:.3e} (largest entry {scale:.3e}); "
           f"kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain "
           f"{plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **least,
+            "library_ms": None}
 
 
 def phase_scatter(torch) -> dict:
@@ -357,31 +453,28 @@ def phase_scatter(torch) -> dict:
     return flagship
 
 
-def phase_training(torch, tag, flags, steps, expect):
-    """(f), (j), (l): ``steps`` flagship steps through trainer.train, the
-    CLI's entry point; every kernel in ``expect`` must launch."""
-    from indoor_nerf_tpu_torch.ops import group_scatter as gs
-    from indoor_nerf_tpu_torch.ops import table_scatter as ts
-    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+def phase_training(torch, tag, flags, steps, expect, forbid=()):
+    """(f), (j), (l), (p): ``steps`` steps through trainer.train, the CLI's
+    entry point; every kernel in ``expect`` must launch, none in ``forbid``."""
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.trainer import train
 
-    modules = {"tent_contract": tc, "table_scatter": ts, "group_scatter": gs}
     args = parse_args(flags + ["--n_iters", str(steps), "--i_print", "50"])
     torch.cuda.reset_peak_memory_stats()
-    for m in modules.values():  # this path's run starts here
-        m.reset_launch_count()
+    reset_launch_counts()  # this path's run starts here
     out = train(args)
-    launches = {k: m.launch_count() for k, m in modules.items()}  # ... and ends here
+    launches = launch_counts()  # ... and ends here
     losses = np.asarray(out["losses"])
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
     steps_s = steps / out["seconds"]
-    print(f"[{tag}] {' '.join(flags[len(SERVE_FLAGS):]) or 'flat encode'}: "
+    what = ("--use_pallas at the block-hash defaults" if flags is TILE_FLAGS
+            else " ".join(flags[len(SERVE_FLAGS):]) or "flat encode")
+    print(f"[{tag}] {what}: "
           f"{steps} steps of {args.N_rand} rays: {steps_s:.2f} "
           f"steps/s, {steps_s * args.N_rand:.0f} rays/s; loss mean of the "
           f"first 10 steps {first:.6f}, last 10 {last:.6f}; PSNR "
           f"{out['psnrs'][0]:.2f} -> {out['psnrs'][-1]:.2f} dB; launches "
-          f"{launches}; peak device memory "
+          f"{ {k: v for k, v in launches.items() if v} }; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not np.all(np.isfinite(losses)):
         raise AssertionError("training loss went non-finite")
@@ -390,54 +483,51 @@ def phase_training(torch, tag, flags, steps, expect):
     for name in expect:
         if launches[name] <= 0:
             raise AssertionError(f"training launched no {name} kernel")
+    for name in forbid:
+        if launches[name] != 0:
+            raise AssertionError(f"training launched {name} "
+                                 f"{launches[name]} times on this route")
     return out, launches
 
 
-def phase_step_check(torch, tag, flags, trained) -> None:
-    """(g), (k) One step with the kernels and with their plain versions."""
-    from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
-    from indoor_nerf_tpu_torch.data.load import load_dataset
-    from indoor_nerf_tpu_torch.ops import blockhash
-    from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter_plain
-    from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter_plain
-    from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract_plain
+def step_from(torch, flags, trained):
+    """``(cfg, one_step)``: ``one_step(cfg)`` takes one train step under
+    ``cfg`` from the params of ``trained`` with zero moments, always on the
+    same rays and the same draws (those of ``flags``' config)."""
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.step import draw_step, make_train_state, train_step
-    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
 
     dev = torch.device("cuda:0")
     cli = parse_args(flags)
-    scene = load_dataset(cli)
-    cfg = build_train_config(cli, scene)
-    H, W, _ = scene.hwf
-    b = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                          scene.K, cli.N_rand, seed=5).next()
-    batch = {k: torch.from_numpy(b[k]).to(dev)
-             for k in ("rays_o", "rays_d", "target")}
+    cfg, batch = one_batch(cli, dev, seed=5)
     params = {k: v.detach() for k, v in trained["params"].items()
               if not isinstance(v, torch.nn.Module)}
     params["coarse"] = copy.deepcopy(trained["params"]["coarse"])
     draws = draw_step(torch.Generator(device=dev).manual_seed(3), cfg, 0,
                       cli.N_rand)
 
-    def one_step():
+    def one_step(cfg):
         # Zero moments: after this first step mu = 0.1 g and nu = 0.01 g^2.
         state = make_train_state(copy.deepcopy(params), trained["occ"].copy())
         return train_step(state, batch, cfg, draws=draws)
 
-    kern, km = one_step()
-    with mock.patch.object(blockhash, "tent_contract", tent_contract_plain), \
-            mock.patch.object(blockhash, "table_scatter", table_scatter_plain), \
-            mock.patch.object(blockhash, "group_scatter", group_scatter_plain):
-        plain, pm = one_step()
+    return cfg, one_step
+
+
+def hold_steps(torch, tag, what, got_step, want_step, mu_tol, nu_tol,
+               norm_tol) -> None:
+    """Two ``(state, metrics)`` of one step held together: loss 1e-5
+    relative, the refreshed grid and the MLP moments 1e-4, the table's
+    moments at ``mu_tol`` / ``nu_tol`` of their largest entry and
+    ``norm_tol`` relative in norm."""
+    (kern, km), (plain, pm) = got_step, want_step
     torch.cuda.synchronize()
     loss_err = abs(float(km["loss"]) - float(pm["loss"])) / float(pm["loss"])
     occ_err = float((kern["occ"]["density"] - plain["occ"]["density"]).abs().max())
-    # A cotangent an f32 ulp apart can round to the neighbouring bf16
-    # value: one bf16 ulp (2^-8) of one term of the table's gradient entry.
     checks = [("loss (relative)", loss_err, 1e-5),
               ("occ density", occ_err, 1e-4 * float(plain["occ"]["density"].abs().max()))]
-    for key, tol in (("mu", 2.0 ** -8), ("nu", 2.0 ** -7)):
+    for key, tol in (("mu", mu_tol), ("nu", nu_tol)):
         for name, want in plain["opt"][key].items():
             got = kern["opt"][key][name]
             rel = 1e-4 if name != "table" else tol
@@ -446,13 +536,101 @@ def phase_step_check(torch, tag, flags, trained) -> None:
         gt, wt = kern["opt"][key]["table"], plain["opt"][key]["table"]
         checks.append((f"{key} table (relative norm)",
                        float(torch.linalg.norm(gt - wt) / torch.linalg.norm(wt)),
-                       1e-3))
-    for what, err, tol in checks:
+                       norm_tol))
+    for name, err, tol in checks:
         if not err <= tol:
-            raise AssertionError(f"kernels vs plain step: {what} {err} > {tol}")
-    print(f"[{tag}] one step, kernels vs plain versions: loss "
+            raise AssertionError(f"{what}: {name} {err} > {tol}")
+    print(f"[{tag}] one step, {what}: loss "
           f"{float(km['loss']):.6f} vs {float(pm['loss']):.6f}; "
           + "; ".join(f"{w} {e:.3e} (tol {t:.3e})" for w, e, t in checks))
+
+
+def phase_step_check(torch, tag, flags, trained) -> None:
+    """(g), (k) One step with the kernels and with their plain versions."""
+    from indoor_nerf_tpu_torch.ops import blockhash
+    from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter_plain
+    from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter_plain
+    from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract_plain
+
+    cfg, one_step = step_from(torch, flags, trained)
+    kern = one_step(cfg)
+    with mock.patch.object(blockhash, "tent_contract", tent_contract_plain), \
+            mock.patch.object(blockhash, "table_scatter", table_scatter_plain), \
+            mock.patch.object(blockhash, "group_scatter", group_scatter_plain):
+        plain = one_step(cfg)
+    # A cotangent an f32 ulp apart can round to the neighbouring bf16
+    # value: one bf16 ulp (2^-8) of one term of the table's gradient entry.
+    hold_steps(torch, tag, "kernels vs plain versions", kern, plain,
+               2.0 ** -8, 2.0 ** -7, 1e-3)
+
+
+def without_tile_interp(cfg):
+    """``cfg`` (a TrainConfig) on the default route of the same grid."""
+    fc = cfg.render.field
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, field=dataclasses.replace(fc, block_grid=dataclasses.replace(
+            fc.block_grid, tile_interp=False))))
+
+
+def phase_tile_step_check(torch, trained) -> None:
+    """(q) One step three ways, then both routes' steps in alternating
+    windows."""
+    from indoor_nerf_tpu_torch.ops import tile_interp as ti
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    dev = torch.device("cuda:0")
+    cfg, one_step = step_from(torch, TILE_FLAGS, trained)
+    default = without_tile_interp(cfg)
+    kern = one_step(cfg)
+    with mock.patch.object(ti, "tile_interp_fwd", ti.tile_interp_fwd_plain), \
+            mock.patch.object(ti, "tile_interp_bwd_rows",
+                              ti.tile_interp_bwd_rows_plain):
+        plain = one_step(cfg)
+    # d rows is bit for bit the plain version's, so the two differ by the
+    # forward's summation order and the order index_add_'s atomics land in.
+    hold_steps(torch, "q", "tile route, kernels vs plain versions", kern,
+               plain, 1e-5, 2e-5, 1e-5)
+    del plain
+    other = one_step(default)
+    # Both routes sum the same unrounded f32 entries into each table entry
+    # (up to ~10^5 of them at the coarse levels), in another atomic order.
+    hold_steps(torch, "q", "tile route vs default route (tent_contract + "
+               "table_scatter, f32)", kern, other, 1e-5, 2e-5, 1e-5)
+    del kern, other
+    torch.cuda.empty_cache()
+
+    cli = parse_args(TILE_FLAGS)
+    _, batch = one_batch(cli, dev, seed=6)
+    runs = {}
+    for name, c in (("tile_interp", cfg), ("default", default)):
+        state = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                 c, dev)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for _ in range(TILE_TIMED_STEPS):  # warm-up
+            state, _ = train_step(state, batch, c, gen)
+        runs[name] = (c, state, gen)
+    torch.cuda.synchronize(dev)
+    ms = {"tile_interp": [], "default": []}
+    for name in ("default", "tile_interp", "tile_interp", "default") * 2:
+        c, state, gen = runs[name]
+        t0 = time.perf_counter()
+        for _ in range(TILE_TIMED_STEPS):
+            state, metrics = train_step(state, batch, c, gen)
+        torch.cuda.synchronize(dev)
+        ms[name].append((time.perf_counter() - t0) / TILE_TIMED_STEPS * 1e3)
+        runs[name] = (c, state, gen)
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"{name} route step: non-finite loss")
+    print(f"[q] step at the block-hash defaults (16x2, block_size 4, f32), "
+          f"{cli.N_rand} rays, {TILE_TIMED_STEPS} steps per window, "
+          "alternating: "
+          + "; ".join(f"{k} route {', '.join(f'{v:.3f}' for v in vs)} ms/step "
+                      f"({cli.N_rand / (sum(vs) / len(vs)) * 1e3:.0f} rays/s)"
+                      for k, vs in ms.items()))
+    del runs
+    torch.cuda.empty_cache()
 
 
 def phase_group_scatter(torch) -> dict:
@@ -529,6 +707,238 @@ def phase_group_timing(torch) -> None:
                       for k, vs in ms.items()))
 
 
+def phase_tile_interp(torch) -> dict:
+    """(n) tile_interp_fwd and tile_interp_bwd_rows against their plain
+    versions; returns the numbers of both kernels' entries."""
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.ops import tile_interp as ti
+
+    dev = torch.device("cuda:0")
+    g0 = torch.Generator(device=dev).manual_seed(6)
+    side = ti.SIDE
+    stats = {}
+    for label, M in (("training", 4096 * 32 * 16), ("ragged", 100003)):
+        rows = torch.randn((M, 2 * ti.LANES), generator=g0, device=dev)
+        g = torch.randn((M, 2), generator=g0, device=dev)
+        p = torch.rand((M, 3), generator=g0, device=dev) * (side - 1)
+        p[:4096] = torch.randint(0, side, (4096, 3), generator=g0,
+                                 device=dev).float()  # tent kinks
+        p[4096:8192] = side - 1
+        got = ti.tile_interp_fwd(rows, p)
+        want = ti.tile_interp_fwd_plain(rows, p)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        if not (got.shape == (M, 2) and err <= KERNEL_TOL):
+            raise AssertionError(f"{label}: tile_interp_fwd vs plain max "
+                                 f"|diff| {err} > {KERNEL_TOL}")
+        fwd_bound = bound(nbytes(rows, p, got), M * 2 * ti.LANES * 2 + M * ti.LANES * 11)
+        del want
+        drows = ti.tile_interp_bwd_rows(p, g)
+        dwant = ti.tile_interp_bwd_rows_plain(p, g)
+        torch.cuda.synchronize()
+        derr = float((drows - dwant).abs().max())
+        if not (drows.shape == (M, 2 * ti.LANES) and torch.equal(drows, dwant)):
+            raise AssertionError(f"{label}: tile_interp_bwd_rows differs from "
+                                 f"its plain version (max |diff| {derr}); the "
+                                 "products are the same __fmul_rn chain, so "
+                                 "they must agree bit for bit")
+        bwd_bound = bound(nbytes(p, g, drows), M * ti.LANES * 13)
+        del drows, dwant, got
+        iters = 10 if M > 100000 else 100
+        ms, plain_ms, t = alternate(
+            torch, lambda: ti.tile_interp_fwd_plain(rows, p),
+            lambda: ti.tile_interp_fwd(rows, p), iters)
+        print(f"[n] {label}: tile_interp_fwd rows {tuple(rows.shape)} f32: max "
+              f"|diff| {err:.3e} (tol {KERNEL_TOL}); kernel {ms:.4f} ms "
+              f"({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms ({t[0]:.4f}, "
+              f"{t[3]:.4f}), bound {fwd_bound['bound_ms']:.4f} ms by "
+              f"{fwd_bound['bound_by']}")
+        bms, bplain_ms, bt = alternate(
+            torch, lambda: ti.tile_interp_bwd_rows_plain(p, g),
+            lambda: ti.tile_interp_bwd_rows(p, g), iters)
+        print(f"[n] {label}: tile_interp_bwd_rows M {M}: bit for bit (max "
+              f"|diff| {derr:.1e}); kernel {bms:.4f} ms ({bt[1]:.4f}, "
+              f"{bt[2]:.4f}), plain {bplain_ms:.4f} ms ({bt[0]:.4f}, "
+              f"{bt[3]:.4f}), bound {bwd_bound['bound_ms']:.4f} ms by "
+              f"{bwd_bound['bound_by']}")
+        if label == "training":
+            # No one PyTorch call computes the weights from p and contracts
+            # (or expands) with them: no library time.
+            stats["tile_interp_fwd"] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                **fwd_bound, "library_ms": None}
+            stats["tile_interp_bwd_rows"] = {
+                "max_abs_err": derr, "ms": bms, "plain_ms": bplain_ms,
+                **bwd_bound, "library_ms": None}
+            # The tile route's forward (gather + kernel) against the fused
+            # kernel of the default route, on one table and one index.
+            del rows, g
+            torch.cuda.empty_cache()
+            table = torch.randn((65536, 2 * ti.LANES), generator=g0, device=dev)
+            flat_row = torch.randint(0, 65536, (M,), generator=g0, device=dev,
+                                     dtype=torch.int32)
+            a = ti.tile_interp_fwd(table.index_select(0, flat_row), p)
+            b = tc.tent_contract(table, flat_row, p, side, 2)
+            torch.cuda.synchronize()
+            kk = float((a - b).abs().max())
+            if kk > KERNEL_TOL:
+                raise AssertionError("tile_interp_fwd(table[flat_row]) vs "
+                                     f"tent_contract: {kk} > {KERNEL_TOL}")
+            del a, b
+            t_route = cuda_ms(torch, lambda: ti.tile_interp_fwd(
+                table.index_select(0, flat_row), p), 10)
+            t_gather = cuda_ms(torch, lambda: table.index_select(0, flat_row), 10)
+            t_fused = cuda_ms(torch, lambda: tc.tent_contract(
+                table, flat_row, p, side, 2), 10)
+            print(f"[n] kernel against kernel, table {tuple(table.shape)} f32, "
+                  f"M {M}: tile_interp_fwd(table[flat_row], p) vs "
+                  f"tent_contract(table, flat_row, p, 5, 2) max |diff| "
+                  f"{kk:.3e} (tol {KERNEL_TOL}); gather + tile_interp_fwd "
+                  f"{t_route:.4f} ms (the gather alone {t_gather:.4f} ms), "
+                  f"tent_contract {t_fused:.4f} ms")
+            del table, flat_row
+        del p
+        torch.cuda.empty_cache()
+    return stats
+
+
+def phase_lane_select(torch) -> dict:
+    """(o) lane_select forward and backward against their plain versions and
+    the library calls; returns the numbers and launches of both entries."""
+    from indoor_nerf_tpu_torch.ops import lane_gather as lg
+
+    dev = torch.device("cuda:0")
+    g0 = torch.Generator(device=dev).manual_seed(7)
+    stats = {}
+    lg.reset_launch_count()
+    for label, N, k in (("corners", 4096 * 32 * 16, 8), ("full", 32768, 128)):
+        values = torch.randn((N, lg.LANES), generator=g0, device=dev)
+        g = torch.randn((N, k), generator=g0, device=dev)
+        idx = torch.randint(0, lg.LANES, (N, k), generator=g0, device=dev,
+                            dtype=torch.int32)  # with replacement: repeats
+        idx[0] = 77
+        idx64 = idx.long()
+        vg = values.clone().requires_grad_(True)
+        got = lg.lane_select(vg, idx)
+        (dgot,) = torch.autograd.grad(got, vg, grad_outputs=g)
+        want = lg.lane_select_plain(values, idx)
+        dwant = lg.lane_select_grad_plain(idx, g)
+        torch.cuda.synchronize()
+        scale = float(dwant.abs().max())
+        derr = float((dgot - dwant).abs().max())
+        if not torch.equal(got.detach(), want):
+            raise AssertionError(f"{label}: lane_select differs from torch.gather")
+        if not (dgot.shape == (N, lg.LANES) and derr <= LANE_RTOL * scale):
+            raise AssertionError(f"{label}: lane_select_grad vs the one-hot "
+                                 f"sum {derr} > {LANE_RTOL} x {scale}")
+        ferr = float((got.detach() - want).abs().max())
+        # values counts as what the function needs of it: the distinct
+        # 32-byte sectors (8 lanes; the least the card reads from device
+        # memory) that this run's idx touches, not the whole [N, 128] array.
+        sectors = int(torch.zeros((N, lg.LANES // 8), dtype=torch.bool, device=dev)
+                      .scatter_(1, idx64 // 8, True).sum())
+        fwd_bound = bound(sectors * 32 + nbytes(idx, want), 0)
+        bwd_bound = bound(nbytes(idx, g, dwant), N * k)
+        del vg, got, dgot, want, dwant
+        iters = 10
+        ms, plain_ms, t = alternate(
+            torch, lambda: lg.lane_select_plain(values, idx),
+            lambda: lg.lane_select_fwd(values, idx), iters)
+        lib = cuda_ms(torch, lambda: torch.gather(values, 1, idx64), iters)
+        print(f"[o] {label}: lane_select_fwd N {N} k {k}: bit for bit (max "
+              f"|diff| {ferr:.1e}); idx touches {sectors} 32-byte sectors of "
+              f"values ({sectors * 32 / nbytes(values):.3f} of its bytes); kernel "
+              f"{ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), plain (int64 cast + "
+              f"torch.gather) {plain_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), "
+              f"torch.gather alone {lib:.4f} ms, bound "
+              f"{fwd_bound['bound_ms']:.4f} ms by {fwd_bound['bound_by']}")
+        bms, bplain_ms, bt = alternate(
+            torch, lambda: lg.lane_select_grad_plain(idx, g),
+            lambda: lg.lane_select_grad(idx, g), iters, plain_iters=3)
+        blib = cuda_ms(torch, lambda: torch.zeros_like(values).scatter_add_(
+            1, idx64, g), iters)
+        print(f"[o] {label}: lane_select_grad N {N} k {k}: max |diff| "
+              f"{derr:.3e} (largest entry {scale:.3e}, tol {LANE_RTOL} of it); "
+              f"kernel {bms:.4f} ms ({bt[1]:.4f}, {bt[2]:.4f}), plain (one-hot "
+              f"sum) {bplain_ms:.4f} ms ({bt[0]:.4f}, {bt[3]:.4f}), "
+              f"zeros.scatter_add_ {blib:.4f} ms, bound "
+              f"{bwd_bound['bound_ms']:.4f} ms by {bwd_bound['bound_by']}")
+        if label == "corners":
+            stats["lane_select_fwd"] = {
+                "max_abs_err": ferr, "ms": ms, "plain_ms": plain_ms,
+                **fwd_bound, "library_ms": lib}
+            stats["lane_select_grad"] = {
+                "max_abs_err": derr, "ms": bms, "plain_ms": bplain_ms,
+                **bwd_bound, "library_ms": blib}
+        del values, g, idx, idx64
+        torch.cuda.empty_cache()
+    # No path of either package runs lane_select: its launches are this
+    # phase's own.
+    for name in lg.KERNELS:
+        stats[name]["launches"] = lg.launch_count(name)
+    return stats
+
+
+def phase_tile_render(torch) -> None:
+    """(r) One 100x100 test-mode render on the tile route and on the default
+    route of the same config."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models.field import init_field_params, serving_params
+    from indoor_nerf_tpu_torch.render.renderer import (
+        bytes_per_ray,
+        default_tile_rays,
+        make_image_renderer,
+    )
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    dev = torch.device("cuda:0")
+    cli = parse_args(TILE_FLAGS)
+    scene = load_dataset(cli)
+    cfg = build_train_config(cli, scene)
+    g = torch.Generator(device=dev).manual_seed(8)
+    params = init_field_params(g, cfg.render.field, dev)
+    # An O(1) table so the rays are not transparent, and a random grid.
+    params["table"] = torch.randn(params["table"].shape, generator=g, device=dev)
+    params = serving_params(params, cfg.render.field)
+    occ = {"density": 4.0 * torch.rand(cfg.render.occupancy.n_cells,
+                                        generator=g, device=dev)}
+    H = W = 100
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    c2w = scene.poses[scene.i_test[0]]
+    out, peaks, tiles = {}, {}, {}
+    for name, c in (("tile_interp", cfg), ("default", without_tile_interp(cfg))):
+        rc = c.render.test_mode()
+        torch.cuda.empty_cache()
+        tiles[name] = default_tile_rays(dev, rc)
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        out[name] = make_image_renderer(rc, H, W)(params, c2w, K, scene.near,
+                                                  scene.far, occ)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() / 2**30
+        ran = {k: v for k, v in launch_counts().items() if v}
+        want = {"tile_interp_fwd"} if name == "tile_interp" else {"tent_contract"}
+        if set(ran) != want:
+            raise AssertionError(f"{name} route render launched {ran}")
+    for k in ("rgb_map", "depth_map"):
+        if not bool(torch.isfinite(out["tile_interp"][k]).all()):
+            raise AssertionError(f"100x100 tile-route render: non-finite {k}")
+    err = float((out["tile_interp"]["rgb_map"]
+                 - out["default"]["rgb_map"]).abs().max())
+    acc = out["tile_interp"]["acc_map"]
+    print(f"[r] 100x100 render at the block-hash defaults, tile route vs "
+          f"default route: rgb max |diff| {err:.3e} (tol {RENDER_TOL}); acc in "
+          f"[{float(acc.min()):.3f}, {float(acc.max()):.3f}]; tile route "
+          f"{bytes_per_ray(cfg.render) / 1024:.0f} KiB per ray, tiles of "
+          f"{tiles['tile_interp']} rays, peak device memory "
+          f"{peaks['tile_interp']:.2f} GiB; default route tiles of "
+          f"{tiles['default']} rays, peak {peaks['default']:.2f} GiB")
+    if err > RENDER_TOL:
+        raise AssertionError(f"render rgb tile vs default route {err} > {RENDER_TOL}")
+
+
 def phase_bench(torch) -> None:
     """(h) The training benchmark's JSON line."""
     from indoor_nerf_tpu_torch import bench
@@ -564,36 +974,70 @@ def main() -> int:
     _, stride_launches = phase_training(
         torch, "l", STRIDE_FLAGS, STRIDED_STEPS, ("tent_contract", "table_scatter"))
     phase_group_timing(torch)
-    # "launches" is the count of the path of this slice that runs the
+    tile = phase_tile_interp(torch)
+    lane = phase_lane_select(torch)
+    trained, tile_launches = phase_training(
+        torch, "p", TILE_FLAGS, TILE_STEPS,
+        ("tile_interp_fwd", "tile_interp_bwd_rows"),
+        forbid=("tent_contract", "table_scatter", "group_scatter"))
+    phase_tile_step_check(torch, trained["state"])
+    del trained
+    phase_tile_render(torch)
+    # "launches" is the count of the path of its slice that runs the
     # kernel (grouped training for tent_contract and group_scatter, strided
-    # training for table_scatter); "launches_by_path" gives every path that
-    # runs it its own count, each read from its own reset-then-read window.
+    # training for table_scatter, tile-interp training for the tile_interp
+    # pair); "launches_by_path" gives every path that runs it its own count,
+    # each read from its own reset-then-read window (200, 200, 100 and 100
+    # training steps, 3 requests of 800x800). No path runs lane_select: its
+    # launches are phase (o)'s.
     paths = {"training": flat_launches, "training_grouped": group_launches,
-             "training_strided": stride_launches}
+             "training_strided": stride_launches,
+             "training_tile_interp": tile_launches}
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items()}
 
+    csrc, pallas = "indoor_nerf_tpu_torch/csrc/", "indoor_nerf_tpu/ops/pallas/"
     print(json.dumps({"kernels": [
         {"name": "tent_contract", "route": "cuda",
-         "source": "indoor_nerf_tpu_torch/csrc/tent_contract.cu",
-         "replaces": "indoor_nerf_tpu/ops/pallas/tent_contract.py:167",
+         "source": csrc + "tent_contract.cu",
+         "replaces": pallas + "tent_contract.py:167",
          "launches": group_launches["tent_contract"],
          "launches_by_path": {"serving": serve_launches,
                               **by_path("tent_contract")},
          **tent},
         {"name": "table_scatter", "route": "cuda",
-         "source": "indoor_nerf_tpu_torch/csrc/table_scatter.cu",
-         "replaces": "indoor_nerf_tpu/ops/pallas/table_scatter.py:399",
+         "source": csrc + "table_scatter.cu",
+         "replaces": pallas + "table_scatter.py:399",
          "launches": stride_launches["table_scatter"],
          "launches_by_path": by_path("table_scatter"),
          **scatter},
         {"name": "group_scatter", "route": "cuda",
-         "source": "indoor_nerf_tpu_torch/csrc/group_scatter.cu",
-         "replaces": "indoor_nerf_tpu/ops/pallas/table_scatter.py:494",
+         "source": csrc + "group_scatter.cu",
+         "replaces": pallas + "table_scatter.py:494",
          "launches": group_launches["group_scatter"],
          "launches_by_path": by_path("group_scatter"),
          **grouped},
+        {"name": "tile_interp_fwd", "route": "cuda",
+         "source": csrc + "tile_interp.cu",
+         "replaces": pallas + "tile_interp.py:94",
+         "launches": tile_launches["tile_interp_fwd"],
+         "launches_by_path": by_path("tile_interp_fwd"),
+         **tile["tile_interp_fwd"]},
+        {"name": "tile_interp_bwd_rows", "route": "cuda",
+         "source": csrc + "tile_interp.cu",
+         "replaces": pallas + "tile_interp.py:116",
+         "launches": tile_launches["tile_interp_bwd_rows"],
+         "launches_by_path": by_path("tile_interp_bwd_rows"),
+         **tile["tile_interp_bwd_rows"]},
+        {"name": "lane_select_fwd", "route": "cuda",
+         "source": csrc + "lane_gather.cu",
+         "replaces": pallas + "lane_gather.py:54",
+         "launches_by_path": {}, **lane["lane_select_fwd"]},
+        {"name": "lane_select_grad", "route": "cuda",
+         "source": csrc + "lane_gather.cu",
+         "replaces": pallas + "lane_gather.py:88",
+         "launches_by_path": {}, **lane["lane_select_grad"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

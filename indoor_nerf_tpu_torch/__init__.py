@@ -18,7 +18,15 @@ The slices ported so far:
   kernel), RAdam and the occupancy-grid refresh;
 - the ray-structured encodes of that step (``--ray_groups``, whose
   backward is the hand-written ``group_scatter`` CUDA kernel, and
-  ``--ray_strides``).
+  ``--ray_strides``);
+- the tile-interp route of the encode (``--use_pallas`` at the block-hash
+  defaults: a row gather under autograd, then the hand-written
+  ``tile_interp`` CUDA kernels, forward and ``d rows``), and the public op
+  ``ops.lane_select`` with its two CUDA kernels.
+
+The entry points run on the CUDA card (``--device cuda``, the default)
+unless the caller asks for the CPU; ``resolve_device`` refuses a card that
+is not there rather than switching to the CPU.
 """
 
 import torch
@@ -31,3 +39,24 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 __version__ = "0.1.0"
+
+
+def resolve_device(name: str) -> torch.device:
+    """The ``torch.device`` of a ``--device`` value: ``cpu``, ``cuda`` or
+    ``cuda:N``. Raises when a CUDA device is asked for and not visible; the
+    caller never gets another device than the one it named."""
+    device = torch.device(name)
+    if device.type == "cpu":
+        return device
+    if device.type != "cuda":
+        raise ValueError(f"--device {name}: the port runs on cuda or cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            f"--device {name}: no CUDA device is visible "
+            "(torch.cuda.is_available() is False); pass --device cpu to run "
+            "on the CPU")
+    count = torch.cuda.device_count()
+    if device.index is not None and device.index >= count:
+        raise RuntimeError(f"--device {name}: only {count} CUDA device(s) "
+                           "visible")
+    return device

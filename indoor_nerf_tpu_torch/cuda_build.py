@@ -21,7 +21,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
 from pathlib import Path
-from typing import Dict, Sequence, Tuple
+from typing import Callable, Dict, Sequence, Tuple
 
 PKG_DIR = Path(__file__).resolve().parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -95,6 +95,34 @@ def load_library(name: str) -> BuiltLibrary:
             out, seconds, log = _compile(name)
             _LOADED[name] = BuiltLibrary(ctypes.CDLL(str(out)), out, seconds, log)
         return _LOADED[name]
+
+
+def launch_on_stream(fn: Callable, error_string: Callable, what: str,
+                     tensors: Sequence[Tuple[str, object]], *args,
+                     align: int = 1) -> None:
+    """Call the C launcher ``fn(*pointers, *args, stream)`` on PyTorch's
+    current stream of the tensors' device (a CUDA device), or raise. Every
+    kernel of the package is launched here.
+
+    ``tensors`` are (name, tensor) in the C argument order; each must lie on
+    that one device, contiguous, at an address that is a multiple of
+    ``align`` bytes (16 for the kernels that move float4s). ``fn`` returns
+    ``cudaGetLastError()``: a refused launch raises here, with
+    ``error_string(code)`` naming it."""
+    import torch
+
+    device = tensors[0][1].device
+    for name, t in tensors:
+        if t.device != device or not t.is_contiguous() or t.data_ptr() % align:
+            raise ValueError(f"{name} must be on {device} and contiguous"
+                             + (f", at a multiple of {align} bytes"
+                                if align > 1 else ""))
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(*(t.data_ptr() for _, t in tensors), *args, stream)
+    if code != 0:
+        raise RuntimeError(f"{what} launch failed: "
+                           f"{error_string(code).decode()} ({code})")
 
 
 def build_all(names: Sequence[str]) -> Dict[str, BuiltLibrary]:

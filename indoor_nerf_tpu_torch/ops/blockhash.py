@@ -7,6 +7,13 @@ the table gradient is the tent-weighted scatter-add of the output
 cotangent (``ops/table_scatter.py``); on the card both run hand-written
 CUDA kernels. ``block_tv_loss`` is the table's TV regularizer.
 
+A second route, ``BlockHashConfig.tile_interp`` (the trainer's
+``--use_pallas``), runs the encode as the JAX package does under
+``USE_TILE_INTERP_KERNEL``: a plain row gather under autograd, then
+``ops/tile_interp.py`` over the gathered rows. It applies at ``block_size
+4`` with a float32 scatter only, and it alone differentiates through the
+tent weights to the points.
+
 Two ray-structured encodes take ``[Rn, S, 3]`` samples sorted along each
 ray: ``block_hash_encode_grouped`` (``ray_groups``: the exact features, and
 a backward that sums each group of G consecutive samples' cotangent into
@@ -29,6 +36,7 @@ from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
 from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter
 from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter
 from indoor_nerf_tpu_torch.ops.tent_contract import lanes_per_feature, tent_contract
+from indoor_nerf_tpu_torch.ops.tile_interp import tile_interp
 
 _BLOCK_PRIMES = (2654435761, 805459861, 3674653429, 2097192037)
 _MASK32 = 0xFFFFFFFF
@@ -65,6 +73,10 @@ class BlockHashConfig:
     # most one of the two, each None or ``n_levels`` positive ints.
     ray_strides: Optional[Tuple[int, ...]] = None
     ray_groups: Optional[Tuple[int, ...]] = None
+    # Ask for the tile-interp route (the JAX module global
+    # ``USE_TILE_INTERP_KERNEL``, set by ``--use_pallas``). It is taken
+    # where JAX takes it (``uses_tile_interp``) and ignored elsewhere.
+    tile_interp: bool = False
 
     def __post_init__(self):
         if self.gather_dtype not in ("float32", "bfloat16"):
@@ -81,6 +93,20 @@ class BlockHashConfig:
                                   or any(int(k) < 1 for k in v)):
                 raise ValueError(f"{name} must hold {self.n_levels} positive "
                                  f"ints (one per level), got {v}")
+        if self.uses_tile_interp and self.n_features_per_level != 2:
+            raise ValueError(
+                "the tile-interp route (--use_pallas at block_size 4, f32 "
+                "scatter) reads exactly two 128-lane feature planes per row; "
+                f"n_features_per_level is {self.n_features_per_level} (the "
+                "JAX package fails there at a reshape)")
+
+    @property
+    def uses_tile_interp(self) -> bool:
+        """Whether the encode takes the tile-interp route: asked for, at
+        ``block_size 4`` and a float32 scatter (JAX ops/blockhash.py:588-595
+        and :413; the int8 gather, which also bypasses it, is not ported)."""
+        return (self.tile_interp and self.block_size == 4
+                and self.scatter_dtype == "float32")
 
     @property
     def rows_per_level(self) -> int:
@@ -323,8 +349,15 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
     shape) or its cached ``gather_table`` copy (no gradient). The gradient
     w.r.t. ``x`` is None. The JAX package gives the same zero ``dx`` at
     ``scatter_dtype`` bfloat16, but a nonzero one through XLA autodiff at
-    float32, so a float32 encode refuses an ``x`` that requires grad."""
+    float32, so a float32 encode refuses an ``x`` that requires grad.
+
+    On the tile-interp route (``config.uses_tile_interp``) the encode is a
+    row gather under autograd and ``tile_interp`` over the rows: the table
+    gradient is the gather's own f32 ``index_add_`` of ``d rows``, and the
+    points get the JAX ``dx`` through the tent weights."""
     _check_trainable(table)
+    if config.uses_tile_interp:
+        return _encode_tile_interp(x, table, config, levels)
     if torch.is_grad_enabled() and x.requires_grad \
             and config.scatter_dtype == "float32":
         raise NotImplementedError(
@@ -334,6 +367,31 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
     lv = _levels(config, levels)
     flat_row, p, keep_mask = _tile_coords(x.detach(), config, lv)
     out = _Encode.apply(table, flat_row, p, config)
+    return out.reshape(x.shape[0], len(lv) * config.n_features_per_level), \
+        keep_mask
+
+
+def _encode_tile_interp(x: torch.Tensor, table: torch.Tensor,
+                        config: BlockHashConfig,
+                        levels: Optional[Sequence[int]]
+                        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encode as the JAX package runs it under ``USE_TILE_INTERP_KERNEL``
+    (ops/blockhash.py:594-595, :411-416): ``_tile_coords`` -> a row gather
+    -> ``tile_interp``, all under autograd.
+
+    The gathered rows ``[N*L, 256]`` f32 reach device memory here (1 KiB
+    per (point, level)), which the ``tent_contract`` route never holds. The
+    gather's backward (``index_add_`` of ``d rows`` in f32) is PyTorch's, as
+    the JAX scatter-add is XLA's and outside the Pallas kernel; its atomics
+    land in an order that changes from run to run. ``_tile_coords`` sees
+    ``x`` itself, not ``x.detach()``: ``w = rel - floor(rel)`` carries the
+    gradient on to the points."""
+    lv = _levels(config, levels)
+    flat_row, p, keep_mask = _tile_coords(x, config, lv)
+    rows = gather_table(table, config).index_select(0, flat_row)
+    if rows.dtype != torch.float32:
+        rows = rows.to(torch.float32)
+    out = tile_interp(rows, p.contiguous())
     return out.reshape(x.shape[0], len(lv) * config.n_features_per_level), \
         keep_mask
 

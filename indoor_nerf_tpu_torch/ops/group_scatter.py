@@ -46,7 +46,7 @@ from typing import Sequence
 
 import torch
 
-from indoor_nerf_tpu_torch.cuda_build import load_library
+from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
 from indoor_nerf_tpu_torch.ops.table_scatter import cot_rows
 
 MAX_LEVELS = 32  # the kernel's level table
@@ -133,9 +133,6 @@ def group_scatter(g: torch.Tensor, row: torch.Tensor, p: torch.Tensor,
         return group_scatter_plain(g, row, p, groups, n_rows, side, lpf, dtype)
     if g.device.type != "cuda":
         raise ValueError(f"group_scatter runs on cpu or cuda, not {g.device}")
-    for name, t in (("g", g), ("row", row), ("p", p)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     Rn, S, L = row.shape
     F = g.shape[2] // L
     out = torch.zeros((n_rows, F * lpf), dtype=torch.float32, device=g.device)
@@ -146,15 +143,10 @@ def group_scatter(g: torch.Tensor, row: torch.Tensor, p: torch.Tensor,
         raise ValueError(f"{threads} work items exceed one launch's grid")
     lib = _library()
     c_groups = (ctypes.c_int * L)(*(int(G) for G in groups))
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        code = lib.group_scatter(g.data_ptr(), p.data_ptr(), row.data_ptr(),
-                                 out.data_ptr(), Rn, S, L, F, lpf, side,
-                                 n_rows, c_groups,
-                                 int(dtype == torch.bfloat16), stream)
-    if code != 0:
-        msg = lib.group_scatter_error_string(code).decode()
-        raise RuntimeError(f"group_scatter launch failed: {msg} ({code})")
+    launch_on_stream(
+        lib.group_scatter, lib.group_scatter_error_string, "group_scatter",
+        (("g", g), ("p", p), ("row", row), ("out", out)),
+        Rn, S, L, F, lpf, side, n_rows, c_groups, int(dtype == torch.bfloat16))
     with _LOCK:
         _launches += 1
     return out

@@ -38,7 +38,7 @@ import threading
 
 import torch
 
-from indoor_nerf_tpu_torch.cuda_build import load_library
+from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
 from indoor_nerf_tpu_torch.ops.tent_contract import tent_factors
 
 _LOCK = threading.Lock()
@@ -110,9 +110,6 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
         return table_scatter_plain(g, p, flat_row, n_rows, side, lpf, dtype)
     if g.device.type != "cuda":
         raise ValueError(f"table_scatter runs on cpu or cuda, not {g.device}")
-    for name, t in (("g", g), ("p", p), ("flat_row", flat_row)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     M, F = g.shape
     out = torch.zeros((n_rows, F * lpf), dtype=torch.float32, device=g.device)
     if M == 0:
@@ -120,15 +117,10 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
     if M * F >= (1 << 31) * 256:
         raise ValueError(f"M={M} exceeds one launch's grid")
     lib = _library()
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        code = lib.table_scatter(g.data_ptr(), p.data_ptr(),
-                                 flat_row.data_ptr(), out.data_ptr(), M, F,
-                                 lpf, side, n_rows,
-                                 int(dtype == torch.bfloat16), stream)
-    if code != 0:
-        msg = lib.table_scatter_error_string(code).decode()
-        raise RuntimeError(f"table_scatter launch failed: {msg} ({code})")
+    launch_on_stream(
+        lib.table_scatter, lib.table_scatter_error_string, "table_scatter",
+        (("g", g), ("p", p), ("flat_row", flat_row), ("out", out)),
+        M, F, lpf, side, n_rows, int(dtype == torch.bfloat16))
     with _LOCK:
         _launches += 1
     return out

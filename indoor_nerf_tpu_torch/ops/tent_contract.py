@@ -37,7 +37,7 @@ import threading
 
 import torch
 
-from indoor_nerf_tpu_torch.cuda_build import load_library
+from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
 
 _LOCK = threading.Lock()
 _launches = 0
@@ -123,9 +123,6 @@ def tent_contract(table: torch.Tensor, flat_row: torch.Tensor,
         return tent_contract_plain(table, flat_row, p, side, F)
     if table.device.type != "cuda":
         raise ValueError(f"tent_contract runs on cpu or cuda, not {table.device}")
-    for name, t in (("table", table), ("flat_row", flat_row), ("p", p)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
     M = flat_row.shape[0]
     out = torch.empty((M, F), dtype=torch.float32, device=table.device)
     if M == 0:
@@ -135,14 +132,10 @@ def tent_contract(table: torch.Tensor, flat_row: torch.Tensor,
     lib = _library()
     fn = (lib.tent_contract_bf16 if table.dtype == torch.bfloat16
           else lib.tent_contract_f32)
-    with torch.cuda.device(table.device):
-        stream = torch.cuda.current_stream(table.device).cuda_stream
-        code = fn(table.data_ptr(), flat_row.data_ptr(), p.data_ptr(),
-                  out.data_ptr(), M, F, table.shape[1] // F, side,
-                  table.shape[0], stream)
-    if code != 0:
-        msg = lib.tent_contract_error_string(code).decode()
-        raise RuntimeError(f"tent_contract launch failed: {msg} ({code})")
+    launch_on_stream(
+        fn, lib.tent_contract_error_string, "tent_contract",
+        (("table", table), ("flat_row", flat_row), ("p", p), ("out", out)),
+        M, F, table.shape[1] // F, side, table.shape[0])
     with _LOCK:
         _launches += 1
     return out

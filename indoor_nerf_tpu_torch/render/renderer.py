@@ -152,13 +152,32 @@ def _prepare_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
     return rays_o, rays_d, viewdirs, near_a, far_a
 
 
-def default_tile_rays(device: torch.device) -> int:
+def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
+    """Device bytes one ray of a test-mode render holds at its peak:
+    ``BYTES_PER_RAY``, plus, on the tile-interp route of the encode, the
+    gathered rows, which that route alone keeps in device memory: samples x
+    levels rows of ``F * lpf`` f32 (32 x 16 x 1 KiB = 512 KiB at the
+    block-hash defaults), and their bf16 form before the cast where the
+    gather reads bf16."""
+    if config is None or not config.field.block_grid.uses_tile_interp:
+        return BYTES_PER_RAY
+    bg = config.field.block_grid
+    n_samples = (config.n_samples if config.occupancy is None
+                 else config.n_occ_samples)
+    row_bytes = bg.n_features_per_level * bg.lanes_per_feature * (
+        4 + (2 if bg.gather_dtype == "bfloat16" else 0))
+    return BYTES_PER_RAY + n_samples * bg.n_levels * row_bytes
+
+
+def default_tile_rays(device: torch.device,
+                      config: Optional[RenderConfig] = None) -> int:
     """Rays per tile: a quarter of the card's free memory at
-    ``BYTES_PER_RAY``, as a power of two in [2^12, 2^20]; 2048 on the CPU."""
+    ``bytes_per_ray(config)``, as a power of two in [2^12, 2^20]; 2048 on
+    the CPU."""
     if device.type != "cuda":
         return CPU_TILE_RAYS
     free, _ = torch.cuda.mem_get_info(device)
-    n = max(1, free // 4 // BYTES_PER_RAY)
+    n = max(1, free // 4 // bytes_per_ray(config))
     return int(min(1 << 20, max(1 << 12, 1 << (n.bit_length() - 1))))
 
 
@@ -198,11 +217,11 @@ def make_image_renderer(config: RenderConfig, H: int, W: int,
                         tile_rays: Optional[int] = None):
     """A full-image renderer ``(params, c2w, K, near, far[, occ_state]) ->
     maps`` on the device of ``params["table"]``. ``tile_rays=None`` sizes
-    tiles from the card's memory (``default_tile_rays``)."""
+    tiles from the card's memory and ``config`` (``default_tile_rays``)."""
 
     def render_fn(params, c2w, K, near, far, occ_state=None):
         dev = params["table"].device
-        tile = tile_rays or default_tile_rays(dev)
+        tile = tile_rays or default_tile_rays(dev, config)
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=dev)
         K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
         out = _render_pose_block(params, c2w[None], K, float(near),

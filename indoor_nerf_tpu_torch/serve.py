@@ -3,8 +3,9 @@
   python -m indoor_nerf_tpu_torch.serve [--port 8000] [--width 800 --height 800] \\
       -- --flagship --dataset_type synthetic --use_viewdirs --white_bkgd
 
-Renders on the first CUDA card when there is one (the block-hash encode
-then runs the hand-written ``tent_contract`` kernel), else on the CPU.
+Renders on the CUDA card (the block-hash encode then runs the hand-written
+``tent_contract`` kernel) unless the training flags hold ``--device cpu``;
+with no card visible and no such flag it raises.
 There is no checkpoint format yet, so it serves the seeded initial state
 (``--seed``) and says so. Baked serving (``--baked``) comes with
 ROADMAP.md Queue 1 item 7.
@@ -30,6 +31,7 @@ from urllib.parse import parse_qs, urlparse
 import numpy as np
 import torch
 
+from indoor_nerf_tpu_torch import resolve_device
 from indoor_nerf_tpu_torch.data.load import load_dataset
 from indoor_nerf_tpu_torch.data.poses import pose_spherical
 from indoor_nerf_tpu_torch.models.field import init_field_params, serving_params
@@ -49,7 +51,7 @@ def build(args):
     cli = parse_args(train_args)
     scene = load_dataset(cli)
     cfg = build_train_config(cli, scene)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(cli.device)
     gen = torch.Generator(device=device).manual_seed(cli.seed)
     field_cfg = cfg.render.field
     # Serving holds the params fixed, so the bf16 gather copy of the table
@@ -65,7 +67,7 @@ def build(args):
     W = int(args.width or scene.hwf[1])
     focal = scene.hwf[2] * (W / scene.hwf[1])
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
-    tile = default_tile_rays(device)
+    tile = default_tile_rays(device, cfg.render)
     print(f"rendering {H}x{W} on {device} in tiles of {tile} rays")
     renderer = make_image_renderer(cfg.render.test_mode(), H, W, tile)
     lock = threading.Lock()  # one render at a time on the card

@@ -4,11 +4,22 @@ flagship subset) and the static config assembly that serving shares.
     python -m indoor_nerf_tpu_torch.train.trainer -- --flagship \
         --dataset_type synthetic --use_viewdirs --white_bkgd --n_iters 200
 
-trains on the first CUDA card when there is one (the encode then runs the
-hand-written ``tent_contract`` kernel, and its backward ``table_scatter``,
-or ``group_scatter`` with ``--ray_groups``), else on the CPU, and prints
-loss and PSNR every ``--i_print`` steps. ``--ray_groups`` and
-``--ray_strides`` (one value per level) select the ray-structured encodes.
+trains on the CUDA card (``--device cuda``, the default; the encode then
+runs the hand-written ``tent_contract`` kernel, and its backward
+``table_scatter``, or ``group_scatter`` with ``--ray_groups``) or, with
+``--device cpu``, on the CPU, and prints loss and PSNR every ``--i_print``
+steps. With no card visible and no ``--device cpu`` it raises.
+``--ray_groups`` and ``--ray_strides`` (one value per level) select the
+ray-structured encodes. ``--use_pallas`` selects the tile-interp route of
+the encode (a row gather under autograd and the hand-written ``tile_interp``
+kernels) where the JAX package applies it: ``--block_size 4`` and
+``--block_io f32``, e.g.
+
+    python -m indoor_nerf_tpu_torch.train.trainer -- --i_embed 3 \
+        --use_pallas --use_occupancy --N_importance 0 --occ_samples 32 \
+        --occ_weighting transmittance --dataset_type synthetic \
+        --use_viewdirs --white_bkgd
+
 Checkpoints, test renders, videos and the metrics files come with
 ROADMAP.md Queue 1 item 3.
 """
@@ -22,6 +33,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from indoor_nerf_tpu_torch import resolve_device
 from indoor_nerf_tpu_torch.data.load import SceneData, load_dataset
 from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
 from indoor_nerf_tpu_torch.models.field import FieldConfig
@@ -54,7 +66,6 @@ _UNPORTED_LOOP = (
     ("ft_path", None, "Queue 1 item 3 (trainer, CLI and loaders)"),
     ("multihost", False, "Queue 1 item 8 (multi-device)"),
     ("mesh_shape", None, "Queue 1 item 8 (multi-device)"),
-    ("use_pallas", False, "Queue 2 item 4 (tile_interp)"),
 )
 
 
@@ -105,7 +116,16 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         block_size=args.block_size,
         ray_strides=_per_level(args.ray_strides),
         ray_groups=_per_level(args.ray_groups),
+        tile_interp=args.use_pallas,
     )
+    if args.use_pallas:
+        if block_grid.uses_tile_interp:
+            print("[pallas] tile_interp kernel enabled (see BENCH_NOTES.md)")
+        else:
+            print("[pallas] --use_pallas ignored: the tile_interp route "
+                  "applies at --block_size 4 with --block_io f32 only, as in "
+                  f"the JAX package (got block_size {args.block_size}, "
+                  f"block_io {args.block_io})")
     field = FieldConfig(
         block_grid=block_grid,
         i_embed=args.i_embed,
@@ -149,6 +169,20 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
     )
 
 
+def one_batch(args, device, seed=None):
+    """``(cfg, batch)`` for single steps of the CLI configuration ``args``:
+    the static config ``train`` builds, and the first batch of the scene's
+    training rays from ``seed`` (``args.seed`` by default) on ``device``."""
+    scene = load_dataset(args)
+    H, W, _ = scene.hwf
+    cfg = build_train_config(args, scene)
+    b = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                          scene.K, args.N_rand,
+                          seed=args.seed if seed is None else seed).next()
+    return cfg, {k: torch.from_numpy(b[k]).to(device)
+                 for k in ("rays_o", "rays_d", "target")}
+
+
 def train(args) -> Dict:
     """Train ``args.n_iters`` steps on the batched ray sampler.
 
@@ -158,7 +192,7 @@ def train(args) -> Dict:
     scene = load_dataset(args)
     H, W, _ = scene.hwf
     cfg = build_train_config(args, scene)
-    device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(args.device)
     state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
                              cfg, device)
     # The JAX trainer's per-step keys split from PRNGKey(seed + 1).

@@ -14,7 +14,7 @@ import torch
 
 from indoor_nerf_tpu.data.load import load_dataset as j_load_dataset
 from indoor_nerf_tpu.data.pipeline import BatchedRaySampler as JBatchedRaySampler
-from indoor_nerf_tpu.train.config import parse_args
+from indoor_nerf_tpu.train.config import parse_args as j_parse_args
 from indoor_nerf_tpu.train.step import init_train_state, train_step as j_train_step
 from indoor_nerf_tpu.train.trainer import build_train_config as j_build
 from indoor_nerf_tpu_torch.bridge import (
@@ -23,6 +23,7 @@ from indoor_nerf_tpu_torch.bridge import (
     state_to_numpy,
 )
 from indoor_nerf_tpu_torch.data.load import load_dataset as t_load_dataset
+from indoor_nerf_tpu_torch.train.config import parse_args as t_parse_args
 from indoor_nerf_tpu_torch.train.step import train_step
 from indoor_nerf_tpu_torch.train.trainer import build_train_config as t_build
 
@@ -34,13 +35,17 @@ TINY_FLAGSHIP = [
     "--log2_hashmap_size", "12", "--occ_resolution", "16",
     "--occ_candidates", "32", "--occ_samples", "8",
 ]
+# The port's entry points run on the card unless told otherwise; the CPU
+# tests tell them (the JAX parser does not know the flag).
+CPU = ["--device", "cpu"]
 
 
 def configs(flags=TINY_FLAGSHIP):
-    """(JAX TrainConfig, port TrainConfig, port SceneData) for one CLI."""
-    args = parse_args(list(flags))
-    scene = t_load_dataset(args)
-    return j_build(args, j_load_dataset(args)), t_build(args, scene), scene
+    """(JAX TrainConfig, port TrainConfig, port SceneData) for one CLI, each
+    package's config built from its own parser's namespace."""
+    jargs, targs = j_parse_args(list(flags)), t_parse_args(list(flags))
+    scene = t_load_dataset(targs)
+    return j_build(jargs, j_load_dataset(jargs)), t_build(targs, scene), scene
 
 
 def jax_state_numpy(jcfg, seed=0, occ_rng=None):

@@ -1,6 +1,8 @@
-"""The port runs where jax is missing (the card's machine has none)."""
+"""The port runs where jax and the JAX package are missing (the card's
+machine has no jax, and the port uses nothing of ``indoor_nerf_tpu/``)."""
 
 import os
+import shutil
 import subprocess
 import sys
 
@@ -12,7 +14,11 @@ sys.modules["jax"] = None  # any `import jax` now raises ImportError
 import numpy as np
 import torch
 torch.set_num_threads(1)
+import os
 import indoor_nerf_tpu_torch
+assert os.path.realpath(indoor_nerf_tpu_torch.__file__).startswith(
+    os.path.realpath(os.getcwd())), indoor_nerf_tpu_torch.__file__
+assert not os.path.exists("indoor_nerf_tpu")
 from indoor_nerf_tpu_torch.data.load import load_dataset
 from indoor_nerf_tpu_torch.models.field import init_field_params
 from indoor_nerf_tpu_torch.ops.occupancy import init_occupancy
@@ -37,7 +43,9 @@ assert np.all(np.isfinite(out["depth_map"]))
 # Two training steps on the CPU, and the modules of the training slice.
 import indoor_nerf_tpu_torch.bench
 import indoor_nerf_tpu_torch.ops.group_scatter
+import indoor_nerf_tpu_torch.ops.lane_gather
 import indoor_nerf_tpu_torch.ops.table_scatter
+import indoor_nerf_tpu_torch.ops.tile_interp
 import indoor_nerf_tpu_torch.train.optim
 import indoor_nerf_tpu_torch.train.step
 from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
@@ -47,10 +55,28 @@ train_args = parse_args(["--flagship", "--dataset_type", "synthetic",
                          "--use_viewdirs", "--white_bkgd", "--n_levels", "4",
                          "--finest_res", "32", "--log2_hashmap_size", "12",
                          "--occ_resolution", "16", "--N_rand", "64",
-                         "--n_iters", "2", "--i_print", "1"])
+                         "--n_iters", "2", "--i_print", "1",
+                         "--device", "cpu"])
 result = train(train_args)
 assert result["state"]["step"] == 2
 assert np.all(np.isfinite(result["losses"]))
+
+# One step on the tile-interp route (--use_pallas at the block-hash defaults).
+tile_args = parse_args(["--i_embed", "3", "--use_pallas", "--use_occupancy",
+                        "--N_importance", "0", "--occ_samples", "8",
+                        "--occ_weighting", "transmittance", "--dataset_type",
+                        "synthetic", "--use_viewdirs", "--white_bkgd",
+                        "--n_levels", "4", "--finest_res", "32",
+                        "--log2_hashmap_size", "14", "--occ_resolution", "16",
+                        "--occ_candidates", "32", "--N_rand", "64",
+                        "--n_iters", "1", "--i_print", "1", "--device", "cpu"])
+result = train(tile_args)
+assert result["state"]["step"] == 1
+assert np.all(np.isfinite(result["losses"]))
+picked = indoor_nerf_tpu_torch.ops.lane_select(
+    torch.arange(256, dtype=torch.float32).reshape(2, 128),
+    torch.tensor([[5, 5], [0, 127]], dtype=torch.int32))
+assert picked.tolist() == [[5.0, 5.0], [128.0, 255.0]]
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu."))
 assert not leaked, leaked
@@ -58,10 +84,16 @@ print("NOJAX_OK")
 """
 
 
-def test_port_renders_without_jax():
-    """Serving and two training steps with every `import jax` failing."""
-    env = dict(os.environ, PYTHONPATH=_ROOT)
-    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=_ROOT, env=env,
-                          capture_output=True, text=True, timeout=300)
+def test_port_renders_without_jax(tmp_path):
+    """Serving and training steps with every `import jax` failing, from a
+    copy of the tree that holds the port's package and no
+    ``indoor_nerf_tpu/`` directory."""
+    shutil.copytree(os.path.join(_ROOT, "indoor_nerf_tpu_torch"),
+                    tmp_path / "indoor_nerf_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    assert not (tmp_path / "indoor_nerf_tpu").exists()
+    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=tmp_path,
+                          env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_OK" in proc.stdout

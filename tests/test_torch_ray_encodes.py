@@ -18,6 +18,7 @@ import torch
 
 import indoor_nerf_tpu.ops.blockhash as jbh
 from _torch_parity import (
+    CPU,
     TINY_FLAGSHIP,
     both_states,
     check_train_step_matches_jax,
@@ -269,7 +270,8 @@ def test_strided_render_matches_jax(rng):
 
 
 def _serve_rgb(flags):
-    args = argparse.Namespace(width=12, height=10, train_args=["--"] + flags)
+    args = argparse.Namespace(width=12, height=10,
+                              train_args=["--"] + flags + CPU)
     render, _, _ = serve.build(args)
     maps, _ = render(pose_spherical(30.0, -30.0, 4.0))
     assert maps["rgb_map"].shape == (10, 12, 3)
@@ -290,7 +292,7 @@ def test_serve_builds_and_renders_ray_structured_configs():
 @pytest.mark.parametrize("flag", [["--ray_groups", "2,2,1,1"],
                                   ["--ray_strides", "2,2,1,1"]])
 def test_trainer_runs_ray_structured_cli(flag):
-    args = parse_args(TINY_FLAGSHIP + flag + [
+    args = parse_args(TINY_FLAGSHIP + CPU + flag + [
         "--N_rand", "64", "--n_iters", "8", "--i_print", "4", "--lrate", "0.01"])
     out = train(args)
     assert len(out["losses"]) == 8 and np.all(np.isfinite(out["losses"]))
@@ -298,10 +300,11 @@ def test_trainer_runs_ray_structured_cli(flag):
 
 
 def test_trainer_refuses_both_ray_flags():
-    args = parse_args(TINY_FLAGSHIP + ["--ray_groups", "2,2,1,1",
+    args = parse_args(TINY_FLAGSHIP + CPU + ["--ray_groups", "2,2,1,1",
                                        "--ray_strides", "2,2,1,1",
                                        "--n_iters", "1"])
     with pytest.raises(ValueError, match="mutually exclusive"):
         train(args)
     with pytest.raises(ValueError, match="4 positive ints"):
-        train(parse_args(TINY_FLAGSHIP + ["--ray_groups", "2,1", "--n_iters", "1"]))
+        train(parse_args(TINY_FLAGSHIP + CPU + ["--ray_groups", "2,1",
+                                                "--n_iters", "1"]))

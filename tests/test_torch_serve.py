@@ -13,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import TINY_FLAGSHIP, configs
+from _torch_parity import CPU, TINY_FLAGSHIP, configs
 from indoor_nerf_tpu.data.poses import pose_spherical as j_pose_spherical
 from indoor_nerf_tpu.data.synthetic import (
     make_room_scene as j_make_room_scene,
@@ -93,7 +93,7 @@ def test_png_round_trip(rng):
 
 def test_serve_answers_health_and_render():
     args = argparse.Namespace(width=16, height=12,
-                              train_args=["--"] + TINY_FLAGSHIP)
+                              train_args=["--"] + TINY_FLAGSHIP + CPU)
     render, step, hw = serve.build(args)
     assert (step, hw) == (0, (12, 16))
     srv = ThreadingHTTPServer(("127.0.0.1", 0), serve.make_handler(render, step, hw))

@@ -16,6 +16,7 @@ import torch
 
 import indoor_nerf_tpu.ops.blockhash as jbh
 from _torch_parity import (
+    CPU,
     TINY_FLAGSHIP,
     assert_tree_close,
     both_states,
@@ -270,7 +271,7 @@ def test_batched_sampler_copy_is_identical():
 
 
 def test_trainer_runs_the_cli_on_cpu(capsys):
-    args = parse_args(TINY_FLAGSHIP + ["--N_rand", "64", "--n_iters", "3",
+    args = parse_args(TINY_FLAGSHIP + CPU + ["--N_rand", "64", "--n_iters", "3",
                                        "--i_print", "2", "--lrate", "0.01"])
     out = train(args)
     assert len(out["losses"]) == 3 and np.all(np.isfinite(out["losses"]))
@@ -286,7 +287,7 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
     (["--no_batching"], "item 3"),
 ])
 def test_trainer_refuses_unported_flags(flag, item):
-    args = parse_args(TINY_FLAGSHIP + flag + ["--n_iters", "1"])
+    args = parse_args(TINY_FLAGSHIP + CPU + flag + ["--n_iters", "1"])
     with pytest.raises(NotImplementedError, match=item):
         train(args)
 
