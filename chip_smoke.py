@@ -14,7 +14,12 @@ printing any result.
   (c) tent_contract against its plain PyTorch version at the serving shapes
       (flagship side 4 / lpf 64 / F 4 over a bf16 [65536, 256] table with
       M = 16384 rays x 32 samples x 8 levels; side 5 / lpf 128 / F 2; a
-      ragged M), max |diff| <= 1e-5, both timed with CUDA events;
+      ragged M) on uniformly random rows, and on the serving path's own
+      stream (the rows and positions of a render of 16,000 rays of an
+      800x800 view, path_streams.serving_stream), max |diff| <= 1e-5, both
+      timed with CUDA events; the bound counts of the table only the
+      32-byte sectors that the case's rows and positions touch; the pack
+      pass against the plain copy, timed;
   (d) serving: indoor_nerf_tpu_torch.serve's build() and handler on
       127.0.0.1 at 800x800 with the flagship preset answer /health and
       three renders; every render must launch the kernel. Then one
@@ -23,8 +28,11 @@ printing any result.
   (e) table_scatter against its plain version at the flagship training
       shape (M = 4096 rays x 32 samples x 8 levels = 1,048,576 rows, F 4,
       lpf 64, side 4, bf16 rounding, a [65536, 256] f32 table): random
-      rows with integer and side - 1 positions, and every row on one table
-      row; within 1e-4 relative and 1e-6 of the largest entry; both timed;
+      rows with integer and side - 1 positions, every row on one table
+      row, and the training path's own stream (the cotangent, rows and
+      positions of a real step, path_streams.training_stream) with the
+      reductions its inputs need; within 1e-4 relative and 1e-6 of the
+      largest entry; both timed, and the un-pack pass on its own;
   (f) training: trainer.train on the flagship CLI for 200 steps at full
       width; both kernels must launch, the loss stay finite and the mean
       loss of the last 10 steps fall below that of the first 10;
@@ -75,7 +83,15 @@ version, the least time the card could take for the same work ("bound_ms":
 the larger of bytes moved once over 3.35 TB/s and operations over 67
 TFLOP/s f32, computed from the run's shapes) and, where one PyTorch call
 computes the same function on the same inputs, that call's time
-("library_ms", else null). The last line is {"ok": true, "device": {...}}.
+("library_ms", else null). tent_contract and table_scatter also carry
+"path_ms" (their time on the path's own stream, with "path_bound_ms") and
+the time of the pack pass ("pack_ms") or of the packed buffer's zero-fill
+and un-pack ("zero_fill_ms", "unpack_ms", parts of "ms"); table_scatter
+carries "reductions_from_inputs": the scalar atomics that one thread per
+(row, feature) needs on that stream and the vector reductions that the
+kernel's rule needs, both computed from the stream's inputs
+(path_streams.count_reductions), not counted on the card. The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -137,6 +153,28 @@ def bound(n_bytes: float, n_flops: float) -> dict:
 
 def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def table_sectors_touched(torch, table, flat_row, p, side) -> int:
+    """The distinct 32-byte sectors (the least the card reads from device
+    memory) of the packed ``table [rows, lpf, F]`` that hold a vertex
+    bracketing one of the rows ``(flat_row, p)``: what the function needs
+    of the table on these inputs, as csrc/tent_bracket.cuh picks the 8
+    vertices (origin clamp(floor(p), 0, side - 2) per axis)."""
+    lpf, F = table.shape[1:]
+    i0 = torch.clamp(torch.floor(p), 0, side - 2).long()
+    lane0 = (i0[:, 0] * side + i0[:, 1]) * side + i0[:, 2]
+    corners = torch.tensor([(dx * side + dy) * side + dz for dx in (0, 1)
+                            for dy in (0, 1) for dz in (0, 1)],
+                           device=p.device)
+    vertex_bytes = F * table.element_size()
+    first = (flat_row.long() * lpf + lane0)[:, None] + corners[None, :]
+    first = (first * vertex_bytes).reshape(-1)  # a vertex's first byte
+    touched = torch.zeros(-(-nbytes(table) // 32), dtype=torch.bool,
+                          device=p.device)
+    touched[first // 32] = True
+    touched[(first + vertex_bytes - 1) // 32] = True
+    return int(touched.sum())
 
 
 def launch_counts() -> dict:
@@ -218,6 +256,7 @@ def phase_build() -> None:
 
 def phase_kernel(torch) -> dict:
     from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.path_streams import serving_stream
 
     dev = torch.device("cuda:0")
     g = torch.Generator(device=dev).manual_seed(0)
@@ -225,41 +264,70 @@ def phase_kernel(torch) -> dict:
         ("flagship", 4, 4, 65536, 16384 * 32 * 8, torch.bfloat16),
         ("block_size4", 5, 2, 32768, 1 << 20, torch.float32),
         ("ragged", 4, 4, 65536, 12345, torch.bfloat16),
+        ("serving_path", 4, 4, 65536, None, torch.bfloat16),
     ]
-    flagship = None
+    stats = {}
     for label, side, F, n_rows, M, dtype in cases:
         lpf = tc.lanes_per_feature(side)
-        table = torch.randn((n_rows, F * lpf), generator=g, device=dev).to(dtype)
-        flat_row = torch.randint(0, n_rows, (M,), generator=g, device=dev,
-                                 dtype=torch.int32)
-        p = torch.rand((M, 3), generator=g, device=dev) * (side - 1)
-        p[:4096] = torch.randint(0, side, (4096, 3), generator=g,
-                                 device=dev).float()  # tent kinks
+        master = torch.randn((n_rows, F * lpf), generator=g, device=dev)
+        if M is None:
+            # The stream of a real render; an O(1) table in place of the
+            # served field's ~1e-4 entries, so the tolerance means something.
+            _, flat_row, p, *geometry = serving_stream(dev)
+            M = flat_row.shape[0]
+            if tuple(geometry) != (side, F):
+                raise AssertionError(f"serving stream: {geometry}, M {M}")
+        else:
+            flat_row = torch.randint(0, n_rows, (M,), generator=g, device=dev,
+                                     dtype=torch.int32)
+            p = torch.rand((M, 3), generator=g, device=dev) * (side - 1)
+            p[:4096] = torch.randint(0, side, (4096, 3), generator=g,
+                                     device=dev).float()  # tent kinks
+        plain_table = master.to(dtype)  # the master's layout
+        table = tc.pack_rows(master, F, dtype)  # what the kernel reads
+        if not torch.equal(table, tc.pack_rows_plain(master, F, dtype)):
+            raise AssertionError(f"{label}: pack_rows differs from the plain copy")
         got = tc.tent_contract(table, flat_row, p, side, F)
-        want = tc.tent_contract_plain(table, flat_row, p, side, F)
+        want = tc.tent_contract_plain(plain_table, flat_row, p, side, F)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
         if not (got.shape == (M, F) and err <= KERNEL_TOL):
             raise AssertionError(f"{label}: kernel vs plain max |diff| {err} "
                                  f"> {KERNEL_TOL} (shape {tuple(got.shape)})")
         ms, plain_ms, t = alternate(
-            torch, lambda: tc.tent_contract_plain(table, flat_row, p, side, F),
+            torch, lambda: tc.tent_contract_plain(plain_table, flat_row, p, side, F),
             lambda: tc.tent_contract(table, flat_row, p, side, F),
             20 if M > 100000 else 200)
+        # flat_row and p read once, out written once, and of the table the
+        # sectors these rows touch (all of it on random rows, a part on the
+        # path's); 8 vertices x (3 weight products + 1 multiply-add) per
+        # (m, f).
+        sectors = table_sectors_touched(torch, table, flat_row, p, side)
+        least = bound(sectors * 32 + nbytes(flat_row, p, got), M * F * 8 * 5)
         print(f"[c] {label}: side {side} lpf {lpf} F {F} table "
               f"{tuple(table.shape)} {str(dtype)[6:]} M {M}: max |diff| "
               f"{err:.3e} (tol {KERNEL_TOL}); kernel {ms:.4f} ms "
               f"({t[1]:.4f}, {t[2]:.4f}), plain {plain_ms:.4f} ms "
-              f"({t[0]:.4f}, {t[3]:.4f})")
+              f"({t[0]:.4f}, {t[3]:.4f}); the rows touch {sectors} 32-byte "
+              f"sectors of the table ({sectors * 32 / nbytes(table):.3f} of "
+              f"its bytes), bound {least['bound_ms']:.4f} ms")
         if label == "flagship":
-            # table, flat_row and p read once, out written once; 8 lanes x
-            # (3 weight products + 1 multiply-add) per (m, f).
-            flagship = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        **bound(nbytes(table, flat_row, p, got), M * F * 8 * 5),
-                        "library_ms": None}
-        del table, flat_row, p, got, want
+            pack_ms = cuda_ms(torch, lambda: tc.pack_rows(master, F, dtype), 20)
+            cast_ms = cuda_ms(torch, lambda: master.to(dtype), 20)
+            print(f"[c] pack_rows {tuple(master.shape)} f32 -> "
+                  f"{tuple(table.shape)} {str(dtype)[6:]}: {pack_ms:.4f} ms "
+                  f"(the cast alone, which it replaces in a step: "
+                  f"{cast_ms:.4f} ms)")
+            stats = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     **least, "library_ms": None, "pack_ms": pack_ms}
+        elif label == "serving_path":
+            stats.update({"path_ms": ms, "path_plain_ms": plain_ms,
+                          "path_max_abs_err": err, "path_rows": M,
+                          "path_bound_ms": least["bound_ms"],
+                          "path_table_sectors": sectors})
+        del master, table, plain_table, flat_row, p, got, want
     torch.cuda.empty_cache()
-    return flagship
+    return stats
 
 
 def _request(url, body=None):
@@ -423,7 +491,9 @@ def hold_scatter(torch, tag, what, kernel, plain, args, shape) -> dict:
 
 def phase_scatter(torch) -> dict:
     """(e) table_scatter against its plain version at the training shape."""
+    from indoor_nerf_tpu_torch.cuda_build import launch_on_stream
     from indoor_nerf_tpu_torch.ops import table_scatter as ts
+    from indoor_nerf_tpu_torch.path_streams import count_reductions, training_stream
 
     dev = torch.device("cuda:0")
     g0 = torch.Generator(device=dev).manual_seed(2)
@@ -449,6 +519,39 @@ def phase_scatter(torch) -> dict:
             ts.table_scatter_plain, args, (L * R, F * lpf))
         flagship = flagship or stats
         del g, p, flat_row, args
+    torch.cuda.empty_cache()
+
+    # The stream of a real step: its cotangent, rows and positions.
+    args = training_stream(dev)
+    g, p, flat_row, n_rows, *geometry = args
+    if tuple(geometry) != (side, lpf, torch.bfloat16) or g.shape != (M, F):
+        raise AssertionError(f"training stream: {geometry}, g {tuple(g.shape)}")
+    path = hold_scatter(
+        torch, "e", f"training_path: the table_scatter call of a real step, M "
+        f"{M}, {int((g == 0).all(1).sum())} rows of g all zero",
+        ts.table_scatter, ts.table_scatter_plain, args, (n_rows, F * lpf))
+    before, after = count_reductions(g, p, side, torch.bfloat16)
+    print(f"[e] training_path reductions, computed from its inputs (not "
+          f"counted on the card): {before} scalar f32 atomics with one thread "
+          f"per (row, feature); {after} vector reductions (one per vertex "
+          f"with a nonzero entry)")
+    passes = torch.zeros((n_rows, lpf, F), device=dev)
+    fill_ms = cuda_ms(torch, lambda: torch.zeros_like(passes), 20)
+    unpacked = torch.empty((n_rows, F * lpf), device=dev)
+    lib = ts._library()
+    unpack_ms = cuda_ms(torch, lambda: launch_on_stream(
+        lib.table_scatter_unpack, lib.table_scatter_error_string,
+        "table_scatter_unpack", (("packed", passes), ("out", unpacked)),
+        n_rows, F, lpf), 20)
+    print(f"[e] of the kernel's time: zero-fill of the packed buffer "
+          f"{fill_ms:.4f} ms, un-pack into the master's layout "
+          f"{unpack_ms:.4f} ms")
+    flagship.update({"path_ms": path["ms"], "path_plain_ms": path["plain_ms"],
+                     "path_max_abs_err": path["max_abs_err"], "path_rows": M,
+                     "path_bound_ms": path["bound_ms"],
+                     "reductions_from_inputs": [before, after],
+                     "zero_fill_ms": fill_ms, "unpack_ms": unpack_ms})
+    del args, g, p, flat_row, passes, unpacked
     torch.cuda.empty_cache()
     return flagship
 
@@ -778,7 +881,8 @@ def phase_tile_interp(torch) -> dict:
             flat_row = torch.randint(0, 65536, (M,), generator=g0, device=dev,
                                      dtype=torch.int32)
             a = ti.tile_interp_fwd(table.index_select(0, flat_row), p)
-            b = tc.tent_contract(table, flat_row, p, side, 2)
+            packed = tc.pack_rows(table, 2)  # f32, what tent_contract reads
+            b = tc.tent_contract(packed, flat_row, p, side, 2)
             torch.cuda.synchronize()
             kk = float((a - b).abs().max())
             if kk > KERNEL_TOL:
@@ -789,14 +893,14 @@ def phase_tile_interp(torch) -> dict:
                 table.index_select(0, flat_row), p), 10)
             t_gather = cuda_ms(torch, lambda: table.index_select(0, flat_row), 10)
             t_fused = cuda_ms(torch, lambda: tc.tent_contract(
-                table, flat_row, p, side, 2), 10)
+                packed, flat_row, p, side, 2), 10)
             print(f"[n] kernel against kernel, table {tuple(table.shape)} f32, "
                   f"M {M}: tile_interp_fwd(table[flat_row], p) vs "
-                  f"tent_contract(table, flat_row, p, 5, 2) max |diff| "
+                  f"tent_contract(pack_rows(table), flat_row, p, 5, 2) max |diff| "
                   f"{kk:.3e} (tol {KERNEL_TOL}); gather + tile_interp_fwd "
                   f"{t_route:.4f} ms (the gather alone {t_gather:.4f} ms), "
                   f"tent_contract {t_fused:.4f} ms")
-            del table, flat_row
+            del table, packed, flat_row
         del p
         torch.cuda.empty_cache()
     return stats

@@ -95,13 +95,18 @@ def init_field_params(generator: torch.Generator, config: FieldConfig,
 
 
 def serving_params(params: Params, config: FieldConfig) -> Params:
-    """Params with the table cast once to the gather dtype (bf16 for the
-    flagship). The JAX encode recasts the f32 master on every call; a
-    server holds the table fixed, so it casts once. The copy is valid only
-    while the params do not change: re-derive it after any update. It
-    carries no gradient."""
+    """Params with the table packed and cast once as the row gather reads
+    it (``gather_table``: vertex major, bf16 for the flagship). The JAX
+    encode recasts the f32 master on every call; a server holds the table
+    fixed, so it packs once. The copy is valid only while the params do not
+    change: re-derive it after any update. It carries no gradient. The
+    tile-interp route gathers whole rows of the master layout, so its table
+    stays as it is."""
     out = dict(params)
-    out["table"] = gather_table(params["table"].detach(), config.block_grid)
+    table = params["table"].detach()
+    if not config.block_grid.uses_tile_interp:
+        table = gather_table(table, config.block_grid)
+    out["table"] = table
     return out
 
 

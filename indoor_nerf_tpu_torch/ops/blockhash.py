@@ -5,7 +5,10 @@ tile of F features, so one (point, level) reads ONE row. Interpolation is
 the tent-product contraction of that row (``ops/tent_contract.py``), and
 the table gradient is the tent-weighted scatter-add of the output
 cotangent (``ops/table_scatter.py``); on the card both run hand-written
-CUDA kernels. ``block_tv_loss`` is the table's TV regularizer.
+CUDA kernels. The master table keeps the JAX layout (feature planes); the
+contraction reads a vertex-major packed copy of it (``gather_table``), and
+the scatter returns its gradient in the master's layout.
+``block_tv_loss`` is the table's TV regularizer.
 
 A second route, ``BlockHashConfig.tile_interp`` (the trainer's
 ``--use_pallas``), runs the encode as the JAX package does under
@@ -35,7 +38,11 @@ from torch.profiler import record_function
 from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
 from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter
 from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter
-from indoor_nerf_tpu_torch.ops.tent_contract import lanes_per_feature, tent_contract
+from indoor_nerf_tpu_torch.ops.tent_contract import (
+    lanes_per_feature,
+    pack_rows,
+    tent_contract,
+)
 from indoor_nerf_tpu_torch.ops.tile_interp import tile_interp
 
 _BLOCK_PRIMES = (2654435761, 805459861, 3674653429, 2097192037)
@@ -280,19 +287,30 @@ def _grouped_coords(v0: torch.Tensor, w: torch.Tensor, level_ids: torch.Tensor,
     return row, torch.clamp(p, 0.0, float(config.block_size))
 
 
-def gather_table(table: torch.Tensor, config: BlockHashConfig) -> torch.Tensor:
-    """The table in ``gather_dtype`` — what the row gather reads.
+def _gather_dtype(config: BlockHashConfig) -> torch.dtype:
+    return torch.bfloat16 if config.gather_dtype == "bfloat16" else torch.float32
 
-    The f32 master cast to bf16 for ``gather_dtype="bfloat16"`` (the JAX
-    ``_gather_rows`` bf16 path, :355-361); a table already in the gather
-    dtype is returned as is, so a server casts once per loaded params."""
-    want = torch.bfloat16 if config.gather_dtype == "bfloat16" else torch.float32
-    if table.dtype == want:
+
+def gather_table(table: torch.Tensor, config: BlockHashConfig) -> torch.Tensor:
+    """The table as the row gather reads it: the packed copy
+    ``[L*R, lpf, F]`` (vertex major, ``ops/tent_contract.py::pack_rows``) in
+    ``gather_dtype``.
+
+    The f32 master ``[L*R, F*lpf]`` is transposed and cast in one pass (the
+    cast is the JAX ``_gather_rows`` bf16 path, :355-361). The 3-D shape
+    marks a copy that is already packed: it is returned as is, so a server
+    packs once per loaded params while a training step packs once per
+    encode call."""
+    want = _gather_dtype(config)
+    if table.dim() == 3:
+        if table.dtype != want:
+            raise TypeError(f"the packed table is {table.dtype}; the gather "
+                            f"reads {want}")
         return table
     if table.dtype != torch.float32:
         raise TypeError(f"table is {table.dtype}; the master table is "
                         f"float32 and the gather reads {want}")
-    return table.to(want)
+    return pack_rows(table, config.n_features_per_level, want)
 
 
 def _gather_interp(table: torch.Tensor, flat_row: torch.Tensor,
@@ -346,8 +364,8 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
     ``levels`` restricts the encode to a subset of the grid's levels (L of
     them, in the order given); its gradient still lands in the full table.
     ``table`` is the f32 master (its gradient is f32, of the master's
-    shape) or its cached ``gather_table`` copy (no gradient). The gradient
-    w.r.t. ``x`` is None. The JAX package gives the same zero ``dx`` at
+    shape) or its cached packed ``gather_table`` copy (no gradient). The
+    gradient w.r.t. ``x`` is None. The JAX package gives the same zero ``dx`` at
     ``scatter_dtype`` bfloat16, but a nonzero one through XLA autodiff at
     float32, so a float32 encode refuses an ``x`` that requires grad.
 
@@ -386,9 +404,14 @@ def _encode_tile_interp(x: torch.Tensor, table: torch.Tensor,
     land in an order that changes from run to run. ``_tile_coords`` sees
     ``x`` itself, not ``x.detach()``: ``w = rel - floor(rel)`` carries the
     gradient on to the points."""
+    if table.dim() != 2:
+        raise ValueError("the tile-interp route gathers whole rows of the "
+                         "master layout [L*R, F*lpf], got a packed table "
+                         f"{tuple(table.shape)}")
     lv = _levels(config, levels)
     flat_row, p, keep_mask = _tile_coords(x, config, lv)
-    rows = gather_table(table, config).index_select(0, flat_row)
+    # Its own cast: gather_table would pack, and this route reads planes.
+    rows = table.to(_gather_dtype(config)).index_select(0, flat_row)
     if rows.dtype != torch.float32:
         rows = rows.to(torch.float32)
     out = tile_interp(rows, p.contiguous())

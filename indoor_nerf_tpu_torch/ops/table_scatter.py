@@ -2,12 +2,14 @@
 
 ``table_scatter(g, p, flat_row, n_rows, side, lpf, dtype) -> [n_rows, F*lpf]``
 f32 computes the table gradient of the encode forward
-(``ops/tent_contract.py``): for each (point, level) row m,
+(``ops/tent_contract.py``), in the master's layout: for each (point,
+level) row m,
 
     grad[flat_row[m], f*lpf + lane] += round(g[m, f] * w(m, lane))
 
 with ``w`` the tent-product weights and ``round`` the rounding to ``dtype``
-(bf16 for the flagship, none for f32), summed in f32.
+(bf16 for the flagship, none for f32), applied to each entry once, before
+any sum; the sums are f32.
 
 Two implementations of the same function live here:
 
@@ -16,18 +18,25 @@ Two implementations of the same function live here:
   ``indoor_nerf_tpu/ops/blockhash.py::_cot_rows``), rounded to ``dtype``,
   then ``index_add_`` into a zero table. The CPU path and the reference the
   kernel is held against.
-- the CUDA kernel ``csrc/table_scatter.cu``, which forms only the 8
-  nonzero entries per (row, feature) in registers and adds them with f32
-  atomics, so no ``[M, F*lpf]`` array reaches device memory. It replaces the
-  Pallas kernel ``indoor_nerf_tpu/ops/pallas/table_scatter.py::
-  scatter_add_table`` and the cotangent formation that fed it.
+- the CUDA kernels of ``csrc/table_scatter.cu``. They replace the Pallas
+  kernel ``indoor_nerf_tpu/ops/pallas/table_scatter.py::scatter_add_table``
+  and the cotangent formation that fed it: only the 8 nonzero entries per
+  (row, feature) are formed, in registers, so no ``[M, F*lpf]`` array
+  reaches device memory. The sums go into a zeroed vertex-major packed f32
+  buffer ``[n_rows, lpf, F]`` (the layout of ``tent_contract.pack_rows``),
+  where the F features of a vertex are adjacent and take ONE vector
+  reduction; a second pass un-packs the buffer into the master's layout.
+  One thread takes a (point, level) row and all its features, in memory
+  order. Atomic reductions at L2 bound it on an H100, not bytes; PERF.md
+  holds its times, and those of the work order and the run merge that were
+  tried and dropped.
 
 ``table_scatter`` dispatches on the tensors' device: CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise. There is no
+plain version; CUDA tensors launch the kernels or raise. There is no
 fallback from a failed build or launch to the plain version.
 
-Numerics: both sum the same rounded entries in f32; the kernel's atomics
-land in an order that changes from run to run, so results agree to f32
+Numerics: both sum the same rounded entries in f32; the kernel's sums are
+taken in an order that changes from run to run, so results agree to f32
 rounding of the sums, not bitwise.
 """
 
@@ -103,7 +112,8 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
                   n_rows: int, side: int, lpf: int,
                   dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """``(g [M, F] f32, p [M, 3] f32, flat_row [M] int32) -> [n_rows, F*lpf]``
-    f32 table gradient. CPU tensors: plain version. CUDA tensors: the kernel."""
+    f32 table gradient. CPU tensors: plain version. CUDA tensors: the kernels
+    (a zero-fill, the scatter into the packed buffer, the un-pack)."""
     global _launches
     _check(g, p, flat_row, n_rows, side, lpf, dtype)
     if g.device.type == "cpu":
@@ -111,18 +121,26 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
     if g.device.type != "cuda":
         raise ValueError(f"table_scatter runs on cpu or cuda, not {g.device}")
     M, F = g.shape
-    out = torch.zeros((n_rows, F * lpf), dtype=torch.float32, device=g.device)
-    if M == 0:
-        return out
-    if M * F >= (1 << 31) * 256:
+    if M == 0 or n_rows == 0:
+        return torch.zeros((n_rows, F * lpf), dtype=torch.float32,
+                           device=g.device)
+    if M >= (1 << 31) * 256:
         raise ValueError(f"M={M} exceeds one launch's grid")
+    if g.data_ptr() % 16:
+        g = g.clone()  # the kernel loads a row of g as one vector
     lib = _library()
+    packed = torch.zeros((n_rows, lpf, F), dtype=torch.float32, device=g.device)
     launch_on_stream(
         lib.table_scatter, lib.table_scatter_error_string, "table_scatter",
-        (("g", g), ("p", p), ("flat_row", flat_row), ("out", out)),
+        (("g", g), ("p", p), ("flat_row", flat_row), ("packed", packed)),
         M, F, lpf, side, n_rows, int(dtype == torch.bfloat16))
     with _LOCK:
         _launches += 1
+    out = torch.empty((n_rows, F * lpf), dtype=torch.float32, device=g.device)
+    launch_on_stream(
+        lib.table_scatter_unpack, lib.table_scatter_error_string,
+        "table_scatter_unpack", (("packed", packed), ("out", out)),
+        n_rows, F, lpf)
     return out
 
 
@@ -138,6 +156,9 @@ def _library() -> ctypes.CDLL:
             ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
             ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
         lib.table_scatter.restype = ctypes.c_int
+        lib.table_scatter_unpack.argtypes = [ctypes.c_void_p] * 2 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.table_scatter_unpack.restype = ctypes.c_int
         lib.table_scatter_error_string.argtypes = [ctypes.c_int]
         lib.table_scatter_error_string.restype = ctypes.c_char_p
         _lib = lib

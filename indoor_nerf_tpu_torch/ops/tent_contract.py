@@ -3,26 +3,39 @@
 ``tent_contract(table, flat_row, p, side, F) -> [M, F]`` f32 computes, for
 each (point, level) row m,
 
-    out[m, f] = sum_lane table[flat_row[m], f*lpf + lane] * w(m, lane)
+    out[m, f] = sum_lane row(m)[f, lane] * w(m, lane)
     w(m, lane) = tent(lx - px) * tent(ly - py) * tent(lz - pz)
 
-which is trilinear interpolation inside the gathered tile (the tent weights
-vanish except at the 8 vertices bracketing p).
+with ``row(m)`` the table row ``flat_row[m]``: trilinear interpolation
+inside the gathered tile (the tent weights vanish except at the 8 vertices
+bracketing p).
+
+Two layouts of a table row. The master (the trainable table, the JAX
+layout) is ``[rows, F*lpf]``, feature planes: element ``f*lpf + lane``.
+``tent_contract`` reads the **packed** copy ``[rows, lpf, F]``, vertex
+major: element ``lane*F + f``, so the F features of a vertex are adjacent
+and one vector load fetches them. ``pack_rows`` makes that copy (casting
+to the gather dtype in the same pass); the 3-D shape marks it.
 
 Two implementations of the same function live here:
 
 - ``tent_contract_plain``: a gather, tent weights over every lane, and a
-  per-feature sum — the jnp form of
-  ``indoor_nerf_tpu/ops/blockhash.py::_gather_interp`` (:411-423). The CPU
-  path and the reference the kernel is held against.
+  per-feature sum, the jnp form of
+  ``indoor_nerf_tpu/ops/blockhash.py::_gather_interp`` (:411-423). It
+  takes the master layout (a packed copy is un-packed first). The CPU path
+  and the reference the kernel is held against.
 - the CUDA kernel ``csrc/tent_contract.cu``, which fuses the gather and
-  reads only the 8 bracketing lanes. It replaces the Pallas kernel
-  ``indoor_nerf_tpu/ops/pallas/tent_contract.py::tent_contract`` and the
-  XLA gather that fed it.
+  reads only the 8 bracketing vertices, one vector each. It replaces the
+  Pallas kernel ``indoor_nerf_tpu/ops/pallas/tent_contract.py::
+  tent_contract`` and the XLA gather that fed it. One thread takes a
+  (point, level) row and all its features, in memory order. L2 sector
+  requests of the gather bound it on an H100, not device memory (the bf16
+  flagship table lives in L2) and not arithmetic; PERF.md holds its times,
+  and those of the work orders that were tried and dropped.
 
-``tent_contract`` dispatches on the tensors' device: CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise. There is no
-fallback from a failed build or launch to the plain version.
+``tent_contract`` and ``pack_rows`` dispatch on the tensors' device: CPU
+tensors take the plain version; CUDA tensors launch the kernel or raise.
+There is no fallback from a failed build or launch to the plain version.
 
 Numerics: the kernel accumulates in f32 and returns f32. The TPU
 production variant rounds the weighted products to bf16 before a 0/1 MXU
@@ -82,9 +95,56 @@ def tent_weights(p: torch.Tensor, side: int, lanes: int) -> torch.Tensor:
     return tx * ty * tz
 
 
+def pack_rows_plain(table: torch.Tensor, F: int,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The master layout ``[rows, F*lpf]`` as the packed ``[rows, lpf, F]``
+    in ``dtype``: a view, a transpose and one copy."""
+    lpf = table.shape[1] // F
+    return table.view(table.shape[0], F, lpf).transpose(1, 2).to(
+        dtype).contiguous()
+
+
+def unpack_rows(packed: torch.Tensor) -> torch.Tensor:
+    """A packed ``[rows, lpf, F]`` tensor back in the master layout
+    ``[rows, F*lpf]``, same dtype (plain PyTorch on every device)."""
+    rows, lpf, F = packed.shape
+    return packed.transpose(1, 2).reshape(rows, F * lpf)
+
+
+def pack_rows(table: torch.Tensor, F: int,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``table [rows, F*lpf] f32 -> [rows, lpf, F]`` in ``dtype`` (f32 or
+    bf16, rounded to nearest even as ``Tensor.to``). CPU tensors: the plain
+    version. CUDA tensors: the pack kernel of ``csrc/tent_contract.cu``."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the packed copy is float32 or bfloat16, got {dtype}")
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] % F:
+        raise TypeError(f"table must be float32 [rows, F*lpf] with F={F}, got "
+                        f"{table.dtype} {tuple(table.shape)}")
+    if table.device.type == "cpu":
+        return pack_rows_plain(table, F, dtype)
+    if table.device.type != "cuda":
+        raise ValueError(f"pack_rows runs on cpu or cuda, not {table.device}")
+    n_rows, lpf = table.shape[0], table.shape[1] // F
+    packed = torch.empty((n_rows, lpf, F), dtype=dtype, device=table.device)
+    if n_rows == 0:
+        return packed
+    lib = _library()
+    fn = (lib.tent_pack_rows_bf16 if dtype == torch.bfloat16
+          else lib.tent_pack_rows_f32)
+    launch_on_stream(fn, lib.tent_contract_error_string, "pack_rows",
+                     (("table", table), ("packed", packed)), n_rows, F, lpf)
+    return packed
+
+
 def tent_contract_plain(table: torch.Tensor, flat_row: torch.Tensor,
                         p: torch.Tensor, side: int, F: int) -> torch.Tensor:
-    """The plain PyTorch version: gather rows, weight every lane, sum."""
+    """The plain PyTorch version: gather rows, weight every lane, sum.
+
+    ``table`` is in the master layout ``[rows, F*lpf]``; a packed 3-D copy
+    is un-packed first."""
+    if table.dim() == 3:
+        table = unpack_rows(table)
     lpf = table.shape[1] // F
     rows = table.index_select(0, flat_row.long()).to(torch.float32)
     w = tent_weights(p, side, lpf)
@@ -96,10 +156,10 @@ def tent_contract_plain(table: torch.Tensor, flat_row: torch.Tensor,
 def _check(table, flat_row, p, side, F) -> None:
     if table.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"table must be float32 or bfloat16, got {table.dtype}")
-    if table.dim() != 2 or table.shape[1] % F:
-        raise ValueError(f"table must be [rows, F*lpf] with F={F}, got "
-                         f"{tuple(table.shape)}")
-    lpf = table.shape[1] // F
+    if table.dim() != 3 or table.shape[2] != F:
+        raise ValueError(f"table must be packed [rows, lpf, F] with F={F} "
+                         f"(pack_rows), got {tuple(table.shape)}")
+    lpf = table.shape[1]
     if side < 2 or side ** 3 > lpf:
         raise ValueError(f"a side-{side} tile does not fit {lpf} lanes")
     if flat_row.dtype != torch.int32 or flat_row.dim() != 1:
@@ -115,19 +175,23 @@ def _check(table, flat_row, p, side, F) -> None:
 
 def tent_contract(table: torch.Tensor, flat_row: torch.Tensor,
                   p: torch.Tensor, side: int, F: int) -> torch.Tensor:
-    """``(table [L*R, F*lpf] f32|bf16, flat_row [M] int32, p [M, 3] f32)
-    -> [M, F] f32``. CPU tensors: plain version. CUDA tensors: the kernel."""
+    """``(table [L*R, lpf, F] f32|bf16 packed, flat_row [M] int32, p [M, 3]
+    f32) -> [M, F]`` f32. CPU tensors: plain version. CUDA tensors: the
+    kernel."""
     global _launches
     _check(table, flat_row, p, side, F)
     if table.device.type == "cpu":
         return tent_contract_plain(table, flat_row, p, side, F)
     if table.device.type != "cuda":
         raise ValueError(f"tent_contract runs on cpu or cuda, not {table.device}")
+    if table.data_ptr() % 16:
+        raise ValueError("the packed table must start at a multiple of 16 "
+                         "bytes (the kernel loads vectors)")
     M = flat_row.shape[0]
     out = torch.empty((M, F), dtype=torch.float32, device=table.device)
     if M == 0:
         return out
-    if M * F >= (1 << 31) * 256:
+    if M >= (1 << 31) * 256:
         raise ValueError(f"M={M} exceeds one launch's grid")
     lib = _library()
     fn = (lib.tent_contract_bf16 if table.dtype == torch.bfloat16
@@ -135,7 +199,7 @@ def tent_contract(table: torch.Tensor, flat_row: torch.Tensor,
     launch_on_stream(
         fn, lib.tent_contract_error_string, "tent_contract",
         (("table", table), ("flat_row", flat_row), ("p", p), ("out", out)),
-        M, F, table.shape[1] // F, side, table.shape[0])
+        M, F, table.shape[1], side, table.shape[0])
     with _LOCK:
         _launches += 1
     return out
@@ -153,6 +217,10 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 4 + [
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_longlong, ctypes.c_void_p]
+            fn.restype = ctypes.c_int
+        for fn in (lib.tent_pack_rows_f32, lib.tent_pack_rows_bf16):
+            fn.argtypes = [ctypes.c_void_p] * 2 + [
+                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
         lib.tent_contract_error_string.argtypes = [ctypes.c_int]
         lib.tent_contract_error_string.restype = ctypes.c_char_p

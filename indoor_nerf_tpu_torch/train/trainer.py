@@ -64,6 +64,8 @@ _UNPORTED_LOOP = (
     ("no_batching", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
     ("render_only", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
     ("ft_path", None, "Queue 1 item 3 (trainer, CLI and loaders)"),
+    ("profile_dir", None, "Queue 1 item 3 (trainer, CLI and loaders)"),
+    ("debug_nans", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
     ("multihost", False, "Queue 1 item 8 (multi-device)"),
     ("mesh_shape", None, "Queue 1 item 8 (multi-device)"),
 )

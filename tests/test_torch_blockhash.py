@@ -94,11 +94,82 @@ def test_encode_matches_jax_plain_path(rng, gather):
     np.testing.assert_array_equal(keep.numpy(), np.asarray(want_keep))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
                                atol=1e-6)
-    # The cached gather-dtype table gives the same features as the master.
+    # The cached packed gather copy gives the same features as the master.
     cached, _ = tbh.block_hash_encode(
         torch.from_numpy(x), tbh.gather_table(torch.from_numpy(table), tcfg),
         tcfg)
     np.testing.assert_array_equal(cached.numpy(), got.numpy())
+
+
+@pytest.mark.parametrize("block_size,gather", [(3, "bfloat16"), (3, "float32"),
+                                               (4, "float32")])
+def test_gather_table_is_the_packed_copy(rng, block_size, gather):
+    """``[L*R, lpf, F]`` in the gather dtype, element [r, lane, f] the
+    master's [r, f*lpf + lane]; the 3-D shape marks it (an f32 copy too),
+    and a packed copy goes through unchanged."""
+    _, tcfg = _configs(block_size, gather)
+    master = torch.from_numpy(_table(rng, tcfg))
+    want = torch.bfloat16 if gather == "bfloat16" else torch.float32
+    packed = tbh.gather_table(master, tcfg)
+    F, lpf = tcfg.n_features_per_level, tcfg.lanes_per_feature
+    assert packed.shape == (master.shape[0], lpf, F) and packed.dtype == want
+    np.testing.assert_array_equal(
+        packed.float().numpy(),
+        master.to(want).float().view(-1, F, lpf).transpose(1, 2).numpy())
+    assert tbh.gather_table(packed, tcfg) is packed
+    with pytest.raises(TypeError):
+        tbh.gather_table(master.to(torch.float16), tcfg)
+    other = torch.float32 if want == torch.bfloat16 else torch.bfloat16
+    with pytest.raises(TypeError):
+        tbh.gather_table(packed.to(other), tcfg)
+
+
+@pytest.mark.parametrize("levels", [None, (1, 2)])
+def test_serving_params_encode_matches_jax(rng, levels):
+    """A server's packed table (``serving_params``) through the encode, all
+    levels and a subset, against the JAX encode of the master: the
+    tolerance of ``test_encode_matches_jax_plain_path``."""
+    from indoor_nerf_tpu_torch.models.field import FieldConfig, serving_params
+
+    jcfg, tcfg = _configs()
+    x = _points(rng)
+    table = _table(rng, tcfg)
+    want, want_keep = jbh.block_hash_encode(jnp.asarray(x), jnp.asarray(table),
+                                            jcfg, levels=levels)
+    params = serving_params({"table": torch.from_numpy(table)},
+                            FieldConfig(block_grid=tcfg))
+    assert params["table"].dim() == 3 and params["table"].dtype == torch.bfloat16
+    got, keep = tbh.block_hash_encode(torch.from_numpy(x), params["table"],
+                                      tcfg, levels=levels)
+    np.testing.assert_array_equal(keep.numpy(), np.asarray(want_keep))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6,
+                               atol=1e-6)
+
+
+def test_tile_interp_route_keeps_the_master_layout(rng):
+    """The tile-interp route gathers whole feature-plane rows: a server
+    leaves its table unpacked there, and a packed one is refused."""
+    from indoor_nerf_tpu_torch.models.field import FieldConfig, serving_params
+
+    kw = dict(_GEOM, n_features_per_level=2, block_size=4, tile_interp=True)
+    jcfg, tcfg = jbh.BlockHashConfig(**{k: v for k, v in kw.items()
+                                        if k != "tile_interp"}), \
+        tbh.BlockHashConfig(**kw)
+    assert tcfg.uses_tile_interp
+    x = _points(rng, 128)
+    table = _table(rng, tcfg)
+    params = serving_params({"table": torch.from_numpy(table)},
+                            FieldConfig(block_grid=tcfg))
+    assert params["table"].shape == table.shape
+    got, _ = tbh.block_hash_encode(torch.from_numpy(x), params["table"], tcfg)
+    want, _ = jbh.block_hash_encode(jnp.asarray(x), jnp.asarray(table), jcfg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    plain_cfg = tbh.BlockHashConfig(**dict(kw, tile_interp=False))
+    with pytest.raises(ValueError, match="master layout"):
+        tbh.block_hash_encode(torch.from_numpy(x),
+                              tbh.gather_table(torch.from_numpy(table), plain_cfg),
+                              tcfg)
 
 
 @pytest.mark.parametrize("knobs,tol", [

@@ -42,6 +42,7 @@ assert np.all(np.isfinite(out["depth_map"]))
 
 # Two training steps on the CPU, and the modules of the training slice.
 import indoor_nerf_tpu_torch.bench
+import indoor_nerf_tpu_torch.path_streams
 import indoor_nerf_tpu_torch.ops.group_scatter
 import indoor_nerf_tpu_torch.ops.lane_gather
 import indoor_nerf_tpu_torch.ops.table_scatter

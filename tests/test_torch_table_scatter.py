@@ -135,6 +135,36 @@ def test_digest_covers_the_shared_headers(tmp_path):
     assert cuda_build.source_digest("tent_contract", csrc) == after["tent_contract"]
 
 
+def test_count_reductions_by_hand():
+    """The count of what the kernels add, on a stream small enough to
+    count by hand."""
+    from indoor_nerf_tpu_torch.path_streams import count_reductions
+
+    M, F, side = 128, 4, 4
+    g = torch.ones((M, F))
+    p = torch.full((M, 3), 1.5)
+    # Every entry nonzero: 8 per (row, feature) as scalars, 8 vectors a row.
+    assert count_reductions(g, p, side, torch.bfloat16) == (M * F * 8, M * 8)
+    # An integer position has one nonzero vertex, and zero rows of g none.
+    p[:] = 2.0
+    g[: M // 2] = 0.0
+    assert count_reductions(g, p, side, torch.float32) == (M // 2 * F, M // 2)
+    # F = 6 goes as three 2-vectors per vertex.
+    assert count_reductions(torch.ones((M, 6)), p, side, torch.float32) == \
+        (M * 6, M * 3)
+    # An entry that rounds to zero in bf16 is skipped there, not in f32:
+    # 6 units of the smallest f32 denormal, times three weights of 0.5.
+    tiny = torch.full((M, F), 6 * 2.0 ** -149)
+    p[:] = 1.5
+    assert count_reductions(tiny, p, side, torch.bfloat16)[0] == 0
+    assert count_reductions(tiny, p, side, torch.float32)[0] == M * F * 8
+
+
+def _need_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+
+
 def _cuda_case(side, F, N, L, R, dtype, one_row):
     g, p, flat = (t.cuda() for t in _inputs(4, side, F, N, L, R, one_row,
                                             nonneg=one_row))
@@ -145,6 +175,13 @@ def _cuda_case(side, F, N, L, R, dtype, one_row):
     assert ts.launch_count() == 1
     want = ts.table_scatter_plain(g, p, flat, L * R, side, lpf, dtype)
     return got, want
+
+
+def _assert_scatter_close(got, want):
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    scale = float(want.abs().max())
+    assert scale > 0.0
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * scale)
 
 
 @pytest.mark.cuda
@@ -159,10 +196,89 @@ def test_cuda_kernel_matches_plain(side, F, N, L, R, dtype, one_row):
     relative, and 1e-6 of the largest entry absolute. The one-row case
     takes non-negative cotangents, so its sums of ~10^4 terms do not
     cancel and stay within that relative bound."""
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    _need_card()
     got, want = _cuda_case(side, F, N, L, R, dtype, one_row)
-    assert got.dtype == torch.float32 and got.shape == want.shape
+    _assert_scatter_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,F,N,L,R,dtype", [
+    (5, 2, 65536, 16, 4096, torch.float32),  # block_size 4, F 2 f32
+    (4, 4, 4099, 8, 64, torch.bfloat16),     # M not a multiple of the block
+    (4, 2, 10000, 3, 64, torch.bfloat16),    # 2-vectors, bf16 rounding
+    (4, 3, 10000, 3, 64, torch.float32),     # odd F: scalar adds
+    (4, 8, 20000, 2, 64, torch.bfloat16),    # two vectors per vertex
+])
+def test_cuda_kernel_layouts(side, F, N, L, R, dtype):
+    """Integer positions and p = side - 1 are among ``_inputs``' rows."""
+    _need_card()
+    got, want = _cuda_case(side, F, N, L, R, dtype, False)
+    _assert_scatter_close(got, want)
+
+
+def _run_case(brackets):
+    """64 points x 2 levels of one row per level, sorted along a 'ray':
+    ``brackets`` bracket origins, each held by a run of consecutive points
+    (positions differ inside a run): the rows of a ray that stays in one
+    cell, whose reductions all land on the same 8 vertices."""
+    N, L, F, side, R = 64, 2, 4, 4, 4
+    rng = np.random.default_rng(11)
+    g = np.abs(rng.standard_normal((N, L, F))).astype(np.float32) + 0.5
+    origin = (np.arange(N) * brackets // N) % (side - 1)  # runs of N/brackets
+    frac = rng.uniform(0.05, 0.95, size=(N, L, 3)).astype(np.float32)
+    p = origin[:, None, None].astype(np.float32) + frac
+    flat = np.broadcast_to(np.arange(L, dtype=np.int32) * R, (N, L)).copy()
+    return (torch.from_numpy(g.reshape(-1, F)), torch.from_numpy(p.reshape(-1, 3)),
+            torch.from_numpy(flat.reshape(-1)), L * R, side, 64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("brackets", [1, 3, 64])
+def test_cuda_runs_round_each_entry_before_the_sum(brackets):
+    """Runs of equal rows with equal and with different brackets: every sum
+    is the f32 sum of bf16-rounded entries (the plain version), not the
+    bf16 rounding of the f32 sum (group_scatter's contract), and brackets
+    stay apart."""
+    _need_card()
+    g, p, flat, n_rows, side, lpf = _run_case(brackets)
+    args = (g.cuda(), p.cuda(), flat.cuda(), n_rows, side, lpf)
+    got = ts.table_scatter(*args, torch.bfloat16)
+    want = ts.table_scatter_plain(*args, torch.bfloat16)
+    _assert_scatter_close(got, want)
+    # The sum rounded afterwards differs by up to a bf16 half-ulp (2^-9).
+    after = ts.table_scatter_plain(*args, torch.float32).to(
+        torch.bfloat16).to(torch.float32)
     scale = float(want.abs().max())
-    assert scale > 0.0
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-6 * scale)
+    assert float((after - want).abs().max()) > 1e-4 * scale
+    assert float((got - want).abs().max()) < \
+        0.01 * float((after - want).abs().max())
+
+
+@pytest.mark.cuda
+def test_cuda_out_of_range_rows_are_dropped():
+    _need_card()
+    g, p, flat = (t.cuda() for t in _inputs(8, 4, 4, 2048, 8, 16))
+    bad = torch.zeros(flat.shape[0], dtype=torch.bool, device="cuda")
+    bad[5] = bad[3000] = bad[3001] = True
+    want = ts.table_scatter_plain(g[~bad], p[~bad], flat[~bad], 128, 4, 64,
+                                  torch.bfloat16)
+    flat[5], flat[3000], flat[3001] = 128, -1, 1 << 30
+    got = ts.table_scatter(g, p, flat, 128, 4, 64, torch.bfloat16)
+    _assert_scatter_close(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_on_the_training_path_stream():
+    """The cotangent, rows and positions of a real flagship training step
+    (runs of samples in one cell along each ray, rows of g that are 0)."""
+    _need_card()
+    from indoor_nerf_tpu_torch.path_streams import count_reductions, training_stream
+
+    args = training_stream(torch.device("cuda:0"))
+    g, p, flat, n_rows, side, lpf, dtype = args
+    assert (tuple(g.shape), side, lpf, dtype) == \
+        ((4096 * 32 * 8, 4), 4, 64, torch.bfloat16)
+    _assert_scatter_close(ts.table_scatter(*args),
+                          ts.table_scatter_plain(*args))
+    scalar, vector = count_reductions(g, p, side, dtype)
+    assert 0 < vector <= scalar <= 4 * vector  # one vector per vertex

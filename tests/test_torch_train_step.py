@@ -285,6 +285,9 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
     (["--distortion_loss_weight", "0.1"], "item 5"),
     (["--ema_decay", "0.99"], "item 5"),
     (["--no_batching"], "item 3"),
+    # Parsed like the JAX trainer's, where they change what a run does.
+    (["--profile_dir", "trace"], "item 3"),
+    (["--debug_nans"], "item 3"),
 ])
 def test_trainer_refuses_unported_flags(flag, item):
     args = parse_args(TINY_FLAGSHIP + CPU + flag + ["--n_iters", "1"])
