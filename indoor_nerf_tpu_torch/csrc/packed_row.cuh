@@ -1,7 +1,8 @@
 // What the kernels of the packed block-hash encode share (tent_contract.cu,
-// table_scatter.cu): vector access to the VEC adjacent features of one
-// vertex in a vertex-major packed row [lpf, F] (element lane*F + f), f32 or
-// bf16, widened to and narrowed from f32.
+// table_scatter.cu, group_scatter.cu): vector access to the VEC adjacent
+// features of one vertex in a vertex-major packed row [lpf, F] (element
+// lane*F + f), f32 or bf16, widened to and narrowed from f32, and the
+// vector reduction into an f32 one.
 
 #pragma once
 
@@ -71,6 +72,20 @@ __device__ __forceinline__ void store_vec(uint16_t* dst, const float (&v)[VEC]) 
         f32_to_bf16_bits(v[0]) | (f32_to_bf16_bits(v[1]) << 16);
   } else {
     dst[0] = static_cast<uint16_t>(f32_to_bf16_bits(v[0]));
+  }
+}
+
+// One reduction for the VEC adjacent f32 features of a vertex; the result is
+// unused, so the compiler emits red, not atom.
+template <int VEC>
+__device__ __forceinline__ void reduce_vec(float* dst, const float (&v)[VEC]) {
+  if constexpr (VEC == 4) {
+    atomicAdd(reinterpret_cast<float4*>(dst),
+              make_float4(v[0], v[1], v[2], v[3]));
+  } else if constexpr (VEC == 2) {
+    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+  } else {
+    atomicAdd(dst, v[0]);
   }
 }
 

@@ -29,7 +29,8 @@
 //   (element lane*F + f), where the F features of a vertex are adjacent:
 //   one vector reduction per vertex (red.global.add.v4.f32 at F 4, .v2 at
 //   F 2: Hopper's atomicAdd on float4 / float2) instead of F scalar ones
-//   that no sector shares. table_scatter_unpack then transposes the buffer
+//   that no sector shares (packed_row.cuh::reduce_vec, shared with
+//   group_scatter.cu). table_scatter_unpack then transposes the buffer
 //   into the master's feature-plane layout [rows, F, lpf].
 // - One thread per (point, level) row forms all F features' entries, in
 //   memory order: a warp reads 32 consecutive g rows (a float4 per thread
@@ -56,20 +57,6 @@
 namespace {
 
 using namespace packed_row;
-
-// One reduction for the VEC adjacent features of a vertex; the result is
-// unused, so the compiler emits red, not atom.
-template <int VEC>
-__device__ __forceinline__ void reduce_vec(float* dst, const float (&v)[VEC]) {
-  if constexpr (VEC == 4) {
-    atomicAdd(reinterpret_cast<float4*>(dst),
-              make_float4(v[0], v[1], v[2], v[3]));
-  } else if constexpr (VEC == 2) {
-    atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
-  } else {
-    atomicAdd(dst, v[0]);
-  }
-}
 
 template <bool kRoundBf16, int VEC>
 __global__ void __launch_bounds__(kThreads)

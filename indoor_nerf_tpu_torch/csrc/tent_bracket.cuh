@@ -1,6 +1,6 @@
 // The 8 tile vertices that bracket an in-tile position, and their tent
 // weights: the shared core of the block-hash encode forward
-// (tent_contract.cu) and backward (table_scatter.cu).
+// (tent_contract.cu) and backward (table_scatter.cu, group_scatter.cu).
 //
 // Tile lane l holds vertex (l / side^2, (l / side) % side, l % side). The
 // full-lane tent product w(l) = tent(lx - px) tent(ly - py) tent(lz - pz),
@@ -20,6 +20,7 @@ __device__ __forceinline__ float tent(float l, float p) {
 }
 
 struct Bracket {
+  int ix, iy, iz;  // the bracket's origin vertex in the tile
   int lane0;     // lane of vertex (ix, iy, iz) within the feature's lanes
   int stride_x;  // side^2: lane step of +1 vertex along x
   int stride_y;  // side
@@ -34,6 +35,7 @@ __device__ __forceinline__ Bracket bracket(float px, float py, float pz,
   const int iy = static_cast<int>(fminf(fmaxf(floorf(py), 0.0f), hi));
   const int iz = static_cast<int>(fminf(fmaxf(floorf(pz), 0.0f), hi));
   Bracket b;
+  b.ix = ix, b.iy = iy, b.iz = iz;
   b.stride_y = side;
   b.stride_x = side * side;
   b.lane0 = ix * b.stride_x + iy * side + iz;

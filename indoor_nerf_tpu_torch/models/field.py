@@ -70,28 +70,24 @@ class FieldConfig:
 
 def init_field_params(generator: torch.Generator, config: FieldConfig,
                       device=None) -> Params:
-    """Fresh params: the block table and the coarse (and fine) NeRFSmall.
+    """Fresh params: the block table and the coarse NeRFSmall (the one net
+    of the occupancy pass and of ``n_importance 0``; the fine net comes with
+    the hierarchical pass, ROADMAP.md Queue 1 item 4).
 
     Same shapes and distributions as the JAX init; the numbers differ
     (torch.Generator is not jax.random), so parity tests bridge weights.
     The MLP weights are ``nn.Parameter``s; the table is a plain tensor
     until a train state marks every leaf trainable (``train/step.py``)."""
-    def nerf_small():
-        return init_nerf_small(
+    return {
+        "table": init_block_table(generator, config.block_grid, device),
+        "coarse": init_nerf_small(
             generator, input_ch=config.input_ch,
             input_ch_views=config.input_ch_views,
             num_layers=config.num_layers, hidden_dim=config.hidden_dim,
             geo_feat_dim=config.geo_feat_dim,
             num_layers_color=config.num_layers_color,
-            hidden_dim_color=config.hidden_dim_color, device=device)
-
-    params: Params = {
-        "table": init_block_table(generator, config.block_grid, device),
-        "coarse": nerf_small(),
+            hidden_dim_color=config.hidden_dim_color, device=device),
     }
-    if config.n_importance > 0:
-        params["fine"] = nerf_small()
-    return params
 
 
 def serving_params(params: Params, config: FieldConfig) -> Params:

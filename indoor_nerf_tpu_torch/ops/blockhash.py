@@ -20,7 +20,8 @@ tent weights to the points.
 Two ray-structured encodes take ``[Rn, S, 3]`` samples sorted along each
 ray: ``block_hash_encode_grouped`` (``ray_groups``: the exact features, and
 a backward that sums each group of G consecutive samples' cotangent into
-one row of the group's anchor tile, ``ops/group_scatter.py``) and
+one row of the group's anchor tile, ``grouped_scatter`` over
+``ops/group_scatter.py``) and
 ``block_hash_encode_strided`` (``ray_strides``: coarse levels encoded at
 knot samples and lerped along the ray).
 """
@@ -36,7 +37,10 @@ import torch
 from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
-from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter
+from indoor_nerf_tpu_torch.ops.group_scatter import (
+    group_scatter_anchored,
+    group_scatter_plain,
+)
 from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter
 from indoor_nerf_tpu_torch.ops.tent_contract import (
     lanes_per_feature,
@@ -287,6 +291,35 @@ def _grouped_coords(v0: torch.Tensor, w: torch.Tensor, level_ids: torch.Tensor,
     return row, torch.clamp(p, 0.0, float(config.block_size))
 
 
+def grouped_scatter_plain(g: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
+                          level_ids: torch.Tensor, config: BlockHashConfig,
+                          groups: Tuple[int, ...], n_rows: int) -> torch.Tensor:
+    """The grouped encode's table gradient, plain version: the anchor
+    coordinates (``_grouped_coords``), then ``group_scatter_plain``."""
+    row, p = _grouped_coords(v0, w, level_ids, config, groups)
+    return group_scatter_plain(g, row, p, groups, n_rows, config.side,
+                               config.lanes_per_feature,
+                               config.torch_scatter_dtype)
+
+
+def grouped_scatter(g: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
+                    level_ids: torch.Tensor, config: BlockHashConfig,
+                    groups: Tuple[int, ...], n_rows: int) -> torch.Tensor:
+    """The grouped encode's table gradient ``[n_rows, F*lpf]`` f32 from the
+    cotangent ``g`` ``[Rn, S, L*F]`` and the forward's lattice coordinates
+    (``v0``, ``w`` ``[Rn, S, L, 3]``, ``level_ids``). CPU tensors: the plain
+    version. CUDA tensors: ``group_scatter_anchored``, whose kernel does the
+    anchor math of ``_grouped_coords`` itself (no row or position tensor
+    reaches device memory), or it raises."""
+    if g.device.type == "cpu":
+        return grouped_scatter_plain(g, v0, w, level_ids, config, groups,
+                                     n_rows)
+    return group_scatter_anchored(
+        g, v0, w, level_ids, groups, n_rows, config.side,
+        config.lanes_per_feature, config.torch_scatter_dtype,
+        config.log2_rows, _BLOCK_PRIMES)
+
+
 def _gather_dtype(config: BlockHashConfig) -> torch.dtype:
     return torch.bfloat16 if config.gather_dtype == "bfloat16" else torch.float32
 
@@ -424,7 +457,7 @@ class _EncodeGrouped(torch.autograd.Function):
     ``_encode_grouped_fused`` custom VJP, ops/blockhash.py:797-934).
 
     Forward: ``tent_contract`` over every (sample, level), the same
-    features as ``block_hash_encode``. Backward: ``group_scatter`` — per
+    features as ``block_hash_encode``. Backward: ``grouped_scatter`` — per
     level, each group of G consecutive samples adds the f32 sum of its
     members' cotangent entries, in the anchor tile's coordinates, rounded
     once to ``scatter_dtype``, to the anchor's row. The JAX backward
@@ -447,12 +480,9 @@ class _EncodeGrouped(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         v0, w, level_ids = ctx.saved_tensors
-        c = ctx.config
         with record_function("encode_bwd"):
-            row, p = _grouped_coords(v0, w, level_ids, c, ctx.groups)
-            grad = group_scatter(g.contiguous(), row, p, ctx.groups,
-                                 ctx.n_rows, c.side, c.lanes_per_feature,
-                                 c.torch_scatter_dtype)
+            grad = grouped_scatter(g.contiguous(), v0, w, level_ids,
+                                   ctx.config, ctx.groups, ctx.n_rows)
         return grad, None, None, None, None, None
 
 

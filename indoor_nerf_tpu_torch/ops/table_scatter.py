@@ -136,7 +136,17 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
         M, F, lpf, side, n_rows, int(dtype == torch.bfloat16))
     with _LOCK:
         _launches += 1
-    out = torch.empty((n_rows, F * lpf), dtype=torch.float32, device=g.device)
+    return unpack_grad(packed)
+
+
+def unpack_grad(packed: torch.Tensor) -> torch.Tensor:
+    """The un-pack pass on the card: the packed f32 sums ``[n_rows, lpf, F]``
+    of a scatter (this one's or ``ops/group_scatter.py``'s) -> the gradient
+    in the master's layout ``[n_rows, F*lpf]``."""
+    n_rows, lpf, F = packed.shape
+    lib = _library()
+    out = torch.empty((n_rows, F * lpf), dtype=torch.float32,
+                      device=packed.device)
     launch_on_stream(
         lib.table_scatter_unpack, lib.table_scatter_error_string,
         "table_scatter_unpack", (("packed", packed), ("out", out)),

@@ -1,21 +1,24 @@
-"""The rows the flagship path feeds the two encode kernels.
+"""The rows the flagship path feeds the encode kernels.
 
-``tent_contract`` and ``table_scatter`` behave differently on uniformly
-random rows (the worst case for locality, which no path produces) and on
-the rows of a real render or step, where the samples of a ray run through
-a few tiles. ``chip_smoke.py`` and the ``cuda`` tests time and check the
-kernels on both; this module records the path's own streams from the entry
-points:
+``tent_contract``, ``table_scatter`` and ``group_scatter`` behave
+differently on uniformly random rows (the worst case for locality, which no
+path produces) and on the rows of a real render or step, where the samples
+of a ray run through a few tiles. ``chip_smoke.py`` and the ``cuda`` tests
+time and check the kernels on both; this module records the path's own
+streams from the entry points:
 
 - ``serving_stream``: the first ``tent_contract`` call of a test-mode
   render of 20 image rows x 800 columns through the middle of an 800x800
   view of the synthetic scene (16,000 rays x 32 samples x 8 levels);
 - ``training_stream``: the ``table_scatter`` call of one real training
   step on that scene past the grid warm-up (4,096 rays x 32 x 8, the
-  step's own cotangent).
+  step's own cotangent);
+- ``grouped_stream``: the ``grouped_scatter`` call of one such step with
+  ``--ray_groups 4,4,2,2,1,1,1,1`` (the cotangent and the forward's lattice
+  coordinates, 720,896 groups).
 
-``count_reductions`` counts, from a stream's inputs, the atomic reductions
-the scatter needs for it.
+``count_reductions`` and ``count_group_reductions`` count, from a stream's
+inputs, the atomic reductions the scatters need for it.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ import numpy as np
 
 FLAGSHIP_FLAGS = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
                   "--white_bkgd"]
+GROUPS = (4, 4, 2, 2, 1, 1, 1, 1)  # the 8-level --ray_groups of the help text
+GROUP_FLAGS = FLAGSHIP_FLAGS + ["--ray_groups", ",".join(map(str, GROUPS))]
 SERVE_ROWS, SERVE_WIDTH = 20, 800  # 16,000 rays of an 800x800 view
 WARM_STEPS = 10  # past the grid warm-up (8 steps), before the refresh at 16
 
@@ -35,7 +40,7 @@ WARM_STEPS = 10  # past the grid warm-up (8 steps), before the refresh at 16
 def record_calls(name: str):
     """Record the ``(args, kwargs)`` of every call the encode makes to the
     op ``name`` of ``ops/blockhash.py`` (``tent_contract``,
-    ``table_scatter``); the op still runs."""
+    ``table_scatter``, ``grouped_scatter``); the op still runs."""
     from indoor_nerf_tpu_torch.ops import blockhash
 
     calls = []
@@ -86,29 +91,45 @@ def serving_stream(device):
     return args
 
 
-def training_stream(device):
-    """The arguments ``(g, p, flat_row, n_rows, side, lpf, dtype)`` of the
-    ``table_scatter`` call of one flagship training step on the
-    synthetic scene, WARM_STEPS steps after a seeded start."""
+def _backward_stream(device, flags, name, n_args):
+    """The positional arguments of the one call that the backward of a
+    training step under the command line ``flags`` makes to the op ``name``
+    of ``ops/blockhash.py``, WARM_STEPS steps after a seeded start."""
     import torch
 
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
     from indoor_nerf_tpu_torch.train.trainer import one_batch
 
-    cli = parse_args(FLAGSHIP_FLAGS)
+    cli = parse_args(flags)
     cfg, batch = one_batch(cli, device)
     state = init_train_state(torch.Generator(device=device).manual_seed(cli.seed),
                              cfg, device)
     gen = torch.Generator(device=device).manual_seed(cli.seed + 1)
     for _ in range(WARM_STEPS):
         state, _ = train_step(state, batch, cfg, gen)
-    with record_calls("table_scatter") as calls:
+    with record_calls(name) as calls:
         train_step(state, batch, cfg, gen)
-    if len(calls) != 1 or calls[0][1] or len(calls[0][0]) != 7:
-        raise AssertionError("a flat step calls table_scatter(g, p, flat_row, "
-                             "n_rows, side, lpf, dtype) once")
+    if len(calls) != 1 or calls[0][1] or len(calls[0][0]) != n_args:
+        raise AssertionError(f"the step calls {name} once with {n_args} "
+                             f"positional arguments, got {len(calls)} calls")
     return calls[0][0]
+
+
+def training_stream(device):
+    """The arguments ``(g, p, flat_row, n_rows, side, lpf, dtype)`` of the
+    ``table_scatter`` call of one flagship training step on the
+    synthetic scene, WARM_STEPS steps after a seeded start."""
+    return _backward_stream(device, FLAGSHIP_FLAGS, "table_scatter", 7)
+
+
+def grouped_stream(device, flags=GROUP_FLAGS):
+    """The arguments ``(g, v0, w, level_ids, config, groups, n_rows)`` of the
+    ``grouped_scatter`` call of one grouped training step (the command line
+    ``flags``: the flagship with ``--ray_groups 4,4,2,2,1,1,1,1`` on the
+    synthetic scene; the CPU tests pass a small one), WARM_STEPS steps
+    after a seeded start."""
+    return _backward_stream(device, flags, "grouped_scatter", 7)
 
 
 def count_reductions(g, p, side, dtype):
@@ -132,3 +153,26 @@ def count_reductions(g, p, side, dtype):
         e = e.to(dtype).to(torch.float32)
     nonzero = (e != 0).reshape(M, F // vec, vec, 8)
     return int(nonzero.sum()), int(nonzero.any(2).sum())
+
+
+def count_group_reductions(g, p, groups, side, lpf, dtype):
+    """``count_reductions`` for merged groups, ``(scalar, vector)``: ``g``
+    ``[Rn, S, L*F]`` and ``p`` ``[Rn, S, L, 3]`` (each member's position in
+    its group's anchor tile) as ``ops/group_scatter.py::group_scatter``
+    takes them. Scalar: one f32 atomic per nonzero rounded entry of a
+    group's merged row (one thread per (group, feature)). Vector: the rule
+    of ``csrc/group_scatter.cu``, one reduction per vertex of the group's
+    merged row and group of 4, 2 or 1 adjacent features with a nonzero
+    entry, so a vertex that two members bracket counts once. A model
+    computed from the inputs (through the dense merged rows), not a count
+    read from the card; every row is taken to be in range."""
+    from indoor_nerf_tpu_torch.ops.group_scatter import merged_rows
+
+    F = g.shape[-1] // p.shape[2]
+    vec = 4 if F % 4 == 0 else 2 if F % 2 == 0 else 1
+    scalar = vector = 0
+    for _, _, rows in merged_rows(g, p, groups, side, lpf, dtype):
+        nonzero = (rows != 0).reshape(-1, F // vec, vec, lpf)
+        scalar += int(nonzero.sum())
+        vector += int(nonzero.any(2).sum())
+    return scalar, vector

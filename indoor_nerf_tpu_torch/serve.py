@@ -7,8 +7,10 @@ Renders on the CUDA card (the block-hash encode then runs the hand-written
 ``tent_contract`` kernel) unless the training flags hold ``--device cpu``;
 with no card visible and no such flag it raises.
 There is no checkpoint format yet, so it serves the seeded initial state
-(``--seed``) and says so. Baked serving (``--baked``) comes with
-ROADMAP.md Queue 1 item 7.
+(``--seed``) and says so. Baked serving comes with ROADMAP.md Queue 1 item
+7: its flags (``--baked``, ``--baked_res``, ``--baked_geo_res``,
+``--baked_dtype``, ``--snapshot``, ``--guided``) are parsed and raise
+``NotImplementedError`` naming that item.
 
 API:
   GET  /health              -> {"status": "ok", "step": N, "resolution": [H, W]}
@@ -41,10 +43,18 @@ from indoor_nerf_tpu_torch.train.config import parse_args
 from indoor_nerf_tpu_torch.train.trainer import build_train_config
 from indoor_nerf_tpu_torch.utils.png import encode_png
 
+# The baked-serving flags of the JAX server and their defaults there.
+_BAKED_FLAGS = (("baked", False), ("baked_res", 256), ("baked_geo_res", -1),
+                ("baked_dtype", "bfloat16"), ("snapshot", None), ("guided", 0))
+
 
 def build(args):
     """Set up the field and renderer. Returns ``(render, step, (H, W))``;
     ``render(c2w) -> (maps, seconds)`` with numpy rgb/depth/acc/disp maps."""
+    for flag, default in _BAKED_FLAGS:
+        if getattr(args, flag, default) != default:
+            raise NotImplementedError(
+                f"--{flag}: baked serving comes with ROADMAP.md Queue 1 item 7")
     train_args = list(args.train_args)
     if train_args and train_args[0] == "--":
         train_args = train_args[1:]
@@ -152,15 +162,21 @@ def make_handler(render, step, hw):
     return Handler
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
+    for flag, default in _BAKED_FLAGS:  # parsed, then refused by build()
+        if default is False:
+            ap.add_argument(f"--{flag}", action="store_true")
+        else:
+            ap.add_argument(f"--{flag}", default=default,
+                            type=int if isinstance(default, int) else str)
     ap.add_argument("train_args", nargs=argparse.REMAINDER,
                     help="the training CLI flags identifying the run "
                          "(e.g. -- --flagship --dataset_type synthetic ...)")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     render, step, hw = build(args)
     srv = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(render, step, hw))
     print(f"serving on :{args.port} (step {step}, {hw[0]}x{hw[1]})")

@@ -261,8 +261,9 @@ def build_parser() -> argparse.ArgumentParser:
              "forward features are always exact; the merge is exact "
              "while a group stays inside one partition block (the "
              "common case at coarse levels) and an anchor-attribution "
-             "approximation otherwise. Mutually exclusive with "
-             "--ray_strides")
+             "approximation otherwise. Not a faster setting on an NVIDIA "
+             "H100: there the grouped step takes the time of the flat one "
+             "(PERF.md). Mutually exclusive with --ray_strides")
     add("--ray_strides", type=str, default=None,
         help="block-hash ray-axis decimation (i_embed 3): comma list of "
              "per-level strides, coarsest first (e.g. "

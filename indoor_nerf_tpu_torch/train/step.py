@@ -155,8 +155,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     leaves = named_leaves(params)
     with record_function("backward"):
-        grads = torch.autograd.grad(loss, list(leaves.values()),
-                                    allow_unused=True)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
     lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
     with record_function("optimizer"):
         radam_update(leaves, dict(zip(leaves, grads)), state["opt"], lr,

@@ -20,15 +20,16 @@ kernels) where the JAX package applies it: ``--block_size 4`` and
         --occ_weighting transmittance --dataset_type synthetic \
         --use_viewdirs --white_bkgd
 
-Checkpoints, test renders, videos and the metrics files come with
-ROADMAP.md Queue 1 item 3.
+Checkpoints come with ROADMAP.md Queue 1 item 3a; test renders, videos and
+the metrics files with item 3b. Until then ``train`` names, in one line
+before the loop, every flag of those items that was set and does nothing.
 """
 
 from __future__ import annotations
 
 import sys
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 import numpy as np
 import torch
@@ -40,7 +41,7 @@ from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
-from indoor_nerf_tpu_torch.train.config import parse_args
+from indoor_nerf_tpu_torch.train.config import build_parser, parse_args
 from indoor_nerf_tpu_torch.train.step import TrainConfig, init_train_state, train_step
 
 _ITEM5 = "Queue 1 item 5 (training extensions)"
@@ -60,14 +61,28 @@ _UNPORTED = (
     ("view_anneal_iters", 0, _ITEM5),
 )
 # Flags of the training loop only, refused by ``train``.
+_ITEM3A = "Queue 1 item 3a (checkpoints)"
+_ITEM3B = "Queue 1 item 3b (the rest of the training loop)"
 _UNPORTED_LOOP = (
-    ("no_batching", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
-    ("render_only", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
-    ("ft_path", None, "Queue 1 item 3 (trainer, CLI and loaders)"),
-    ("profile_dir", None, "Queue 1 item 3 (trainer, CLI and loaders)"),
-    ("debug_nans", False, "Queue 1 item 3 (trainer, CLI and loaders)"),
+    ("no_batching", False, _ITEM3B),
+    ("render_only", False, _ITEM3B),
+    ("ft_path", None, _ITEM3A),
+    ("profile_dir", None, _ITEM3B),
+    ("debug_nans", False, _ITEM3B),
     ("multihost", False, "Queue 1 item 8 (multi-device)"),
     ("mesh_shape", None, "Queue 1 item 8 (multi-device)"),
+)
+# Flags of the training loop that are parsed and have no effect yet: ``train``
+# names those set away from the parser's default, with their item.
+_IDLE_LOOP = (
+    ("i_weights", _ITEM3A),
+    ("no_reload", _ITEM3A),
+    ("basedir", _ITEM3A),
+    ("expname", _ITEM3A),
+    ("i_testset", _ITEM3B),
+    ("i_video", _ITEM3B),
+    ("i_img", _ITEM3B),
+    ("render_factor", _ITEM3B),
 )
 
 
@@ -82,6 +97,14 @@ def _refuse(args, flags) -> None:
             raise NotImplementedError(f"--{flag} comes with ROADMAP.md {item}")
 
 
+def idle_loop_flags(args) -> Tuple[Tuple[str, str], ...]:
+    """``(flag, ROADMAP item)`` for every flag of ``_IDLE_LOOP`` that
+    ``args`` holds away from the parser's default."""
+    defaults = build_parser()
+    return tuple((flag, item) for flag, item in _IDLE_LOOP
+                 if getattr(args, flag) != defaults.get_default(flag))
+
+
 def build_train_config(args, scene: SceneData) -> TrainConfig:
     """Assemble the static config from CLI args + scene geometry."""
     if args.i_embed != 3:
@@ -90,6 +113,13 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
             "(--i_embed 3, e.g. --flagship); the others come with ROADMAP.md "
             "Queue 1 item 4 (the parity path)")
     _refuse(args, _UNPORTED)
+    if args.use_occupancy and args.N_importance > 0:
+        raise ValueError(
+            f"--use_occupancy with --N_importance {args.N_importance}: the "
+            "occupancy pass replaces the coarse+fine hierarchy, so pass "
+            "--N_importance 0 (the JAX package fails on the pair: its step "
+            "reads out[\"rgb0\"], which the occupancy branch of render_rays "
+            "never returns)")
     if scene.bounding_box is None:
         raise ValueError(f"dataset {args.dataset_type} provides no bounding "
                          "box; the block-hash grid needs one")
@@ -203,6 +233,10 @@ def train(args) -> Dict:
                                 scene.K, args.N_rand, seed=args.seed)
     print(f"training {args.n_iters} steps of {args.N_rand} rays on {device}; "
           f"TRAIN views {scene.i_train.tolist()}")
+    idle = idle_loop_flags(args)
+    if idle:
+        print("[TRAIN] set and without effect yet: "
+              + ", ".join(f"--{flag} (ROADMAP.md {item})" for flag, item in idle))
     losses, psnrs = [], []
     t0 = time.perf_counter()
     for i in range(1, args.n_iters + 1):
@@ -224,7 +258,7 @@ def train(args) -> Dict:
     print(f"{args.n_iters} steps in {seconds:.2f} s "
           f"({args.n_iters / seconds:.2f} steps/s, "
           f"{args.n_iters * args.N_rand / seconds:.0f} rays/s); checkpoints "
-          "and test renders come with ROADMAP.md Queue 1 item 3")
+          "come with ROADMAP.md Queue 1 item 3a, test renders with item 3b")
     return {"losses": [float(v) for v in losses],
             "psnrs": [float(v) for v in psnrs],
             "seconds": seconds, "state": state}

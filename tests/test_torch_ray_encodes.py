@@ -158,6 +158,34 @@ def test_grouped_encode_gradient_matches_jax(rng, f32_scatter, groups, dtype):
                                atol=1e-5)
 
 
+def test_grouped_stream_replays_the_step_call():
+    """``path_streams.grouped_stream`` hands back the arguments of the one
+    ``grouped_scatter`` call a grouped step's backward makes: the step's
+    cotangent and the forward's lattice coordinates, which give the same
+    table gradient again, through the anchor coordinates or directly."""
+    from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter
+    from indoor_nerf_tpu_torch.path_streams import grouped_stream
+
+    flags = TINY_FLAGSHIP + CPU + ["--ray_groups", "2,2,1,1", "--N_rand", "64"]
+    args = grouped_stream(torch.device("cpu"), flags)
+    g, v0, w, level_ids, cfg, groups, n_rows = args
+    S, L, F = 8, 4, cfg.n_features_per_level  # TINY_FLAGSHIP: 8 samples
+    assert groups == (2, 2, 1, 1) and cfg.ray_groups == groups
+    assert g.shape == (64, S, L * F) and g.dtype == torch.float32
+    assert v0.shape == w.shape == (64, S, L, 3)
+    assert (v0.dtype, w.dtype) == (torch.int32, torch.float32)
+    assert level_ids.tolist() == [0, 1, 2, 3]
+    assert n_rows == L * cfg.rows_per_level
+    grad = tbh.grouped_scatter(*args)
+    assert grad.shape == (n_rows, F * cfg.lanes_per_feature)
+    assert float(grad.abs().max()) > 0.0 and bool(torch.isfinite(grad).all())
+    row, p = tbh._grouped_coords(v0, w, level_ids, cfg, groups)
+    np.testing.assert_array_equal(
+        grad.numpy(),
+        group_scatter(g, row, p, groups, n_rows, cfg.side,
+                      cfg.lanes_per_feature, cfg.torch_scatter_dtype).numpy())
+
+
 def test_grouped_forward_is_the_plain_encode(rng):
     """The features are bit for bit the flat encode's, groups straddling
     blocks included; the points get no gradient, at float32 too (the JAX

@@ -86,6 +86,21 @@ def test_unported_flags_name_the_roadmap_item():
         configs(TINY_FLAGSHIP + ["--use_quantization"])
 
 
+def test_occupancy_with_importance_is_refused():
+    """The JAX package fails on the pair (its step reads ``out["rgb0"]``,
+    which the occupancy branch never returns); the port says so."""
+    with pytest.raises(ValueError, match="JAX package fails on the pair"):
+        configs(TINY_FLAGSHIP + ["--N_importance", "8"])[1]
+
+
+@pytest.mark.parametrize("flag", [
+    ["--baked"], ["--baked_res", "128"], ["--baked_geo_res", "0"],
+    ["--baked_dtype", "int8"], ["--snapshot", "baked.npz"], ["--guided", "4"]])
+def test_serve_refuses_baked_flags_by_item(flag):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
+        serve.main(flag + ["--"] + TINY_FLAGSHIP + CPU)
+
+
 def test_png_round_trip(rng):
     img = rng.integers(0, 256, size=(7, 5, 3)).astype(np.uint8)
     np.testing.assert_array_equal(decode_png(encode_png(img)), img)
