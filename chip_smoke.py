@@ -87,7 +87,34 @@ printing any result.
       same config (tent_contract + table_scatter, f32), held as (g); then
       the two routes' steps timed in alternating windows;
   (r) one 100x100 test-mode render at that config on the tile route and on
-      the default route: rgb max |diff| <= 1e-4; tile size and peak memory.
+      the default route: rgb max |diff| <= 1e-4; tile size and peak memory;
+  (s) train -> checkpoint -> serve, under a temporary --basedir:
+      trainer.train for 200 flagship steps at --lrate 0.01 with --i_weights
+      100 (two checkpoints, the second also the final one), a second
+      trainer.train call with the
+      same flags resumes ("Reloading from", the step goes on to 260, its
+      first loss lies near the first run's last, not near the initial one);
+      serve.build on those flags reports step 260 in /health, prints no
+      UNTRAINED warning, and its render of a training pose has a higher
+      PSNR against the training image than the seeded field's;
+  (t) bake: bake_field of that state at resolution 256, geo_resolution -1,
+      bfloat16, with the training cameras: seconds, peak memory, the
+      tent_contract launches of the sweep (> 0), table shapes and bytes;
+      at resolution 32 the same bake against the bake with tent_contract's
+      plain version in its place (0 launches): every table entry within one
+      bfloat16 step (2^-7 relative), under 1% of them different at all;
+  (u) baked requests: serve.build with --baked --snapshot (the first call
+      bakes and saves, the second loads: both timed) at 800x800, unguided
+      (128 samples) and --guided 4, beside the online server in this
+      process: warm request ms of each, PSNR of baked against online on
+      held-out poses (floors: 18 dB unguided; guided within 4 dB of it),
+      the tent_contract launches of the baked requests (pass 1 runs the
+      kernel on float tables), one profiled request each with the device
+      time of pass 1, pass 2 and the colour net and the idle share; and
+      pass 1 alone at the request's shapes, through tent_contract against
+      its plain form (index_select of [N*S, 128] rows + _tent_interp):
+      max |diff| of relu(sigma) <= 1e-2 of the largest sigma (the kernel keeps f32 tent
+      weights, the plain form rounds them to bfloat16), both timed.
 
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
@@ -116,13 +143,16 @@ vector by the kernel's rule). The last line is {"ok": true, "device":
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import dataclasses
 import functools
 import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -168,6 +198,17 @@ TILE_FLAGS = ["--i_embed", "3", "--use_pallas", "--use_occupancy",
               "--white_bkgd"]
 TILE_STEPS = 100
 TILE_TIMED_STEPS = 20  # per window of (q)
+RESUME_STEPS = 60  # (s): the resumed run's steps after TRAIN_STEPS
+BAKE_RES = 256  # (t), (u): the server's default --baked_res
+REQUEST_SIZE = 800  # (u): width and height of a request
+# Baked pass 1 through tent_contract against its plain form, of the largest
+# sigma: the kernel's tent weights are f32, the plain form's bfloat16
+# (2^-9 relative each, three factors, eight vertices).
+PASS1_RTOL = 1e-2
+# Baked against online on held-out poses, 260 steps into training: 24.6-25.5
+# dB measured on an H100 (33-35 dB after 1000 steps), guided within 1 dB.
+BAKED_PSNR_FLOOR = 18.0  # dB
+GUIDED_PSNR_GAP = 4.0  # dB, guided below unguided at most
 LANE_RTOL = 1e-6  # lane_select_grad: sums of <= k terms, of the largest entry
 # The card's published peaks (H100 SXM): device memory rate, and the f32
 # rate outside the tensor cores, which is the type all seven kernels use.
@@ -1219,6 +1260,300 @@ def phase_tile_render(torch) -> None:
         raise AssertionError(f"render rgb tile vs default route {err} > {RENDER_TOL}")
 
 
+def psnr(a, b) -> float:
+    return float(-10.0 * np.log10(np.mean((np.asarray(a) - np.asarray(b)) ** 2)))
+
+
+@contextlib.contextmanager
+def http_server(handler):
+    """A render server on 127.0.0.1 for the block; yields its base URL."""
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield f"http://127.0.0.1:{srv.server_address[1]}"
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("server thread did not stop")
+
+
+def quietly(fn, *args):
+    """``(fn(*args), what it printed)``; the text is printed afterwards."""
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        out = fn(*args)
+    return out, buf.getvalue()
+
+
+def phase_checkpoint_serve(torch, basedir):
+    """(s) train -> checkpoint -> resume -> serve. Returns the run's flags,
+    its state after the resumed run and its scene."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import train
+
+    # --lrate 0.01 (the bench's, not the preset's 5e-4, whose field is still
+    # a fog after a few hundred steps: the baked renderer's 128 uniform
+    # samples and the online one's 32 guided ones then disagree by 15 dB).
+    flags = SERVE_FLAGS + ["--lrate", "0.01", "--expname", "smoke",
+                           "--basedir", basedir]
+    loop = ["--i_print", "100"]
+    total = TRAIN_STEPS + RESUME_STEPS
+    t0 = time.perf_counter()
+    first, text1 = quietly(train, parse_args(flags + loop + [
+        "--n_iters", str(TRAIN_STEPS), "--i_weights", str(TRAIN_STEPS // 2)]))
+    second, text2 = quietly(train, parse_args(flags + loop + [
+        "--n_iters", str(total)]))
+    seconds = time.perf_counter() - t0
+    files = sorted(os.listdir(first["logdir"]))
+    want = [f"{n:06d}.ckpt" for n in (TRAIN_STEPS // 2, TRAIN_STEPS, total)]
+    if files != want:
+        raise AssertionError(f"checkpoints {files}, expected {want}")
+    newest = os.path.join(first["logdir"], want[1])
+    if "Reloading from" in text1 or f"Reloading from {newest}" not in text2:
+        raise AssertionError("the second run did not resume from " + newest)
+    if second["state"]["step"] != total or len(second["losses"]) != RESUME_STEPS:
+        raise AssertionError(f"resumed run ended at step {second['state']['step']}"
+                             f" after {len(second['losses'])} steps")
+    begin = float(np.mean(first["losses"][:10]))
+    last = float(np.mean(first["losses"][-10:]))
+    resumed = float(np.mean(second["losses"][:10]))
+    size = os.path.getsize(newest) / 2**20
+    print(f"[s] {TRAIN_STEPS} steps with --i_weights {TRAIN_STEPS // 2}, then a "
+          f"second call to {total}: {files} ({size:.1f} MiB each) under "
+          f"{os.path.basename(first['logdir'])}; both calls {seconds:.2f} s; loss "
+          f"mean of the first run's first 10 steps {begin:.6f}, its last 10 "
+          f"{last:.6f}, the resumed run's first 10 {resumed:.6f}")
+    if not abs(resumed - last) < abs(resumed - begin):
+        raise AssertionError(f"the resumed loss {resumed} is nearer the initial "
+                             f"{begin} than the trained {last}")
+
+    scene = load_dataset(parse_args(flags))
+    (trained, step, hw), text = quietly(serve.build, argparse.Namespace(
+        width=None, height=None, train_args=["--"] + flags))
+    (seeded, step0, _), text0 = quietly(serve.build, argparse.Namespace(
+        width=None, height=None, train_args=["--"] + SERVE_FLAGS))
+    if "UNTRAINED" in text or "UNTRAINED" not in text0 or step0 != 0:
+        raise AssertionError("the UNTRAINED warning: with a checkpoint "
+                             f"{'UNTRAINED' in text}, without {'UNTRAINED' in text0}")
+    with http_server(serve.make_handler(trained, step, hw)) as base:
+        status, _, data, _ = _request(base + "/health")
+    health = json.loads(data)
+    if status != 200 or health["step"] != total:
+        raise AssertionError(f"/health answered {status} {health}, expected "
+                             f"step {total}")
+    i = int(scene.i_train[0])
+    got, got0 = trained(scene.poses[i])[0], seeded(scene.poses[i])[0]
+    after, before = (psnr(m["rgb_map"], scene.images[i]) for m in (got, got0))
+    print(f"[s] serve.build on the run's flags: /health {health}; training pose "
+          f"{i} at {hw[0]}x{hw[1]} against its image: PSNR {after:.2f} dB "
+          f"(the seeded field {before:.2f} dB)")
+    if not after > before + 3.0:
+        raise AssertionError(f"served PSNR {after} not above the seeded "
+                             f"field's {before} by 3 dB")
+    return flags, second["state"], scene
+
+
+def phase_bake(torch, flags, state, scene) -> int:
+    """(t) bake_field of the trained state; returns the tent_contract
+    launches of the 256^3 bake."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.ops import blockhash
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.render.baked import bake_field
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    fc = build_train_config(parse_args(flags), scene).render.field
+    cams = serve.train_cameras(scene)
+    kw = dict(table_dtype="bfloat16", geo_resolution=-1, train_cameras=cams)
+    tc.reset_launch_count()
+    got = bake_field(state["params"], fc, resolution=32, **kw)
+    small_launches = tc.launch_count()
+    with mock.patch.object(blockhash, "tent_contract", tc.tent_contract_plain):
+        want = bake_field(state["params"], fc, resolution=32, **kw)
+    if small_launches <= 0 or tc.launch_count() != small_launches:
+        raise AssertionError(f"32^3 bake: {small_launches} launches, the plain "
+                             f"bake {tc.launch_count() - small_launches}")
+    report = []
+    for key in ("sigma_table", "voxel_geo"):
+        g, w = got[key].float(), want[key].float()
+        diff = (g - w).abs()
+        differ = float((diff > 0).float().mean())
+        # The largest entry that is not the -1e4 of a culled vertex.
+        scale = float(w[w > -1e3].abs().max())
+        ok = bool((diff <= 2.0 ** -7 * w.abs() + 1e-6 * scale).all())
+        report.append(f"{key} max |diff| {float(diff.max()):.3e} of largest "
+                      f"{scale:.3e}, {differ:.5f} of entries differ")
+        if not (ok and differ < 0.01):
+            raise AssertionError(f"32^3 bake, kernel vs plain: {report[-1]}")
+    print(f"[t] 32^3 bake through tent_contract ({small_launches} launches) vs "
+          f"through its plain version (0): {'; '.join(report)} (tol: one "
+          "bfloat16 step, under 1% of entries)")
+    del got, want
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.reset_launch_count()  # the bake's run starts here
+    t0 = time.perf_counter()
+    baked = bake_field(state["params"], fc, resolution=BAKE_RES, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = tc.launch_count()  # ... and ends here
+    tables = ", ".join(
+        f"{k} {tuple(v.shape)} {str(v.dtype)[6:]} {nbytes(v) / 1e6:.1f} MB"
+        for k, v in baked.items() if torch.is_tensor(v))
+    culled = float((baked["sigma_table"].float() < -1e3).float().mean())
+    print(f"[t] bake_field at {BAKE_RES}^3, geo {baked['config'].geo_res}^3, "
+          f"bfloat16, {len(cams['poses'])} training cameras of "
+          f"{cams['H']}x{cams['W']}: {seconds:.3f} s, {launches} tent_contract "
+          f"launches, peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; {tables}; "
+          f"{culled:.3f} of the sigma lanes culled by visibility; block_max "
+          f"up to {float(baked['block_max'].max()):.2f}")
+    if launches <= 0:
+        raise AssertionError("the bake launched no tent_contract kernel")
+    for key in ("sigma_table", "voxel_geo", "block_max"):
+        if not bool(torch.isfinite(baked[key].float()).all()):
+            raise AssertionError(f"bake: non-finite {key}")
+    return launches
+
+
+def phase_baked_requests(torch, flags, scene, basedir) -> int:
+    """(u) baked serving beside online serving; returns the tent_contract
+    launches of the baked requests."""
+    from indoor_nerf_tpu_torch import profile_step, serve
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.ops.rays import get_rays
+    from indoor_nerf_tpu_torch.render import baked as bk
+
+    from indoor_nerf_tpu_torch.train.config import parse_args
+
+    dev = torch.device(parse_args(flags).device)
+    size = REQUEST_SIZE
+    snap = os.path.join(basedir, "snapshot.pt")
+
+    def build(**kw):
+        t0 = time.perf_counter()
+        (render, _, _), text = quietly(serve.build, argparse.Namespace(
+            width=size, height=size, train_args=["--"] + flags, **kw))
+        return render, time.perf_counter() - t0, text
+
+    baked_kw = dict(baked=True, baked_res=BAKE_RES, snapshot=snap)
+    _, bake_s, text = build(**baked_kw)
+    if "saved snapshot" not in text or not os.path.exists(snap):
+        raise AssertionError("the first --snapshot build did not save " + snap)
+    renders = {}
+    renders["baked"], load_s, text = build(**baked_kw)
+    if "loaded snapshot" not in text:
+        raise AssertionError("the second --snapshot build did not load " + snap)
+    print(f"[u] serve.build --baked --baked_res {BAKE_RES} --snapshot at {size}x{size}: "
+          f"bakes and saves in {bake_s:.2f} s (snapshot "
+          f"{os.path.getsize(snap) / 1e6:.1f} MB), loads it in {load_s:.2f} s "
+          "(scene, resume and one warm-up render included)")
+    renders["guided4"], _, _ = build(guided=4, **baked_kw)
+    renders["online"], _, _ = build()
+    torch.cuda.empty_cache()
+
+    poses = scene.poses[scene.i_test]
+    ms, maps, peak = {}, {}, {}
+    for name in ("online", "baked", "guided4", "guided4", "baked", "online"):
+        if name == "baked":
+            tc.reset_launch_count()  # the baked path's run starts here
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        for c2w in poses:
+            out, dt = renders[name](c2w)
+            ms.setdefault(name, []).append(dt * 1e3)
+            maps.setdefault(name, []).append(out["rgb_map"])
+        if name == "baked":
+            launches = tc.launch_count()  # ... and ends here
+        peak[name] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+    for name, rgbs in maps.items():
+        if not all(np.all(np.isfinite(r)) and r.shape == (size, size, 3)
+                   for r in rgbs):
+            raise AssertionError(f"{name}: a render is not finite {size}x{size}x3")
+    n = len(poses)
+    quality = {name: [psnr(maps[name][i], maps["online"][i]) for i in range(n)]
+               for name in ("baked", "guided4")}
+    print(f"[u] warm {size}x{size} requests on {n} held-out poses, twice each, in one "
+          "process (online, baked, guided, guided, baked, online): "
+          + "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)} ms "
+                      f"(median {float(np.median(vs)):.1f})"
+                      for k, vs in ms.items())
+          + f"; tent_contract launches over {n} baked requests: {launches}; "
+          "peak device memory of a request over what the servers hold: "
+          + ", ".join(f"{k} {v:.2f} GiB" for k, v in peak.items()))
+    print("[u] PSNR against the online render of the same pose: "
+          + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)} dB"
+                      for k, vs in quality.items())
+          + f" (floors: baked {BAKED_PSNR_FLOOR} dB, guided within "
+            f"{GUIDED_PSNR_GAP} dB of baked)")
+    if launches <= 0:
+        raise AssertionError("baked requests launched no tent_contract kernel")
+    if min(quality["baked"]) < BAKED_PSNR_FLOOR:
+        raise AssertionError(f"baked vs online PSNR {quality['baked']}")
+    if min(g - b for g, b in zip(quality["guided4"], quality["baked"])) \
+            < -GUIDED_PSNR_GAP:
+        raise AssertionError(f"guided PSNR {quality['guided4']} against "
+                             f"unguided {quality['baked']}")
+    for name in ("online", "baked", "guided4"):
+        m = profile_step.measure(torch, lambda: renders[name](poses[0]), dev)
+        print(f"[u] one profiled request, {name}: "
+              + profile_step.summary(m).replace("\n", "; "))
+    del renders
+    torch.cuda.empty_cache()
+
+    # Pass 1 alone at the request's shapes: 32,768 rays from the middle rows
+    # of a held-out view x 128 samples through tent_contract and through the
+    # plain form.
+    baked = bk.load_baked(snap, dev)
+    for n_s in (128, 16):
+        print(f"[u] tiles at {n_s} samples: {bk.default_baked_tile_rays(baked, n_s, 4)} "
+              f"rays at {bk.baked_bytes_per_ray(baked, n_s, 4)} bytes per ray "
+              "(reckoned from the shapes)")
+    n_rays, S = min(32768, size * size // 4), 128
+    focal = scene.hwf[2] * size / scene.hwf[1]
+    K = torch.tensor([[focal, 0, size / 2], [0, focal, size / 2], [0, 0, 1]],
+                     dtype=torch.float32, device=dev)
+    c2w = torch.as_tensor(np.asarray(poses[0], np.float32)[:3, :4], device=dev)
+    first = (size * size - n_rays) // 2
+    rays_o, rays_d = (r.reshape(-1, 3)[first:first + n_rays]
+                      for r in get_rays(size, size, K, c2w))
+    _, _, row_idx, p = bk._tile_samples(baked["config"], rays_o, rays_d,
+                                        scene.near, scene.far, S)
+    args = (baked["sigma_table"], row_idx.reshape(-1),
+            *(a.reshape(-1).contiguous() for a in p))
+    # The renderer reads relu(sigma): next to a culled vertex (-1e4) the
+    # interpolated values are large and negative on both sides.
+    got = torch.relu(bk._sigma_interp(*args))
+    want = torch.relu(bk._sigma_interp_plain(*args))
+    torch.cuda.synchronize()
+    err, scale = float((got - want).abs().max()), float(want.max())
+    kernel_ms, plain_ms, t = alternate(
+        torch, lambda: bk._sigma_interp_plain(*args),
+        lambda: bk._sigma_interp(*args), 10, plain_iters=3)
+    gather_ms = cuda_ms(torch, lambda: args[0].index_select(0, args[1]), 3)
+    factor = size * size / n_rays
+    print(f"[u] pass 1 alone, {n_rays} rays x {S} samples = {n_rays * S} rows "
+          f"of the {tuple(args[0].shape)} {str(args[0].dtype)[6:]} sigma tile "
+          f"table: through tent_contract {kernel_ms:.3f} ms ({t[1]:.3f}, "
+          f"{t[2]:.3f}), plain form {plain_ms:.3f} ms ({t[0]:.3f}, {t[3]:.3f}), "
+          f"of which the index_select of {n_rays * S * 256 / 1e9:.2f} GB of rows "
+          f"{gather_ms:.3f} ms; x {factor:.2f} for a {size}x{size} request: "
+          f"{kernel_ms * factor:.1f} ms against {plain_ms * factor:.1f} ms; max "
+          f"|diff| {err:.3e} of the largest sigma {scale:.3e} (tol "
+          f"{PASS1_RTOL} of it: f32 against bfloat16 tent weights)")
+    if not (scale > 0 and err <= PASS1_RTOL * scale):
+        raise AssertionError(f"pass 1 kernel vs plain {err} > {PASS1_RTOL} x "
+                             f"{scale}")
+    return launches
+
+
 def phase_bench(torch) -> None:
     """(h) The training benchmark's JSON line."""
     from indoor_nerf_tpu_torch import bench
@@ -1272,13 +1607,21 @@ def main() -> int:
     phase_tile_step_check(torch, trained["state"])
     del trained
     phase_tile_render(torch)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as basedir:
+        run_flags, state, scene = phase_checkpoint_serve(torch, basedir)
+        bake_launches = phase_bake(torch, run_flags, state, scene)
+        del state
+        torch.cuda.empty_cache()
+        baked_launches = phase_baked_requests(torch, run_flags, scene, basedir)
     # "launches" is the count of the path of its slice that runs the
     # kernel (grouped training for tent_contract and group_scatter, strided
     # training for table_scatter, tile-interp training for the tile_interp
     # pair); "launches_by_path" gives every path that runs it its own count,
     # each read from its own reset-then-read window (200, 200, 100 and 100
-    # training steps, 3 requests of 800x800). No path runs lane_select: its
-    # launches are phase (o)'s.
+    # training steps, 3 requests of 800x800, one 256^3 bake, one round of
+    # baked requests). No path runs lane_select: its launches are phase
+    # (o)'s.
     paths = {"training": flat_launches, "training_grouped": group_launches,
              "training_strided": stride_launches,
              "training_tile_interp": tile_launches}
@@ -1293,7 +1636,9 @@ def main() -> int:
          "replaces": pallas + "tent_contract.py:167",
          "launches": group_launches["tent_contract"],
          "launches_by_path": {"serving": serve_launches,
-                              **by_path("tent_contract")},
+                              **by_path("tent_contract"),
+                              "bake": bake_launches,
+                              "baked_serving": baked_launches},
          **tent},
         {"name": "table_scatter", "route": "cuda",
          "source": csrc + "table_scatter.cu",

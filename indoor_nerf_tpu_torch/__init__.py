@@ -8,7 +8,11 @@ index varying fastest), so its tests compare like with like. It imports
 
 The slices ported so far:
 
-- the non-baked novel-view serving path (``serve.py``): rays ->
+- checkpoints (``utils/checkpoint.py``: save, auto-resume, the import of a
+  checkpoint of the JAX package through ``bridge.py``) and baked serving
+  (``render/baked.py``: the trained field baked into tile tables, rendered
+  by deferred shading; ``serve.py --baked``);
+- the online novel-view serving path (``serve.py``): rays ->
   occupancy-guided sampling -> block-hash encode (the hand-written
   ``tent_contract`` CUDA kernel, ``csrc/``) -> NeRFSmall -> compositing,
   forward only under ``torch.inference_mode``;

@@ -15,10 +15,16 @@ The port keeps the same layouts (weights ``[in, out]``), so the leaves
 move across without a transpose and come back bit for bit. The RAdam
 moments are keyed by the port's leaf names (``train/optim.py``), which
 are the JAX pytree paths joined by dots.
+
+``load_jax_checkpoint`` reads a file written by the JAX package's
+``save_checkpoint`` into that numpy tree without jax or flax, and
+``load_jax_baked`` a ``save_baked`` snapshot; ``baked_from_numpy`` /
+``baked_to_numpy`` move a baked snapshot (``render/baked.py``) across.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict
 
 import numpy as np
@@ -142,3 +148,139 @@ def state_to_numpy(state: Tree) -> Tree:
     for key in _SCALARS:
         out[key] = state[key].detach().cpu().numpy()
     return out
+
+
+def _bf16_bits_to_f32(bits: np.ndarray) -> np.ndarray:
+    """bfloat16 bit patterns (any 2-byte dtype) as the float32 they denote."""
+    return (bits.view(np.uint16).astype(np.uint32) << 16).view(np.float32)
+
+
+def _flax_array(data: bytes, msgpack) -> np.ndarray:
+    """flax's ndarray encoding: a packed ``(shape, dtype name, bytes)``.
+    numpy has no bfloat16: such an array comes back as float32."""
+    shape, name, buf = msgpack.unpackb(data, raw=True)
+    name = name.decode()
+    if name == "bfloat16":
+        return _bf16_bits_to_f32(np.frombuffer(buf, np.uint16)).reshape(shape)
+    return np.frombuffer(buf, np.dtype(name)).reshape(shape).copy()
+
+
+def _flax_tree(node):
+    """Undo flax's state-dict forms: a list is a map keyed ``"0"``,
+    ``"1"``, ... (back to a list, in index order), an array over 1 GiB a
+    map of chunks."""
+    if not isinstance(node, dict):
+        return node
+    node = {k: _flax_tree(v) for k, v in node.items()}
+    if "__msgpack_chunked_array__" in node:
+        return np.concatenate(node["chunks"]).reshape(node["shape"])
+    if node and set(node) == {str(i) for i in range(len(node))}:
+        return [node[str(i)] for i in range(len(node))]
+    return node
+
+
+def load_flax_msgpack(path: str) -> Tree:
+    """A flax ``msgpack_serialize`` / ``to_bytes`` file as nested dicts and
+    lists with numpy leaves. flax itself is not imported (the card's machine
+    has none); the ``msgpack`` package is, and must be installed."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            f"{path} is a flax msgpack file; reading it needs the 'msgpack' "
+            "package, which is not installed here") from e
+
+    def ext_hook(code, data):
+        if code == 1:  # ndarray
+            return _flax_array(data, msgpack)
+        if code == 3:  # numpy scalar
+            return _flax_array(data, msgpack)[()]
+        raise ValueError(f"{path}: flax msgpack ext type {code}")
+
+    with open(path, "rb") as f:
+        raw = msgpack.unpackb(f.read(), ext_hook=ext_hook, raw=False)
+    return _flax_tree(raw)
+
+
+def load_jax_checkpoint(path: str) -> Tree:
+    """A checkpoint written by the JAX package's ``save_checkpoint`` as the
+    numpy tree ``state_from_numpy`` takes.
+
+    The JAX state also holds ``quant`` (A-CAQ), ``ema`` (the params EMA) and
+    ``infl_ema`` (A-CAQ's inflation statistic), which the port has not
+    ported. ``None`` and the statistic are dropped; a checkpoint that holds
+    a trained ``quant`` or ``ema`` is refused, never read without them."""
+    tree = load_flax_msgpack(path)
+    if not isinstance(tree, dict) or "params" not in tree:
+        raise ValueError(f"{path}: not a train state (no 'params')")
+    for key in ("quant", "ema"):
+        if tree.get(key) is not None:
+            raise NotImplementedError(
+                f"{path} holds a trained '{key}' state, which comes with "
+                "ROADMAP.md Queue 1 item 5 (training extensions); importing "
+                "the checkpoint without it would drop trained state")
+    keep = ("params", "opt", "occ", "step") + _SCALARS
+    return {k: tree[k] for k in keep if k in tree}
+
+
+_BAKED_ARRAYS = ("sigma_table", "voxel_geo", "block_max", "sigma_scale",
+                 "geo_scale")
+
+
+def baked_from_numpy(tree: Tree, device=None) -> Tree:
+    """A baked snapshot with numpy leaves (``{"sigma_table", "voxel_geo",
+    "block_max", "color_net": [{"w"}...], ["sigma_scale"], ["geo_scale"],
+    "config": BakedConfig or its dict}``, as the JAX ``bake_field`` returns
+    it after ``np.asarray``) -> the port's snapshot on ``device``.
+
+    Each table is stored as ``config.table_dtype`` says. bfloat16 tables may
+    arrive as float32 (rounded here; exact for values that were bfloat16) or
+    as a 2-byte bfloat16 numpy array (its bits are taken as they are)."""
+    from indoor_nerf_tpu_torch.render.baked import BakedConfig
+
+    cfg = tree["config"]
+    if not isinstance(cfg, BakedConfig):
+        cfg = dict(cfg) if isinstance(cfg, dict) else dataclasses.asdict(cfg)
+        cfg["bbox_min"] = tuple(float(v) for v in cfg["bbox_min"])
+        cfg["bbox_max"] = tuple(float(v) for v in cfg["bbox_max"])
+        # Snapshots written before the sqrt sigma encoding are log1p.
+        cfg.setdefault("sigma_enc", "log1p")
+        cfg = BakedConfig(**cfg)
+    float_dtype = torch.float32 if cfg.table_dtype == "float32" else torch.bfloat16
+    want = {"sigma_table": torch.int8 if cfg.sigma_quantized else float_dtype,
+            "voxel_geo": torch.int8 if cfg.geo_quantized else float_dtype}
+    out: Tree = {"config": cfg}
+    for key in _BAKED_ARRAYS:
+        if key not in tree:
+            continue
+        a = np.asarray(tree[key])
+        if a.dtype.name == "bfloat16":
+            a = _bf16_bits_to_f32(a)
+        t = torch.from_numpy(np.array(a, copy=True))
+        out[key] = t.to(want.get(key, torch.float32)).to(device)
+    out["color_net"] = [{"w": _tensor(layer["w"], device)}
+                        for layer in tree["color_net"]]
+    return out
+
+
+def baked_to_numpy(baked: Tree) -> Tree:
+    """The inverse of ``baked_from_numpy``. bfloat16 tables come back as
+    float32 of the same values (numpy has no bfloat16); ``config`` says what
+    the storage dtype was."""
+    out: Tree = {"config": baked["config"]}
+    for key in _BAKED_ARRAYS:
+        if key in baked:
+            t = baked[key].detach().cpu()
+            out[key] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    out["color_net"] = [{"w": layer["w"].detach().cpu().numpy()}
+                        for layer in baked["color_net"]]
+    return out
+
+
+def load_jax_baked(path: str, device=None) -> Tree:
+    """A snapshot written by the JAX package's ``save_baked`` (flax
+    msgpack: ``{"arrays": ..., "config": ...}``) as the port's snapshot."""
+    obj = load_flax_msgpack(path)
+    if not isinstance(obj, dict) or set(obj) != {"arrays", "config"}:
+        raise ValueError(f"{path}: not a baked snapshot of the JAX package")
+    return baked_from_numpy({**obj["arrays"], "config": obj["config"]}, device)

@@ -117,15 +117,18 @@ def encode_views(dirs: torch.Tensor, config: FieldConfig) -> torch.Tensor:
 
 
 def sigma_query(params: Params, mlp_name: str, pts: torch.Tensor,
-                config: FieldConfig) -> torch.Tensor:
-    """Density-only query ``[N]`` (encode + sigma net), zero outside the bbox."""
+                config: FieldConfig, with_geo: bool = False):
+    """Density-only query ``[N]`` (encode + sigma net), zero outside the
+    bbox. ``with_geo`` also returns the sigma net's geometry features
+    ``[N, geo_feat_dim]`` (not masked), which the bake stores per vertex."""
     h, keep = encode_position(pts, params, config)
     sigma_net = params[mlp_name].sigma_net
     for l, layer in enumerate(sigma_net):
         h = h @ layer["w"]
         if l != len(sigma_net) - 1:
             h = torch.relu(h)
-    return torch.where(keep, h[..., 0], 0.0)
+    sigma = torch.where(keep, h[..., 0], 0.0)
+    return (sigma, h[..., 1:]) if with_geo else sigma
 
 
 def query_field(params: Params, mlp_name: str, pts: torch.Tensor,

@@ -3,6 +3,8 @@ on one CUDA card.
 
     python -m indoor_nerf_tpu_torch.profile_step -- <training flags>
     python -m indoor_nerf_tpu_torch.profile_step --render 800 -- <training flags>
+    python -m indoor_nerf_tpu_torch.profile_step --render 800 --baked \
+        [--guided 4] [--snapshot FILE] -- <training flags>
 
 Without ``--render``: builds the config and a batch as the trainer would
 (``train/trainer.py::one_batch``) on the flags' ``--device``, takes 20
@@ -10,7 +12,9 @@ warm-up steps on that batch, then records one step that is not a
 grid-refresh step with ``torch.profiler``. With ``--render N``: sets up the
 server's render function (``serve.build``, an N x N view, one warm-up
 render inside), renders a second pose unrecorded, then records the render
-of a third.
+of a third; ``--baked`` (with ``--guided``, ``--snapshot``, ``--baked_res``
+as the server takes them) records a request to the baked renderer. The
+training flags name the run whose newest checkpoint is served.
 
 Prints the wall time of the recorded work, the device's busy time (the sum
 of its kernels and copies), the ``record_function`` spans as the device saw
@@ -32,7 +36,8 @@ import time
 WARMUP_STEPS = 20
 TOP_KERNELS = 12
 SPANS = ("sample", "encode", "mlp", "composite", "tv", "backward",
-         "encode_bwd", "optimizer", "occ_update")
+         "encode_bwd", "optimizer", "occ_update", "baked_sample",
+         "baked_pass1", "baked_composite", "baked_pass2", "baked_color")
 # The kernels of csrc/, by a part of their names on the device.
 OWN_KERNELS = ("tent_contract_kernel", "pack_rows_kernel", "table_scatter_kernel",
                "unpack_rows_kernel", "group_scatter_kernel", "tile_interp",
@@ -59,13 +64,15 @@ def _training_work(torch, cli):
             lambda: train_step(state, batch, cfg, gen))
 
 
-def _render_work(cli, train_args, size):
+def _render_work(cli, train_args, opts):
     """``(label, work)``: ``work()`` answers the render to record."""
     from indoor_nerf_tpu_torch import serve
     from indoor_nerf_tpu_torch.data.load import load_dataset
 
     render, _, hw = serve.build(argparse.Namespace(
-        width=size, height=size, train_args=["--"] + train_args))
+        width=opts.render, height=opts.render, baked=opts.baked,
+        baked_res=opts.baked_res, guided=opts.guided, snapshot=opts.snapshot,
+        train_args=["--"] + train_args))
     scene = load_dataset(cli)
     poses = scene.poses[scene.i_test]
     render(poses[0])
@@ -73,9 +80,44 @@ def _render_work(cli, train_args, size):
             lambda: render(poses[1 % len(poses)]))
 
 
+def measure(torch, work, dev) -> dict:
+    """Record ``work()`` (closed by a device synchronize) with
+    ``torch.profiler``: ``wall_ms`` (profiled), ``busy_ms`` (the sum of the
+    device's kernels and copies), ``n_ops``, ``spans`` {name: (interval ms,
+    count)} and ``kernels`` (the device events, spans left out)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize(dev)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        work()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    # A span shows up on the device's side too, as an interval that covers
+    # its kernels and the gaps between them; only kernels and copies count
+    # as busy time.
+    on_device = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    kernels = [e for e in on_device if e.key not in SPANS]
+    return {"wall_ms": wall_ms,
+            "busy_ms": sum(e.self_device_time_total for e in kernels) / 1e3,
+            "n_ops": sum(e.count for e in kernels),
+            "spans": {e.key: (e.device_time_total / 1e3, e.count)
+                      for e in on_device if e.key in SPANS},
+            "kernels": kernels}
+
+
+def summary(m: dict) -> str:
+    """The first two lines of the report of a ``measure`` result."""
+    return (f"wall {m['wall_ms']:.3f} ms (profiled), device busy "
+            f"{m['busy_ms']:.3f} ms in {m['n_ops']} device operations, idle "
+            f"share {max(0.0, 1 - m['busy_ms'] / m['wall_ms']):.3f} (of the "
+            "profiled wall)\nspans on the device (intervals, gaps included): "
+            + ", ".join(f"{k} {m['spans'][k][0]:.3f} ms x{m['spans'][k][1]}"
+                        for k in SPANS if k in m["spans"]))
+
+
 def main(argv=None) -> int:
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from indoor_nerf_tpu_torch.train.config import parse_args
 
@@ -84,6 +126,11 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--render", type=int, default=None, metavar="N",
                     help="profile one N x N render request, not a step")
+    ap.add_argument("--baked", action="store_true",
+                    help="with --render: a request to the baked renderer")
+    ap.add_argument("--baked_res", type=int, default=256)
+    ap.add_argument("--guided", type=int, default=0)
+    ap.add_argument("--snapshot", default=None)
     opts = ap.parse_args(own)
     train_args = [a for a in argv[len(own):] if a != "--"]
     cli = parse_args(train_args)
@@ -94,33 +141,16 @@ def main(argv=None) -> int:
         return 1
     dev = torch.device(cli.device)
     label, work = (_training_work(torch, cli) if opts.render is None
-                   else _render_work(cli, train_args, opts.render))
+                   else _render_work(cli, train_args, opts))
     torch.cuda.synchronize(dev)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     print(f"profile_step: {smi.stdout.strip().splitlines()[0]}; "
           f"{' '.join(train_args)}; {label}")
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        work()
-        torch.cuda.synchronize(dev)
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-    # A span shows up on the device's side too, as an interval that covers
-    # its kernels and the gaps between them; only kernels and copies count
-    # as busy time.
-    on_device = [e for e in events if e.device_type.name == "CUDA"]
-    kernels = [e for e in on_device if e.key not in SPANS]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    n_ops = sum(e.count for e in kernels)
-    print(f"wall {wall_ms:.3f} ms (profiled), device busy {busy_ms:.3f} ms in "
-          f"{n_ops} device operations, idle share "
-          f"{max(0.0, 1 - busy_ms / wall_ms):.3f} (of the profiled wall)")
-    spans = {e.key: e for e in on_device if e.key in SPANS}
-    print("spans on the device (intervals, gaps included): " + ", ".join(
-        f"{k} {spans[k].device_time_total / 1e3:.3f} ms x{spans[k].count}"
-        for k in SPANS if k in spans))
+    m = measure(torch, work, dev)
+    print(summary(m))
+    kernels = m["kernels"]
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:TOP_KERNELS]:
         print(f"  {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<4d} "
               f"{e.key[:110]}")

@@ -1,16 +1,24 @@
 """Render server: novel views of the field over HTTP (port of scripts/serve.py).
 
   python -m indoor_nerf_tpu_torch.serve [--port 8000] [--width 800 --height 800] \\
-      -- --flagship --dataset_type synthetic --use_viewdirs --white_bkgd
+      [--baked [--baked_res 256] [--snapshot FILE] [--guided 4]] \\
+      -- --flagship --dataset_type synthetic --use_viewdirs --white_bkgd \\
+         --expname demo --basedir /tmp/logs
 
+Serves the newest checkpoint of the run the training flags name
+(``basedir/mangle_expname``, or ``--ft_path``; the flags must match the
+training run's, since the expname is mangled with them) and reports its step
+in /health; with none it serves the seeded initial state and says so.
 Renders on the CUDA card (the block-hash encode then runs the hand-written
 ``tent_contract`` kernel) unless the training flags hold ``--device cpu``;
 with no card visible and no such flag it raises.
-There is no checkpoint format yet, so it serves the seeded initial state
-(``--seed``) and says so. Baked serving comes with ROADMAP.md Queue 1 item
-7: its flags (``--baked``, ``--baked_res``, ``--baked_geo_res``,
-``--baked_dtype``, ``--snapshot``, ``--guided``) are parsed and raise
-``NotImplementedError`` naming that item.
+
+``--baked`` bakes the field into the deferred-shading snapshot
+(``render/baked.py``) at start-up and serves from it; with ``--snapshot FILE``
+it loads FILE if it exists, else bakes and saves it there. ``--guided G``
+renders two levels: a 1/G-resolution pass bounds each ray's depth interval,
+then 16 samples per ray inside it (128 unguided). A failed bake or snapshot
+load is an error; the server never switches to online rendering by itself.
 
 API:
   GET  /health              -> {"status": "ok", "step": N, "resolution": [H, W]}
@@ -24,6 +32,7 @@ from __future__ import annotations
 import argparse
 import io
 import json
+import os
 import threading
 import time
 import traceback
@@ -36,25 +45,60 @@ import torch
 from indoor_nerf_tpu_torch import resolve_device
 from indoor_nerf_tpu_torch.data.load import load_dataset
 from indoor_nerf_tpu_torch.data.poses import pose_spherical
-from indoor_nerf_tpu_torch.models.field import init_field_params, serving_params
-from indoor_nerf_tpu_torch.ops.occupancy import init_occupancy
-from indoor_nerf_tpu_torch.render.renderer import default_tile_rays, make_image_renderer
+from indoor_nerf_tpu_torch.models.field import serving_params
+from indoor_nerf_tpu_torch.render.baked import (
+    bake_field,
+    load_baked,
+    make_baked_image_renderer,
+    save_baked,
+)
+from indoor_nerf_tpu_torch.render.renderer import (
+    MAP_KEYS,
+    default_tile_rays,
+    make_image_renderer,
+)
 from indoor_nerf_tpu_torch.train.config import parse_args
-from indoor_nerf_tpu_torch.train.trainer import build_train_config
+from indoor_nerf_tpu_torch.train.step import init_train_state
+from indoor_nerf_tpu_torch.train.trainer import build_train_config, logdir_of, resume
 from indoor_nerf_tpu_torch.utils.png import encode_png
 
-# The baked-serving flags of the JAX server and their defaults there.
-_BAKED_FLAGS = (("baked", False), ("baked_res", 256), ("baked_geo_res", -1),
-                ("baked_dtype", "bfloat16"), ("snapshot", None), ("guided", 0))
+
+def train_cameras(scene) -> dict:
+    """The training views as ``bake_field``'s visibility culling takes them."""
+    Ht, Wt = int(scene.hwf[0]), int(scene.hwf[1])
+    Kt = np.array([[scene.hwf[2], 0, 0.5 * Wt], [0, scene.hwf[2], 0.5 * Ht],
+                   [0, 0, 1]], np.float32)
+    return {"poses": np.asarray(scene.poses)[scene.i_train][:, :3, :4],
+            "K": scene.K if scene.K is not None else Kt, "H": Ht, "W": Wt,
+            "near": scene.near, "far": scene.far}
+
+
+def _baked_snapshot(args, params, field_cfg, scene, device):
+    """The ``--baked`` snapshot: loaded from ``--snapshot`` if that file
+    exists, else baked from ``params`` with the training cameras for
+    visibility culling (and saved to ``--snapshot`` if given)."""
+    snap = getattr(args, "snapshot", None)
+    if snap and os.path.exists(snap):
+        baked = load_baked(snap, device)
+        print(f"loaded snapshot {snap}")
+        return baked
+    res = getattr(args, "baked_res", 256)
+    print(f"baking snapshot at {res}^3 ...")
+    t0 = time.perf_counter()
+    baked = bake_field(params, field_cfg, resolution=res,
+                       table_dtype=getattr(args, "baked_dtype", "bfloat16"),
+                       train_cameras=train_cameras(scene),
+                       geo_resolution=getattr(args, "baked_geo_res", -1))
+    print(f"baked in {time.perf_counter() - t0:.1f}s")
+    if snap:
+        save_baked(snap, baked)
+        print(f"saved snapshot to {snap}")
+    return baked
 
 
 def build(args):
     """Set up the field and renderer. Returns ``(render, step, (H, W))``;
     ``render(c2w) -> (maps, seconds)`` with numpy rgb/depth/acc/disp maps."""
-    for flag, default in _BAKED_FLAGS:
-        if getattr(args, flag, default) != default:
-            raise NotImplementedError(
-                f"--{flag}: baked serving comes with ROADMAP.md Queue 1 item 7")
     train_args = list(args.train_args)
     if train_args and train_args[0] == "--":
         train_args = train_args[1:]
@@ -64,29 +108,48 @@ def build(args):
     device = resolve_device(cli.device)
     gen = torch.Generator(device=device).manual_seed(cli.seed)
     field_cfg = cfg.render.field
-    # Serving holds the params fixed, so the bf16 gather copy of the table
-    # is made once here (valid while these params are served unchanged).
-    params = serving_params(init_field_params(gen, field_cfg, device), field_cfg)
-    occ = (init_occupancy(cfg.render.occupancy, device)
-           if cfg.render.occupancy is not None else None)
-    step = 0
-    print("⚠️  serving an UNTRAINED model (the port has no checkpoint "
-          f"format yet; seeded initial state, seed {cli.seed})")
+    state = resume(cli, init_train_state(gen, cfg, device), no_reload=False)
+    step = int(state["step"])
+    if step == 0:
+        print("⚠️  serving an UNTRAINED model (no checkpoint found in "
+              f"{logdir_of(cli)}; seeded initial state, seed {cli.seed})")
+    # Serving holds the params fixed, so the packed gather copy of the table
+    # is made once here, from the RESTORED table (valid while these params
+    # are served unchanged).
+    params = serving_params(state["params"], field_cfg)
+    occ = state["occ"]
+    del state  # the RAdam moments and the f32 master are not served
 
     H = int(args.height or scene.hwf[0])
     W = int(args.width or scene.hwf[1])
     focal = scene.hwf[2] * (W / scene.hwf[1])
     K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
-    tile = default_tile_rays(device, cfg.render)
-    print(f"rendering {H}x{W} on {device} in tiles of {tile} rays")
-    renderer = make_image_renderer(cfg.render.test_mode(), H, W, tile)
+    if getattr(args, "baked", False):
+        baked = _baked_snapshot(args, params, field_cfg, scene, device)
+        g = getattr(args, "guided", 0)
+        renderer = make_baked_image_renderer(
+            baked, H, W, n_samples=(16 if g else 128), guided=g, n_coarse=64,
+            white_bkgd=cfg.render.white_bkgd)
+        print(f"rendering {H}x{W} on {device} from the baked snapshot"
+              + (f", guided by a 1/{g} pass" if g else ""))
+
+        def render_maps(c2w):
+            return renderer(c2w, K, scene.near, scene.far)
+    else:
+        tile = default_tile_rays(device, cfg.render)
+        print(f"rendering {H}x{W} on {device} in tiles of {tile} rays")
+        online = make_image_renderer(cfg.render.test_mode(), H, W, tile)
+
+        def render_maps(c2w):
+            return online(params, c2w, K, scene.near, scene.far, occ)
+
     lock = threading.Lock()  # one render at a time on the card
 
     def render(c2w):
         with lock:
             t0 = time.perf_counter()
-            out = renderer(params, c2w, K, scene.near, scene.far, occ)
-            maps = {k: v.cpu().numpy() for k, v in out.items()}  # synchronizes
+            out = render_maps(c2w)
+            maps = {k: out[k].cpu().numpy() for k in MAP_KEYS}  # synchronizes
             return maps, time.perf_counter() - t0
 
     # One render at start-up builds the kernel and loads the card's
@@ -162,21 +225,37 @@ def make_handler(render, step, hw):
     return Handler
 
 
-def main(argv=None):
+def parse_server_args(argv=None) -> argparse.Namespace:
+    """The server's own flags; everything after ``--`` goes to the training
+    parser in ``build`` (``train_args``)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--port", type=int, default=8000)
     ap.add_argument("--width", type=int, default=None)
     ap.add_argument("--height", type=int, default=None)
-    for flag, default in _BAKED_FLAGS:  # parsed, then refused by build()
-        if default is False:
-            ap.add_argument(f"--{flag}", action="store_true")
-        else:
-            ap.add_argument(f"--{flag}", default=default,
-                            type=int if isinstance(default, int) else str)
+    ap.add_argument("--baked", action="store_true",
+                    help="bake the field at start-up; serve from the "
+                         "deferred-shading snapshot (render/baked.py)")
+    ap.add_argument("--baked_res", type=int, default=256)
+    ap.add_argument("--baked_geo_res", type=int, default=-1,
+                    help="pass-2 geo table resolution (-1 = baked_res/2, "
+                         "0 = baked_res)")
+    ap.add_argument("--baked_dtype", default="bfloat16",
+                    choices=["bfloat16", "float32", "int8", "int8sig",
+                             "int8geo"])
+    ap.add_argument("--snapshot", default=None,
+                    help="path to save/load the baked snapshot (loads it "
+                         "if the file exists, else bakes and saves)")
+    ap.add_argument("--guided", type=int, default=0,
+                    help="with --baked: depth-guided two-level rendering "
+                         "(coarse downsample factor, e.g. 4)")
     ap.add_argument("train_args", nargs=argparse.REMAINDER,
                     help="the training CLI flags identifying the run "
                          "(e.g. -- --flagship --dataset_type synthetic ...)")
-    args = ap.parse_args(argv)
+    return ap.parse_args(argv)
+
+
+def main(argv=None):
+    args = parse_server_args(argv)
     render, step, hw = build(args)
     srv = ThreadingHTTPServer(("0.0.0.0", args.port), make_handler(render, step, hw))
     print(f"serving on :{args.port} (step {step}, {hw[0]}x{hw[1]})")

@@ -20,16 +20,23 @@ kernels) where the JAX package applies it: ``--block_size 4`` and
         --occ_weighting transmittance --dataset_type synthetic \
         --use_viewdirs --white_bkgd
 
-Checkpoints come with ROADMAP.md Queue 1 item 3a; test renders, videos and
-the metrics files with item 3b. Until then ``train`` names, in one line
-before the loop, every flag of those items that was set and does nothing.
+Checkpoints go to ``<--basedir>/<mangle_expname(args)>/{step:06d}.ckpt``
+every ``--i_weights`` steps and at the end; a later call with the same
+flags resumes from the newest (``--no_reload`` starts afresh, ``--ft_path``
+names one file, which may be a checkpoint of the JAX package). The expname
+is mangled with the hyper-parameters, so a changed ``--lrate`` or
+``--finest_res`` resolves to a fresh directory. Test renders, videos and
+the metrics files come with ROADMAP.md Queue 1 item 3b: ``train`` names, in
+one line before the loop, every flag of that item that was set and does
+nothing.
 """
 
 from __future__ import annotations
 
+import os
 import sys
 import time
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,7 +49,13 @@ from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
 from indoor_nerf_tpu_torch.train.config import build_parser, parse_args
-from indoor_nerf_tpu_torch.train.step import TrainConfig, init_train_state, train_step
+from indoor_nerf_tpu_torch.train.step import (
+    TrainConfig,
+    draw_step,
+    init_train_state,
+    train_step,
+)
+from indoor_nerf_tpu_torch.utils.checkpoint import maybe_resume, save_checkpoint
 
 _ITEM5 = "Queue 1 item 5 (training extensions)"
 # Flags whose non-default value changes the model or the step, with the
@@ -61,12 +74,10 @@ _UNPORTED = (
     ("view_anneal_iters", 0, _ITEM5),
 )
 # Flags of the training loop only, refused by ``train``.
-_ITEM3A = "Queue 1 item 3a (checkpoints)"
 _ITEM3B = "Queue 1 item 3b (the rest of the training loop)"
 _UNPORTED_LOOP = (
     ("no_batching", False, _ITEM3B),
     ("render_only", False, _ITEM3B),
-    ("ft_path", None, _ITEM3A),
     ("profile_dir", None, _ITEM3B),
     ("debug_nans", False, _ITEM3B),
     ("multihost", False, "Queue 1 item 8 (multi-device)"),
@@ -75,10 +86,6 @@ _UNPORTED_LOOP = (
 # Flags of the training loop that are parsed and have no effect yet: ``train``
 # names those set away from the parser's default, with their item.
 _IDLE_LOOP = (
-    ("i_weights", _ITEM3A),
-    ("no_reload", _ITEM3A),
-    ("basedir", _ITEM3A),
-    ("expname", _ITEM3A),
     ("i_testset", _ITEM3B),
     ("i_video", _ITEM3B),
     ("i_img", _ITEM3B),
@@ -103,6 +110,48 @@ def idle_loop_flags(args) -> Tuple[Tuple[str, str], ...]:
     defaults = build_parser()
     return tuple((flag, item) for flag, item in _IDLE_LOOP
                  if getattr(args, flag) != defaults.get_default(flag))
+
+
+def mangle_expname(args) -> str:
+    """The expname with the hyper-parameters appended (a copy of the JAX
+    package's ``train/trainer.py::mangle_expname``; a test holds the two
+    equal over every config file)."""
+    expname = args.expname
+    if args.i_embed == 1:
+        expname += "_hashXYZ"
+    elif args.i_embed == 0:
+        expname += "_posXYZ"
+    if args.i_embed_views == 2:
+        expname += "_sphereVIEW"
+    elif args.i_embed_views == 0:
+        expname += "_posVIEW"
+    expname += "_fine" + str(args.finest_res) + "_log2T" + str(args.log2_hashmap_size)
+    expname += "_lr" + str(args.lrate) + "_decay" + str(args.lrate_decay)
+    expname += "_RAdam"
+    if args.sparse_loss_weight > 0:
+        expname += "_sparse" + str(args.sparse_loss_weight)
+    expname += "_TV" + str(args.tv_loss_weight)
+    return expname
+
+
+def logdir_of(args) -> Optional[str]:
+    """Where a run of ``args`` keeps its checkpoints:
+    ``basedir/mangle_expname(args)``, or None without ``--expname`` (the JAX
+    package fails there with a TypeError; the port then writes and resumes
+    no checkpoint, and ``train`` says so)."""
+    if args.expname is None:
+        return None
+    return os.path.join(args.basedir, mangle_expname(args))
+
+
+def resume(args, state: Dict, no_reload: bool) -> Dict:
+    """``state`` restored from ``--ft_path`` or from the newest checkpoint of
+    ``logdir_of(args)``, as ``maybe_resume`` rules; unchanged where there
+    is neither."""
+    logdir = logdir_of(args)
+    if logdir is None and args.ft_path in (None, "None"):
+        return state
+    return maybe_resume(logdir or "", state, args.ft_path, no_reload)
 
 
 def build_train_config(args, scene: SceneData) -> TrainConfig:
@@ -216,10 +265,19 @@ def one_batch(args, device, seed=None):
 
 
 def train(args) -> Dict:
-    """Train ``args.n_iters`` steps on the batched ray sampler.
+    """Train up to step ``args.n_iters`` on the batched ray sampler.
 
-    Returns {"losses": [...], "psnrs": [...] per step, "seconds" of the
-    step loop (closed by a device synchronize), "state"}."""
+    Resumes from the newest checkpoint of the run's directory (``resume``)
+    and goes on from its step: the ray sampler and the generator of the
+    draws are not part of a checkpoint, so both are advanced by the resumed
+    step count (the sampler's batches and ``draw_step``'s draws of steps 0
+    .. step - 1 are made and dropped). A resumed run therefore takes the
+    batches and draws the uninterrupted run takes, also from a checkpoint
+    of the JAX package. Saves every ``--i_weights`` steps, at the end, and
+    before raising on a non-finite loss.
+
+    Returns {"losses": [...], "psnrs": [...] per step taken, "seconds" of
+    the step loop (closed by a device synchronize), "state", "logdir"}."""
     _refuse(args, _UNPORTED_LOOP)
     scene = load_dataset(args)
     H, W, _ = scene.hwf
@@ -227,19 +285,29 @@ def train(args) -> Dict:
     device = resolve_device(args.device)
     state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
                              cfg, device)
+    logdir = logdir_of(args)
+    state = resume(args, state, args.no_reload)
+    start = int(state["step"])
     # The JAX trainer's per-step keys split from PRNGKey(seed + 1).
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
     sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
                                 scene.K, args.N_rand, seed=args.seed)
-    print(f"training {args.n_iters} steps of {args.N_rand} rays on {device}; "
-          f"TRAIN views {scene.i_train.tolist()}")
+    for s in range(start):
+        sampler.next()
+        draw_step(gen, cfg, s, args.N_rand)
+    n_steps = max(0, args.n_iters - start)
+    print(f"training {n_steps} steps (from step {start}) of {args.N_rand} "
+          f"rays on {device}; TRAIN views {scene.i_train.tolist()}")
+    if logdir is None:
+        print("[TRAIN] no --expname: no checkpoint is written or resumed")
     idle = idle_loop_flags(args)
     if idle:
         print("[TRAIN] set and without effect yet: "
               + ", ".join(f"--{flag} (ROADMAP.md {item})" for flag, item in idle))
     losses, psnrs = [], []
+    saved_at = start  # the state of a step that took none is its file's
     t0 = time.perf_counter()
-    for i in range(1, args.n_iters + 1):
+    for i in range(start + 1, args.n_iters + 1):
         b = sampler.next()
         batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
                  for k in ("rays_o", "rays_d", "target")}
@@ -249,19 +317,29 @@ def train(args) -> Dict:
         if i % args.i_print == 0 or i == args.n_iters:
             loss = float(metrics["loss"])
             if not np.isfinite(loss):
-                raise FloatingPointError(f"non-finite loss {loss} at iteration {i}")
+                saved = ("no checkpoint (no --expname)" if logdir is None else
+                         f"state saved to {save_checkpoint(logdir, i, state)}")
+                raise FloatingPointError(
+                    f"non-finite loss {loss} at iteration {i}; {saved}")
             print(f"[TRAIN] Iter: {i} Loss: {loss:.6f} "
                   f"PSNR: {float(metrics['psnr']):.3f} lr: {metrics['lr']:.3e}")
+        if logdir is not None and args.i_weights > 0 and i % args.i_weights == 0:
+            print("Saved checkpoints at", save_checkpoint(logdir, i, state))
+            saved_at = i
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
-    print(f"{args.n_iters} steps in {seconds:.2f} s "
-          f"({args.n_iters / seconds:.2f} steps/s, "
-          f"{args.n_iters * args.N_rand / seconds:.0f} rays/s); checkpoints "
-          "come with ROADMAP.md Queue 1 item 3a, test renders with item 3b")
+    if n_steps:
+        print(f"{n_steps} steps in {seconds:.2f} s "
+              f"({n_steps / seconds:.2f} steps/s, "
+              f"{n_steps * args.N_rand / seconds:.0f} rays/s); test renders "
+              "come with ROADMAP.md Queue 1 item 3b")
+    if logdir is not None and saved_at != state["step"]:
+        print("Saved checkpoints at",
+              save_checkpoint(logdir, int(state["step"]), state))
     return {"losses": [float(v) for v in losses],
             "psnrs": [float(v) for v in psnrs],
-            "seconds": seconds, "state": state}
+            "seconds": seconds, "state": state, "logdir": logdir}
 
 
 def main(argv=None) -> None:

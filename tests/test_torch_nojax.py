@@ -11,6 +11,7 @@ _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _PROGRAM = r"""
 import sys
 sys.modules["jax"] = None  # any `import jax` now raises ImportError
+sys.modules["flax"] = None
 import numpy as np
 import torch
 torch.set_num_threads(1)
@@ -78,8 +79,42 @@ picked = indoor_nerf_tpu_torch.ops.lane_select(
     torch.arange(256, dtype=torch.float32).reshape(2, 128),
     torch.tensor([[5, 5], [0, 127]], dtype=torch.int32))
 assert picked.tolist() == [[5.0, 5.0], [128.0, 255.0]]
+
+# Checkpoints and baked serving: train with a run directory, resume, serve
+# the checkpoint online and baked, and import a checkpoint that the JAX
+# package wrote (its path comes from the test) with flax out of reach.
+import argparse
+import indoor_nerf_tpu_torch.bridge
+import indoor_nerf_tpu_torch.render.baked
+import indoor_nerf_tpu_torch.utils.checkpoint
+from indoor_nerf_tpu_torch import serve
+from indoor_nerf_tpu_torch.train.step import init_train_state
+from indoor_nerf_tpu_torch.utils.checkpoint import restore_checkpoint
+
+run = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
+       "--white_bkgd", "--n_levels", "4", "--finest_res", "32",
+       "--log2_hashmap_size", "12", "--occ_resolution", "16", "--N_rand", "64",
+       "--i_print", "1", "--device", "cpu", "--expname", "nojax",
+       "--basedir", "runs"]
+train(parse_args(run + ["--n_iters", "2"]))
+result = train(parse_args(run + ["--n_iters", "3"]))
+assert result["state"]["step"] == 3 and len(result["losses"]) == 1
+assert sorted(os.listdir(result["logdir"])) == ["000002.ckpt", "000003.ckpt"]
+for extra in ({}, {"baked": True, "baked_res": 8, "snapshot": "runs/snap.pt",
+                   "guided": 2}):
+    render, step, hw = serve.build(argparse.Namespace(
+        width=8, height=8, train_args=["--"] + run, **extra))
+    maps, _ = render(scene.poses[0])
+    assert step == 3 and np.all(np.isfinite(maps["rgb_map"]))
+assert os.path.exists("runs/snap.pt")
+imported = restore_checkpoint(
+    os.environ["NOJAX_JAX_CHECKPOINT"],
+    init_train_state(torch.Generator().manual_seed(0),
+                     build_train_config(parse_args(run), scene)))
+assert imported["step"] == 2
 leaked = sorted(m for m in sys.modules
-                if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu."))
+                if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
+                or m == "flax" and sys.modules[m] is not None)
 assert not leaked, leaked
 print("NOJAX_OK")
 """
@@ -93,7 +128,10 @@ def test_port_renders_without_jax(tmp_path):
                     tmp_path / "indoor_nerf_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
     assert not (tmp_path / "indoor_nerf_tpu").exists()
-    env = dict(os.environ, PYTHONPATH=str(tmp_path))
+    from test_torch_checkpoint import jax_checkpoint
+
+    path, _, _ = jax_checkpoint(tmp_path, steps=2)
+    env = dict(os.environ, PYTHONPATH=str(tmp_path), NOJAX_JAX_CHECKPOINT=path)
     proc = subprocess.run([sys.executable, "-c", _PROGRAM], cwd=tmp_path,
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr

@@ -4,6 +4,7 @@ plumbing and the numpy-only copies it serves from."""
 import argparse
 import io
 import json
+import os
 import threading
 import urllib.error
 import urllib.request
@@ -93,12 +94,88 @@ def test_occupancy_with_importance_is_refused():
         configs(TINY_FLAGSHIP + ["--N_importance", "8"])[1]
 
 
-@pytest.mark.parametrize("flag", [
-    ["--baked"], ["--baked_res", "128"], ["--baked_geo_res", "0"],
-    ["--baked_dtype", "int8"], ["--snapshot", "baked.npz"], ["--guided", "4"]])
-def test_serve_refuses_baked_flags_by_item(flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item 7"):
-        serve.main(flag + ["--"] + TINY_FLAGSHIP + CPU)
+def _build(server_flags, train_flags=TINY_FLAGSHIP + CPU):
+    return serve.build(serve.parse_server_args(
+        ["--width", "12", "--height", "10"] + server_flags + ["--"] + train_flags))
+
+
+@pytest.fixture
+def baked_calls(monkeypatch):
+    """What ``serve.build`` bakes and how it builds the baked renderer."""
+    calls = {}
+    real_bake, real_make = serve.bake_field, serve.make_baked_image_renderer
+
+    def bake(params, field_cfg, **kw):
+        calls["bake"] = kw
+        return real_bake(params, field_cfg, **kw)
+
+    def make(baked, H, W, **kw):
+        calls["baked"], calls["make"] = baked, kw
+        return real_make(baked, H, W, **kw)
+
+    monkeypatch.setattr(serve, "bake_field", bake)
+    monkeypatch.setattr(serve, "make_baked_image_renderer", make)
+    return calls
+
+
+BAKED8 = ["--baked", "--baked_res", "8"]
+
+
+@pytest.mark.parametrize("flags,check", [
+    ([], lambda c: c == {}),  # online: nothing is baked
+    (BAKED8, lambda c: (
+        c["baked"]["config"].resolution, c["baked"]["config"].geo_res,
+        c["baked"]["config"].table_dtype, c["bake"]["train_cameras"]["poses"].shape,
+        c["make"]["n_samples"], c["make"]["guided"], c["make"]["n_coarse"])
+        == (8, 4, "bfloat16", (9, 3, 4), 128, 0, 64)),
+    (["--baked", "--baked_res", "16"], lambda c: (
+        c["baked"]["config"].resolution,
+        tuple(c["baked"]["sigma_table"].shape)) == (16, (64, 128))),
+    (BAKED8 + ["--baked_geo_res", "0"], lambda c: (
+        c["baked"]["config"].geo_res,
+        tuple(c["baked"]["voxel_geo"].shape)) == (8, (512, 128))),
+    (BAKED8 + ["--baked_dtype", "int8"], lambda c: (
+        c["baked"]["sigma_table"].dtype, c["baked"]["voxel_geo"].dtype)
+        == (torch.int8, torch.int8)),
+    (BAKED8 + ["--guided", "4"], lambda c: (
+        c["make"]["n_samples"], c["make"]["guided"], c["make"]["n_coarse"])
+        == (16, 4, 64)),
+], ids=["online", "baked", "baked_res", "baked_geo_res", "baked_dtype", "guided"])
+def test_serve_baked_flags_take_effect(flags, check, baked_calls):
+    """Each baked-serving flag of the JAX server changes what is baked or
+    how it is rendered; the render returns the online branch's maps."""
+    render, step, hw = _build(flags)
+    assert check(baked_calls), baked_calls
+    maps, _ = render(pose_spherical(30.0, -30.0, 4.0))
+    assert sorted(maps) == ["acc_map", "depth_map", "disp_map", "rgb_map"]
+    assert maps["rgb_map"].shape == (10, 12, 3)
+    assert all(np.all(np.isfinite(v)) for v in maps.values())
+
+
+def test_serve_snapshot_is_saved_then_loaded(tmp_path, baked_calls, capsys):
+    snap = str(tmp_path / "snaps" / "baked.pt")
+    first, _, _ = _build(BAKED8 + ["--snapshot", snap])
+    assert os.path.exists(snap) and "bake" in baked_calls
+    assert f"saved snapshot to {snap}" in capsys.readouterr().out
+    baked_calls.clear()
+    second, _, _ = _build(BAKED8 + ["--snapshot", snap])
+    assert "bake" not in baked_calls  # loaded, not baked again
+    assert f"loaded snapshot {snap}" in capsys.readouterr().out
+    c2w = pose_spherical(30.0, -30.0, 4.0)
+    np.testing.assert_array_equal(first(c2w)[0]["rgb_map"],
+                                  second(c2w)[0]["rgb_map"])
+
+
+def test_serve_baked_never_switches_to_online(tmp_path, monkeypatch):
+    """A snapshot that does not load is an error, and so is a card that is
+    not there: ``--baked`` has no quiet way back to online rendering."""
+    snap = tmp_path / "broken.pt"
+    torch.save({"format": "something else"}, snap)
+    with pytest.raises(ValueError, match="not a baked snapshot"):
+        _build(BAKED8 + ["--snapshot", str(snap)])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device is visible"):
+        _build(BAKED8, TINY_FLAGSHIP)
 
 
 def test_png_round_trip(rng):

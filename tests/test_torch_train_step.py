@@ -8,6 +8,8 @@ the TPU runs, and the port's numerics; the JAX CPU default accumulates in
 bf16 instead.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -285,7 +287,6 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
     (["--distortion_loss_weight", "0.1"], "item 5"),
     (["--ema_decay", "0.99"], "item 5"),
     (["--no_batching"], "item 3b"),
-    (["--ft_path", "000100.ckpt"], "item 3a"),
     # Parsed like the JAX trainer's, where they change what a run does.
     (["--profile_dir", "trace"], "item 3b"),
     (["--debug_nans"], "item 3b"),
@@ -296,24 +297,27 @@ def test_trainer_refuses_unported_flags(flag, item):
         train(args)
 
 
-def test_trainer_names_the_loop_flags_without_effect(capsys):
+def test_trainer_names_the_loop_flags_without_effect(capsys, tmp_path):
     """A loop flag set away from its default that does nothing yet is named,
     with its ROADMAP item, in one line before the first step; at the
-    defaults the line is absent."""
+    defaults the line is absent. The checkpoint flags have their effect and
+    are not named."""
     base = TINY_FLAGSHIP + CPU + ["--N_rand", "64", "--n_iters", "1"]
     train(parse_args(base))
     assert "without effect" not in capsys.readouterr().out
-    train(parse_args(base + [
+    out = train(parse_args(base + [
         "--i_weights", "50", "--i_testset", "40", "--i_video", "100",
         "--i_img", "7", "--no_reload", "--render_factor", "2",
-        "--basedir", "runs", "--expname", "verify"]))
+        "--basedir", str(tmp_path / "runs"), "--expname", "verify"]))
     text = capsys.readouterr().out
     (line,) = [l for l in text.splitlines() if "without effect" in l]
     assert text.index(line) < text.index("[TRAIN] Iter: 1")
     for flag in ("i_weights", "no_reload", "basedir", "expname"):
-        assert f"--{flag} (ROADMAP.md Queue 1 item 3a" in line
+        assert f"--{flag}" not in line
     for flag in ("i_testset", "i_video", "i_img", "render_factor"):
         assert f"--{flag} (ROADMAP.md Queue 1 item 3b" in line
+    assert out["logdir"].startswith(str(tmp_path / "runs"))
+    assert sorted(os.listdir(out["logdir"])) == ["000001.ckpt"]
 
 
 def test_bench_config_is_the_root_bench_config():
