@@ -114,7 +114,36 @@ printing any result.
       pass 1 alone at the request's shapes, through tent_contract against
       its plain form (index_select of [N*S, 128] rows + _tent_interp):
       max |diff| of relu(sigma) <= 1e-2 of the largest sigma (the kernel keeps f32 tent
-      weights, the plain form rounds them to bfloat16), both timed.
+      weights, the plain form rounds them to bfloat16), both timed;
+  (v) from files, under a temporary directory: writes the sphere scene of
+      data/scene_files.py as 32 RGBA views of 800x800 in blender layout
+      (16 train, 16 val and test), trains configs/lego_tpu.txt through
+      indoor_nerf_tpu_torch.run_nerf as shipped (no_batching, precrop 500,
+      half_res: 400x400 views, white_bkgd) with --lrate 0.01 for 600 steps,
+      --i_testset 300, --i_weights 300, --i_video 600: tent_contract and
+      table_scatter must launch in the steps and tent_contract in the test
+      sets (each read as the counts around the trainer's render_path calls),
+      the loss fall, testset_000300/ and testset_000600/ hold a PNG per
+      held-out view and test_psnrs_avg*.pkl, best.ckpt, metrics_iter_600.pkl,
+      main_metrics_600.csv and the video (or its frames) exist; then
+      --render_only --render_test must reproduce the last test set's mean
+      PSNR within 0.01 dB and launch tent_contract, and the held-out PSNR
+      must be 3 dB above the seeded field's on the same views (a render-only
+      run that finds no checkpoint); prints the loader's seconds, steps/s,
+      one evaluation's render and metrics seconds, peak memory;
+  (w) NDC: 16 views of a textured plane in LLFF layout (poses_bounds.npy,
+      images/ at 1512x2016, images_8/ at 189x252), configs/fern_tpu.txt
+      (factor 8, llffhold 8, NDC, raw_noise_std 1) for 200 steps at --lrate
+      0.01 with a test set at 200: both kernels launch, the loss falls, the
+      held-out PSNR beats the seeded field's;
+  (x) phase (f)'s configuration in windows of 100 steps through
+      trainer.train (each step's loss read one step late, with the
+      metrics), through the loop's earlier form (losses read at --i_print
+      steps only) and through that form reading every step's loss one step
+      late as trainer.train does, to tell the read's cost apart,
+      three rounds of earlier, per-step, new, new, per-step, earlier in
+      this process: steps/s of each window, medians; and the two ray
+      samplers' host ms per batch.
 
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
@@ -136,8 +165,11 @@ anchor math inside ("path_ms", "path_plain_ms", "path_bound_ms";
 form on that stream; "reductions_from_inputs" and
 "random_reductions_from_inputs" are path_streams.count_group_reductions'
 model of merged groups: scalar with one thread per (group, feature),
-vector by the kernel's rule). The last line is {"ok": true, "device":
-{...}}.
+vector by the kernel's rule). "launches_by_path" gives each path that runs
+a kernel its own count: tent_contract's include the training from files
+and NDC training of (v) and (w), their test sets and render-only run;
+table_scatter's the two training paths. The last line is {"ok": true,
+"device": {...}}.
 """
 
 from __future__ import annotations
@@ -210,6 +242,15 @@ PASS1_RTOL = 1e-2
 BAKED_PSNR_FLOOR = 18.0  # dB
 GUIDED_PSNR_GAP = 4.0  # dB, guided below unguided at most
 LANE_RTOL = 1e-6  # lane_select_grad: sums of <= k terms, of the largest entry
+ROOT = os.path.dirname(os.path.abspath(__file__))
+# (v): configs/lego_tpu.txt on a sphere scene of 32 views of 800x800 (16
+# train, 16 val and test: --testskip 8 holds out 2), 600 steps.
+FILE_VIEWS, FILE_TEST_VIEWS, FILE_STEPS = 32, 2, 600
+# (w): configs/fern_tpu.txt on 16 views of a plane (llffhold 8 holds out 2),
+# full size 1512x2016 (images_8: 189x252), 200 steps.
+NDC_VIEWS, NDC_FULL_HWF, NDC_STEPS = 16, (1512, 2016, 1630.0), 200
+# (x): three rounds of six alternating windows of 100 steps.
+LOOP_STEPS, LOOP_ROUNDS = 100, 3
 # The card's published peaks (H100 SXM): device memory rate, and the f32
 # rate outside the tensor cores, which is the type all seven kernels use.
 HBM_BYTES_PER_S = 3.35e12
@@ -304,14 +345,18 @@ def alternate(torch, plain, kernel, iters, plain_iters=None):
     return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
 
 
+def nvidia_smi() -> str:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
 def phase_device(torch) -> str:
     name = torch.cuda.get_device_name(0)
     print(f"[a] device cuda:0 {name}; {torch.cuda.device_count()} visible; "
           f"torch {torch.__version__}, CUDA {torch.version.cuda}")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    print(f"[a] nvidia-smi: {smi.stdout.strip().splitlines()[0]}")
+    print(f"[a] nvidia-smi: {nvidia_smi()}")
     return name
 
 
@@ -1309,7 +1354,7 @@ def phase_checkpoint_serve(torch, basedir):
     second, text2 = quietly(train, parse_args(flags + loop + [
         "--n_iters", str(total)]))
     seconds = time.perf_counter() - t0
-    files = sorted(os.listdir(first["logdir"]))
+    files = ckpt_files(first["logdir"])
     want = [f"{n:06d}.ckpt" for n in (TRAIN_STEPS // 2, TRAIN_STEPS, total)]
     if files != want:
         raise AssertionError(f"checkpoints {files}, expected {want}")
@@ -1554,6 +1599,319 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
     return launches
 
 
+def ckpt_files(logdir):
+    return sorted(f for f in os.listdir(logdir) if f.endswith(".ckpt"))
+
+
+@contextlib.contextmanager
+def counting_evals(tally):
+    """Within the block, the launches made inside each of the trainer's
+    render_path calls go to ``tally["testset"]`` (calls with ground truth)
+    or ``tally["video"]``, read as the difference of the counts around the
+    call: the training steps' own launches are the rest."""
+    from indoor_nerf_tpu_torch.train import trainer
+
+    real = trainer.render_path
+
+    def counted(*args, **kw):
+        before = launch_counts()
+        out = real(*args, **kw)
+        after = launch_counts()
+        kind = tally.setdefault("testset" if kw.get("gt_imgs") is not None
+                                else "video", dict.fromkeys(after, 0))
+        for k in after:
+            kind[k] += after[k] - before[k]
+        return out
+
+    with mock.patch.object(trainer, "render_path", counted):
+        yield
+
+
+def train_from_files(torch, tag, argv):
+    """``run_nerf.main(argv)`` in its own launch window, quietly: (result,
+    printed text, training launches, test-set launches, peak GiB)."""
+    from indoor_nerf_tpu_torch import run_nerf
+    from indoor_nerf_tpu_torch.train.config import parse_args
+
+    evals = {}
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()  # this path's run starts here
+    with counting_evals(evals):
+        out, text = quietly(run_nerf.main, argv)
+    launches = launch_counts()  # ... and ends here
+    zero = dict.fromkeys(launches, 0)
+    testset, video = evals.get("testset", zero), evals.get("video", zero)
+    training = {k: launches[k] - testset[k] - video[k] for k in launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = np.asarray(out["losses"])
+    first, last = float(losses[:10].mean()), float(losses[-10:].mean())
+    n = len(losses)
+    steps_s = n / (out["seconds"] - out["eval_seconds"])
+    print(f"[{tag}] {n} steps of {parse_args(argv).N_rand} rays: {steps_s:.2f} "
+          f"steps/s without the {out['eval_seconds']:.2f} s of saves, test "
+          f"sets and videos (loop {out['seconds']:.2f} s); scene loaded in "
+          f"{out['load_seconds']:.2f} s; loss mean of the first 10 steps "
+          f"{first:.6f}, last 10 {last:.6f}; training launches "
+          f"{ {k: v for k, v in training.items() if v} }, test sets "
+          f"{ {k: v for k, v in testset.items() if v} }, videos "
+          f"{ {k: v for k, v in video.items() if v} }; peak device memory "
+          f"{peak:.2f} GiB")
+    if not np.all(np.isfinite(losses)):
+        raise AssertionError(f"[{tag}] training loss went non-finite")
+    if not last < first:
+        raise AssertionError(f"[{tag}] loss did not fall: {first} -> {last}")
+    for name in ("tent_contract", "table_scatter"):
+        if training[name] <= 0:
+            raise AssertionError(f"[{tag}] training launched no {name} kernel")
+    if out["testsets"] and testset["tent_contract"] <= 0:
+        raise AssertionError(f"[{tag}] the test sets launched no tent_contract")
+    return out, text, training, testset
+
+
+def render_test(flags):
+    """``--render_only --render_test`` of ``flags`` through run_nerf, in its
+    own launch window: (result, tent_contract launches)."""
+    from indoor_nerf_tpu_torch import run_nerf
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+
+    tc.reset_launch_count()
+    out, _ = quietly(run_nerf.main, flags + ["--render_only", "--render_test"])
+    return out, tc.launch_count()
+
+
+def held_out_gain(tag, trained_psnr, flags, seeded_basedir, gain):
+    """The seeded field's mean PSNR on the same held-out views (a
+    render-only run that finds no checkpoint); fails unless the trained
+    field's is ``gain`` dB above it."""
+    seeded, _ = render_test(flags + ["--basedir", seeded_basedir])
+    if seeded["step"] != 0:
+        raise AssertionError(f"[{tag}] the seeded render resumed a checkpoint")
+    seeded_psnr = float(np.mean(seeded["psnrs"]))
+    print(f"[{tag}] held-out PSNR {trained_psnr:.2f} dB, the seeded field's "
+          f"{seeded_psnr:.2f} dB on the same views")
+    if not trained_psnr >= seeded_psnr + gain:
+        raise AssertionError(f"[{tag}] held-out PSNR {trained_psnr} not "
+                             f"{gain} dB above the seeded {seeded_psnr}")
+
+
+def png_read_ms(scene_dir) -> str:
+    """Host ms of ``read_png`` of one 800x800 RGBA view as written (row
+    filter None) and re-encoded with every row Paeth and with the five
+    filters in turn (what an adaptive encoder such as libpng's writes)."""
+    from indoor_nerf_tpu_torch.utils.png import encode_png, read_png
+
+    path = os.path.join(scene_dir, "train", "r_0.png")
+    img = read_png(path)
+    out = []
+    for label, filt in (("none", 0), ("Paeth", 4),
+                        ("mixed", np.arange(img.shape[0]) % 5)):
+        if label != "none":
+            path = os.path.join(scene_dir, f"r_0_{label}.png")
+            with open(path, "wb") as f:
+                f.write(encode_png(img, filt))
+        t0 = time.perf_counter()
+        if not np.array_equal(read_png(path), img):
+            raise AssertionError(f"[v] read_png of the {label} file differs")
+        out.append(f"{label} {(time.perf_counter() - t0) * 1e3:.1f}")
+    return ("read_png of one 800x800 RGBA view, ms by row filter: "
+            + ", ".join(out))
+
+
+def phase_from_files(torch, workdir) -> dict:
+    """(v) configs/lego_tpu.txt from an 800x800 blender-layout scene:
+    train -> test sets -> render-only. Returns its launches by path."""
+    from indoor_nerf_tpu_torch.data.scene_files import (
+        make_sphere_scene,
+        write_blender_scene,
+    )
+
+    t0 = time.perf_counter()
+    scene_dir = os.path.join(workdir, "lego")
+    write_blender_scene(scene_dir, make_sphere_scene(FILE_VIEWS, 800, 800))
+    print(f"[v] wrote {FILE_VIEWS} views of 800x800 RGBA in blender layout "
+          f"in {time.perf_counter() - t0:.2f} s; {png_read_ms(scene_dir)}")
+    flags = ["--config", os.path.join(ROOT, "configs", "lego_tpu.txt"),
+             "--datadir", scene_dir, "--basedir", os.path.join(workdir, "v"),
+             "--lrate", "0.01"]
+    half = FILE_STEPS // 2
+    out, text, training, testset = train_from_files(torch, "v", flags + [
+        "--n_iters", str(FILE_STEPS), "--i_testset", str(half),
+        "--i_weights", str(half), "--i_video", str(FILE_STEPS)])
+    logdir = out["logdir"]
+    for step in (half, FILE_STEPS):
+        d = os.path.join(logdir, f"testset_{step:06d}")
+        names = sorted(os.listdir(d))
+        if not (len([n for n in names if n.endswith(".png")]) == FILE_TEST_VIEWS
+                and any(n.startswith("test_psnrs_avg") for n in names)):
+            raise AssertionError(f"[v] {d} holds {names}")
+    want = ["best.ckpt", f"{half:06d}.ckpt", f"{FILE_STEPS:06d}.ckpt"]
+    metrics = set(os.listdir(os.path.join(logdir, "metrics")))
+    video = [n for n in os.listdir(logdir) if "_spiral_" in n]
+    if (ckpt_files(logdir) != sorted(want)
+            or not {f"metrics_iter_{FILE_STEPS}.pkl",
+                    f"main_metrics_{FILE_STEPS}.csv"} <= metrics
+            or not any("_rgb" in n for n in video)):
+        raise AssertionError(f"[v] run directory {sorted(os.listdir(logdir))}")
+    last = out["testsets"][-1]
+    print(f"[v] held-out views {FILE_TEST_VIEWS} at 400x400: PSNR "
+          f"{[round(t['psnr'], 3) for t in out['testsets']]} dB at steps "
+          f"{[t['step'] for t in out['testsets']]}; SSIM {last['ssim']:.4f}, "
+          f"GMSD {last['gmsd']:.4f}; one evaluation "
+          f"{last['render_seconds']:.3f} s of render + "
+          f"{last['metrics_seconds']:.3f} s of metrics (SSIM, GMSD on the "
+          f"host); video {video}")
+    shown, shown_launches = render_test(flags)
+    psnr = float(np.mean(shown["psnrs"]))
+    print(f"[v] --render_only --render_test from step {shown['step']}: mean "
+          f"PSNR {psnr:.4f} dB against the last test set's {last['psnr']:.4f}; "
+          f"tent_contract launches {shown_launches}")
+    if shown["step"] != FILE_STEPS or not abs(psnr - last["psnr"]) <= 0.01:
+        raise AssertionError("[v] render-only did not reproduce the test set")
+    if shown_launches <= 0:
+        raise AssertionError("[v] render-only launched no tent_contract")
+    held_out_gain("v", last["psnr"], flags, os.path.join(workdir, "v0"), 3.0)
+    return {"training_from_files": training, "testset": testset,
+            "render_only": shown_launches}
+
+
+def phase_ndc(torch, workdir) -> dict:
+    """(w) configs/fern_tpu.txt (NDC) from an LLFF-layout scene."""
+    from indoor_nerf_tpu_torch.data.scene_files import (
+        make_plane_scene,
+        write_llff_scene,
+    )
+
+    t0 = time.perf_counter()
+    scene_dir = os.path.join(workdir, "fern")
+    H, W, focal = NDC_FULL_HWF
+    write_llff_scene(scene_dir, make_plane_scene(NDC_VIEWS), H, W, focal, 8)
+    print(f"[w] wrote {NDC_VIEWS} views in LLFF layout ({H}x{W} in images/, "
+          f"{H // 8}x{W // 8} in images_8/) in {time.perf_counter() - t0:.2f} s")
+    flags = ["--config", os.path.join(ROOT, "configs", "fern_tpu.txt"),
+             "--datadir", scene_dir, "--basedir", os.path.join(workdir, "w"),
+             "--lrate", "0.01"]
+    out, _, training, _ = train_from_files(torch, "w", flags + [
+        "--n_iters", str(NDC_STEPS), "--i_testset", str(NDC_STEPS)])
+    held_out_gain("w", out["testsets"][-1]["psnr"], flags,
+                  os.path.join(workdir, "w0"), 0.0)
+    return training
+
+
+def loop_seconds(torch, args, read_every_step: bool) -> float:
+    """The trainer's bare step loop, for timing against trainer.train in
+    one process: each step's loss and PSNR stay on the card and only an
+    --i_print step reads them (the loop before the metrics came in), or,
+    with ``read_every_step``, each step's are read one step late as
+    trainer.train and the JAX trainer read them (a pinned copy and an event
+    per step, waited on after the next step is queued). Returns the loop's
+    seconds, closed by a synchronize (trainer.train's ``seconds``)."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
+    from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    scene = load_dataset(args)
+    H, W, _ = scene.hwf
+    cfg = build_train_config(args, scene)
+    device = torch.device(args.device)
+    state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
+                             cfg, device)
+    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
+    sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                                scene.K, args.N_rand, seed=args.seed)
+    losses, pending = [], None
+    t0 = time.perf_counter()
+    for i in range(1, args.n_iters + 1):
+        b = sampler.next()
+        batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
+                 for k in ("rays_o", "rays_d", "target")}
+        state, metrics = train_step(state, batch, cfg, gen)
+        if read_every_step:
+            if pending is not None:
+                pending[1].synchronize()
+                losses.append(pending[0].tolist())
+            done = torch.cuda.Event()
+            vals = torch.stack([metrics["loss"], metrics["psnr"]]).to(
+                "cpu", non_blocking=True)
+            done.record()
+            pending = (vals, done)
+        else:
+            losses.append(metrics["loss"])
+        if i % args.i_print == 0 or i == args.n_iters:
+            print(f"[TRAIN] Iter: {i} Loss: {float(metrics['loss']):.6f} "
+                  f"PSNR: {float(metrics['psnr']):.3f} lr: {metrics['lr']:.3e}")
+    torch.cuda.synchronize(device)
+    return time.perf_counter() - t0
+
+
+def phase_loop_timing(torch) -> None:
+    """(x) phase (f)'s configuration, 200 steps, through trainer.train and
+    through the loop's two earlier forms (``loop_seconds``), in the order
+    earlier, per-step read, new, new, per-step read, earlier."""
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import train
+
+    args = parse_args(SERVE_FLAGS + ["--n_iters", str(LOOP_STEPS),
+                                     "--i_print", "50"])
+    runs = []
+    for form in ("earlier", "per_step", "new", "new", "per_step",
+                 "earlier") * LOOP_ROUNDS:
+        if form == "new":
+            seconds = quietly(train, args)[0]["seconds"]
+        else:
+            seconds = quietly(loop_seconds, torch, args, form == "per_step")[0]
+        runs.append((form, LOOP_STEPS / seconds))
+    rate = {f: [s for g, s in runs if g == f]
+            for f in ("earlier", "per_step", "new")}
+    med = {f: float(np.median(v)) for f, v in rate.items()}
+    print(f"[x] the trainer's loop, windows of {LOOP_STEPS} flagship steps "
+          f"of {args.N_rand} rays, steps/s in order "
+          f"{[(f, round(s, 2)) for f, s in runs]}; medians (min-max): "
+          + "; ".join(f"{f} {med[f]:.2f} ({min(v):.2f}-{max(v):.2f})"
+                      for f, v in rate.items())
+          + f"; trainer.train (each step read one step late) "
+          f"{med['new'] / med['earlier']:.3f} of the earlier loop, every "
+          f"step read one step late {med['per_step'] / med['earlier']:.3f}")
+    print(f"[x] the samplers' host time per batch: {sampler_ms(args)}")
+
+
+def sampler_ms(args) -> dict:
+    """Host ms of one batch of each ray sampler: the shuffled pool at
+    ``args``' scene and N_rand, the image sampler (every view's rays made)
+    at 1024 rays of 400x400 views with lego_tpu's precrop, and its replay of
+    a step (``skip``); the mean of 200 calls over steps 0-995."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.data.pipeline import (
+        BatchedRaySampler,
+        ImageRaySampler,
+    )
+
+    scene = load_dataset(args)
+    H, W, _ = scene.hwf
+    pool = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                             scene.K, args.N_rand)
+    rng = np.random.default_rng(0)
+    images = rng.random((16, 400, 400, 3), dtype=np.float32)
+    K = np.array([[500.0, 0, 200], [0, 500.0, 200], [0, 0, 1]])
+    per_image = ImageRaySampler(images, np.tile(np.eye(4, dtype=np.float32),
+                                                 (16, 1, 1)), np.arange(16),
+                                400, 400, K, 1024, precrop_iters=500)
+    for i in range(16):  # every view's rays made, as after the first steps
+        per_image._rays_for(i)
+    out = {}
+    for name, fn in ((f"pool, {args.N_rand} rays", lambda i: pool.next()),
+                     ("per image, 1024 rays", per_image.next),
+                     # A resume's replay of the image sampler: the draws of
+                     # a step without its rays (in and past the precrop).
+                     ("per image, replayed step", per_image.skip)):
+        fn(0)
+        t0 = time.perf_counter()
+        for i in range(200):
+            fn(i * 5)  # steps 0-995: in the precrop up to 500, then not
+        out[name] = round((time.perf_counter() - t0) / 200 * 1e3, 4)
+    return out
+
+
 def phase_bench(torch) -> None:
     """(h) The training benchmark's JSON line."""
     from indoor_nerf_tpu_torch import bench
@@ -1614,22 +1972,31 @@ def main() -> int:
         del state
         torch.cuda.empty_cache()
         baked_launches = phase_baked_requests(torch, run_flags, scene, basedir)
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as workdir:
+        files = phase_from_files(torch, workdir)
+        ndc_launches = phase_ndc(torch, workdir)
+    phase_loop_timing(torch)
     # "launches" is the count of the path of its slice that runs the
     # kernel (grouped training for tent_contract and group_scatter, strided
     # training for table_scatter, tile-interp training for the tile_interp
     # pair); "launches_by_path" gives every path that runs it its own count,
     # each read from its own reset-then-read window (200, 200, 100 and 100
     # training steps, 3 requests of 800x800, one 256^3 bake, one round of
-    # baked requests). No path runs lane_select: its launches are phase
-    # (o)'s.
+    # baked requests; phase (v)'s 600 steps from files, its two test sets
+    # and its render-only run, phase (w)'s 200 NDC steps). No path runs
+    # lane_select: its launches are phase (o)'s.
     paths = {"training": flat_launches, "training_grouped": group_launches,
              "training_strided": stride_launches,
-             "training_tile_interp": tile_launches}
+             "training_tile_interp": tile_launches,
+             "training_from_files": files["training_from_files"],
+             "training_ndc": ndc_launches}
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items()}
 
     csrc, pallas = "indoor_nerf_tpu_torch/csrc/", "indoor_nerf_tpu/ops/pallas/"
+    print(f"[a] nvidia-smi at the end: {nvidia_smi()}")
     print(json.dumps({"kernels": [
         {"name": "tent_contract", "route": "cuda",
          "source": csrc + "tent_contract.cu",
@@ -1637,6 +2004,8 @@ def main() -> int:
          "launches": group_launches["tent_contract"],
          "launches_by_path": {"serving": serve_launches,
                               **by_path("tent_contract"),
+                              "testset": files["testset"]["tent_contract"],
+                              "render_only": files["render_only"],
                               "bake": bake_launches,
                               "baked_serving": baked_launches},
          **tent},

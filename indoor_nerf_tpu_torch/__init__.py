@@ -8,6 +8,12 @@ index varying fastest), so its tests compare like with like. It imports
 
 The slices ported so far:
 
+- training from files (``run_nerf.py``, ``train/trainer.py``): the
+  shipped ``configs/*_tpu.txt`` scenes through the file loaders
+  (``data/``: blender, LLFF with NDC rays, ScanNet, LINEMOD, DeepVoxels),
+  the image ray sampler, held-out evaluation (``render/path.py``,
+  ``utils/evaluation.py``), the metrics files (``utils/metrics.py``) and
+  ``--render_only``;
 - checkpoints (``utils/checkpoint.py``: save, auto-resume, the import of a
   checkpoint of the JAX package through ``bridge.py``) and baked serving
   (``render/baked.py``: the trained field baked into tile tables, rendered

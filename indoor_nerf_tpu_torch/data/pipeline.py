@@ -1,9 +1,13 @@
 """Host-side ray batches (data/pipeline.py of the JAX package).
 
-``BatchedRaySampler`` is COPIED from the JAX package (:23-76): importing it
-from there pulls in jax through ``ops/rays.py``. The copy draws the same
-batches from the same seed (``tests/test_torch_train_step.py``). The
-per-image sampler (``--no_batching``) comes with ROADMAP.md Queue 1 item 3.
+``BatchedRaySampler`` (the shuffled pool of every training ray) and
+``ImageRaySampler`` (``--no_batching``: one image per step, with the central
+precrop) are COPIED from the JAX package (:23-76, :206-266): importing them
+from there pulls in jax through ``ops/rays.py``. The copies draw the same
+batches from the same seed (``tests/test_torch_train_step.py``,
+``tests/test_torch_loaders.py``). ``ImageRaySampler`` keeps its two pixel
+grids instead of rebuilding one every step, and ``skip`` makes a step's
+draws alone, so that a resumed run replays its sampler quickly.
 """
 
 from __future__ import annotations
@@ -68,4 +72,76 @@ class BatchedRaySampler:
             "rays_d": batch[:, 1],
             "target": batch[:, 2],
             "img_idx": ids,
+        }
+
+
+class ImageRaySampler:
+    """Random-pixels-from-one-image sampler (no_batching mode)."""
+
+    def __init__(
+        self,
+        images: np.ndarray,
+        poses: np.ndarray,
+        i_train: np.ndarray,
+        H: int,
+        W: int,
+        K: np.ndarray,
+        n_rand: int,
+        precrop_iters: int = 0,
+        precrop_frac: float = 0.5,
+        seed: int = 0,
+    ):
+        self.images = images
+        self.poses = poses
+        self.i_train = np.asarray(i_train)
+        self.H, self.W, self.K = H, W, K
+        self.n_rand = n_rand
+        self.precrop_iters = precrop_iters
+        self.precrop_frac = precrop_frac
+        self._rng = np.random.default_rng(seed)
+        # Per-pose ray grids, made on first use (the reference regenerates
+        # them every iteration on device, run_nerf.py:983).
+        self._ray_cache: Dict[int, tuple] = {}
+        # The (row, col) grids of the precrop and of the whole image; the
+        # JAX sampler rebuilds its grid every step, from the same values.
+        dH = int(H // 2 * precrop_frac)
+        dW = int(W // 2 * precrop_frac)
+        self._coords = [
+            np.stack(np.meshgrid(ys, xs, indexing="ij"), -1).reshape(-1, 2)
+            for ys, xs in (
+                (np.arange(H // 2 - dH, H // 2 + dH),
+                 np.arange(W // 2 - dW, W // 2 + dW)),
+                (np.arange(H), np.arange(W)))
+        ]
+
+    def _rays_for(self, img_i: int):
+        if img_i not in self._ray_cache:
+            self._ray_cache[img_i] = get_rays_np(
+                self.H, self.W, self.K, self.poses[img_i][:3, :4]
+            )
+        return self._ray_cache[img_i]
+
+    def _draw(self, step: int):
+        """Step ``step``'s two draws: the image, and its pixels' (row, col)."""
+        img_i = int(self._rng.choice(self.i_train))
+        coords = self._coords[0 if step < self.precrop_iters else 1]
+        select = self._rng.choice(
+            coords.shape[0], size=self.n_rand, replace=False
+        )
+        return img_i, coords[select]
+
+    def skip(self, step: int) -> None:
+        """Advance the generator past step ``step``'s batch, making no rays."""
+        self._draw(step)
+
+    def next(self, step: int) -> Dict[str, np.ndarray]:
+        img_i, sc = self._draw(step)  # sc: [n_rand, 2] (row, col)
+        target = self.images[img_i]
+        rays_o, rays_d = self._rays_for(img_i)
+        return {
+            "rays_o": rays_o[sc[:, 0], sc[:, 1]].astype(np.float32),
+            "rays_d": rays_d[sc[:, 0], sc[:, 1]].astype(np.float32),
+            "target": target[sc[:, 0], sc[:, 1]].astype(np.float32),
+            "spatial_coords": sc.astype(np.float32),
+            "img_idx": np.full(self.n_rand, img_i, np.int32),
         }

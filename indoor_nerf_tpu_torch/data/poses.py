@@ -1,7 +1,8 @@
 """Shared camera-pose helpers (host-side numpy).
 
-``pose_spherical`` and its helpers, copied from indoor_nerf_tpu/data/poses.py
-(whose package imports jax); tests hold the copy identical."""
+``pose_spherical``, ``spherical_render_poses`` and their helpers, copied
+from indoor_nerf_tpu/data/poses.py (whose package imports jax); tests hold
+the copy identical."""
 
 from __future__ import annotations
 
@@ -51,3 +52,15 @@ def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
     )
     return c2w
 
+
+def spherical_render_poses(
+    n: int = 40, phi: float = -30.0, radius: float = 4.0
+) -> np.ndarray:
+    """The standard 40-pose orbit (reference: load_blender.py:76)."""
+    return np.stack(
+        [
+            pose_spherical(angle, phi, radius)
+            for angle in np.linspace(-180, 180, n + 1)[:-1]
+        ],
+        0,
+    )

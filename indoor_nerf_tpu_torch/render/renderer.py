@@ -19,7 +19,7 @@ from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.models.field import FieldConfig, query_field, serving_params
 from indoor_nerf_tpu_torch.ops.occupancy import OccState, OccupancyConfig, occupancy_z_vals
-from indoor_nerf_tpu_torch.ops.rays import get_rays
+from indoor_nerf_tpu_torch.ops.rays import get_rays, ndc_rays
 from indoor_nerf_tpu_torch.ops.sampling import draw_pdf_u, draw_stratified, stratified_z_vals
 from indoor_nerf_tpu_torch.ops.volume import draw_sigma_noise, raw2outputs
 
@@ -133,18 +133,19 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     return out
 
 
-def _prepare_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, near: float,
-                  far: float, config: RenderConfig
+def _prepare_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, H: int,
+                  W: int, focal: float, near: float, far: float,
+                  config: RenderConfig
                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
                              torch.Tensor, torch.Tensor]:
-    """Unit viewdirs + flat rays + per-ray bounds (no NDC yet)."""
-    if config.ndc:
-        raise NotImplementedError(
-            "NDC rays come with ROADMAP.md Queue 1 item 4 (the parity path)")
+    """Unit viewdirs (of the world rays) + the NDC projection where
+    ``config.ndc`` + flat rays + per-ray bounds (JAX renderer.py:205-227)."""
     viewdirs = None
     if config.field.use_viewdirs:
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
         viewdirs = viewdirs.reshape(-1, 3)
+    if config.ndc:
+        rays_o, rays_d = ndc_rays(H, W, focal, 1.0, rays_o, rays_d)
     rays_o = rays_o.reshape(-1, 3)
     rays_d = rays_d.reshape(-1, 3)
     near_a = near * torch.ones_like(rays_d[..., :1])
@@ -193,7 +194,7 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
     rays_o = torch.stack([r[0] for r in rays])
     rays_d = torch.stack([r[1] for r in rays])
     rays_o, rays_d, viewdirs, near_a, far_a = _prepare_rays(
-        rays_o, rays_d, near, far, config)
+        rays_o, rays_d, H, W, float(K[0][0]), near, far, config)
     test_cfg = config.test_mode()
     outs = {k: [] for k in MAP_KEYS}
     for s in range(0, rays_o.shape[0], tile_rays):

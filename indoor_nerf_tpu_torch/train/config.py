@@ -304,10 +304,11 @@ def build_parser() -> argparse.ArgumentParser:
     add("--use_pallas", action="store_true",
         help="use the fused Pallas hash-encode kernel where available")
     add("--profile_dir", type=str, default=None,
-        help="capture a jax.profiler trace of the train loop into this dir")
+        help="write a torch.profiler trace of training steps start+10 .. "
+             "start+210 into this dir")
     add("--debug_nans", action="store_true",
-        help="enable jax_debug_nans (the reference's DEBUG NaN scan / "
-             "detect_anomaly analogue)")
+        help="torch.autograd anomaly detection, and a finiteness check of "
+             "every step's outputs that raises at the first non-finite one")
     add("--flagship", action="store_true",
         help="apply the measured-fastest TPU training preset (i_embed 3 "
              "block-hash, block_size 3, bf16 table IO, occupancy-guided "

@@ -11,7 +11,7 @@ returns it. Scalars that the host needs only for printing (losses, PSNR)
 stay on the device, so a step never waits for the card.
 
 Off this path, with the ROADMAP.md Queue 1 item that brings each: the
-hierarchical fine pass and NDC (item 4), structural priors, A-CAQ,
+hierarchical fine pass (item 4), structural priors, A-CAQ,
 distortion, table decay, EMA, reg patches and appearance latents (item 5).
 The CLI refuses their flags (``train/trainer.py``).
 """
@@ -33,6 +33,7 @@ from indoor_nerf_tpu_torch.ops.occupancy import (
     init_occupancy,
     occupancy_update,
 )
+from indoor_nerf_tpu_torch.ops.rays import ndc_rays
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig, draw_render, render_rays
 from indoor_nerf_tpu_torch.train.optim import (
     exp_decay_lr,
@@ -57,6 +58,9 @@ class TrainConfig:
     render: RenderConfig
     near: float = 2.0
     far: float = 6.0
+    # (H, W, focal) of the scene where ``render.ndc``: the batch's world
+    # rays are projected into NDC with them (JAX train/step.py:197-212).
+    ndc_hwf: Optional[Tuple[int, int, float]] = None
     n_rand: int = 1024
     lrate: float = 0.01
     lrate_decay: int = 250  # in thousands of steps
@@ -140,7 +144,16 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     viewdirs = None
     if fc.use_viewdirs:
+        # From the world rays, before the NDC projection (reference order:
+        # run_nerf.py:119-131).
         viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    if rc.ndc:
+        if config.ndc_hwf is None:
+            raise ValueError(
+                "render.ndc=True needs TrainConfig.ndc_hwf=(H, W, focal) "
+                "to project training ray batches into NDC")
+        Hn, Wn, focal_n = config.ndc_hwf
+        rays_o, rays_d = ndc_rays(Hn, Wn, focal_n, 1.0, rays_o, rays_d)
     near = config.near * torch.ones_like(rays_d[..., :1])
     far = config.far * torch.ones_like(rays_d[..., :1])
 

@@ -1,39 +1,47 @@
-"""The training entry point (train/trainer.py of the JAX package, its
-flagship subset) and the static config assembly that serving shares.
+"""The training entry point (train/trainer.py of the JAX package: the loop of
+its ``train``, without the multi-device and training-extension parts) and
+the static config assembly that serving shares.
 
+    python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego_tpu.txt \
+        --datadir DIR
     python -m indoor_nerf_tpu_torch.train.trainer -- --flagship \
         --dataset_type synthetic --use_viewdirs --white_bkgd --n_iters 200
 
 trains on the CUDA card (``--device cuda``, the default; the encode then
 runs the hand-written ``tent_contract`` kernel, and its backward
 ``table_scatter``, or ``group_scatter`` with ``--ray_groups``) or, with
-``--device cpu``, on the CPU, and prints loss and PSNR every ``--i_print``
-steps. With no card visible and no ``--device cpu`` it raises.
-``--ray_groups`` and ``--ray_strides`` (one value per level) select the
-ray-structured encodes. ``--use_pallas`` selects the tile-interp route of
-the encode (a row gather under autograd and the hand-written ``tile_interp``
-kernels) where the JAX package applies it: ``--block_size 4`` and
-``--block_io f32``, e.g.
+``--device cpu``, on the CPU. With no card visible and no ``--device cpu``
+it raises. Scenes come from ``data/load.py`` (blender, llff with NDC rays,
+scannet, and the synthetic ones); rays from the shuffled pool of every
+training ray, or with ``--no_batching`` one image per step
+(``--precrop_iters``, ``--precrop_frac``). ``--ray_groups`` and
+``--ray_strides`` (one value per level) select the ray-structured
+encodes; ``--use_pallas`` the tile-interp route of the encode (a row gather
+under autograd and the hand-written ``tile_interp`` kernels) where the JAX
+package applies it: ``--block_size 4`` and ``--block_io f32``.
 
-    python -m indoor_nerf_tpu_torch.train.trainer -- --i_embed 3 \
-        --use_pallas --use_occupancy --N_importance 0 --occ_samples 32 \
-        --occ_weighting transmittance --dataset_type synthetic \
-        --use_viewdirs --white_bkgd
-
-Checkpoints go to ``<--basedir>/<mangle_expname(args)>/{step:06d}.ckpt``
-every ``--i_weights`` steps and at the end; a later call with the same
-flags resumes from the newest (``--no_reload`` starts afresh, ``--ft_path``
-names one file, which may be a checkpoint of the JAX package). The expname
-is mangled with the hyper-parameters, so a changed ``--lrate`` or
-``--finest_res`` resolves to a fresh directory. Test renders, videos and
-the metrics files come with ROADMAP.md Queue 1 item 3b: ``train`` names, in
-one line before the loop, every flag of that item that was set and does
-nothing.
+With ``--expname`` a run writes into ``<--basedir>/<mangle_expname(args)>/``
+what the JAX trainer writes: ``args.txt``, ``config.txt``, checkpoints
+``{step:06d}.ckpt`` every ``--i_weights`` steps and at the end (a later call
+with the same flags resumes from the newest; ``--no_reload`` starts afresh,
+``--ft_path`` names one file, which may be a checkpoint of the JAX
+package), ``metrics/`` (``utils/metrics.py``), ``training_metrics.pkl`` and
+``loss_vs_time.pkl`` every ``--i_print`` steps, ``testset_{step:06d}/``
+every ``--i_testset`` steps (a figure and the PSNR of each held-out view,
+``test_psnrs_avg*.pkl``; SSIM, GMSD and LPIPS where it has weights go to
+the metrics; ``best.ckpt`` whenever the held-out PSNR is a new best) and
+the render-path video every ``--i_video`` steps. ``--render_only`` renders
+the render path (or, with ``--render_test``, the held-out views) from the
+newest checkpoint into ``renderonly_{path|test}_{step:06d}/``, through the
+baked renderer with ``--render_baked``. The expname is mangled with the
+hyper-parameters, so a changed ``--lrate`` or ``--finest_res`` resolves to
+a fresh directory. Without ``--expname`` nothing is written or resumed.
 """
 
 from __future__ import annotations
 
 import os
+import pickle
 import sys
 import time
 from typing import Dict, Optional, Tuple
@@ -42,20 +50,29 @@ import numpy as np
 import torch
 
 from indoor_nerf_tpu_torch import resolve_device
+from indoor_nerf_tpu_torch.data.images import installed
 from indoor_nerf_tpu_torch.data.load import SceneData, load_dataset
-from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
+from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler, ImageRaySampler
 from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
+from indoor_nerf_tpu_torch.render.path import render_path, write_video
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
-from indoor_nerf_tpu_torch.train.config import build_parser, parse_args
+from indoor_nerf_tpu_torch.train.config import parse_args
 from indoor_nerf_tpu_torch.train.step import (
     TrainConfig,
     draw_step,
     init_train_state,
     train_step,
 )
-from indoor_nerf_tpu_torch.utils.checkpoint import maybe_resume, save_checkpoint
+from indoor_nerf_tpu_torch.train.optim import named_leaves
+from indoor_nerf_tpu_torch.utils.checkpoint import (
+    maybe_resume,
+    save_best_checkpoint,
+    save_checkpoint,
+)
+from indoor_nerf_tpu_torch.utils.evaluation import ComprehensiveEvaluator
+from indoor_nerf_tpu_torch.utils.metrics import MetricsLogger
 
 _ITEM5 = "Queue 1 item 5 (training extensions)"
 # Flags whose non-default value changes the model or the step, with the
@@ -74,23 +91,13 @@ _UNPORTED = (
     ("view_anneal_iters", 0, _ITEM5),
 )
 # Flags of the training loop only, refused by ``train``.
-_ITEM3B = "Queue 1 item 3b (the rest of the training loop)"
+_ITEM8 = "Queue 1 item 8 (multi-device)"
 _UNPORTED_LOOP = (
-    ("no_batching", False, _ITEM3B),
-    ("render_only", False, _ITEM3B),
-    ("profile_dir", None, _ITEM3B),
-    ("debug_nans", False, _ITEM3B),
-    ("multihost", False, "Queue 1 item 8 (multi-device)"),
-    ("mesh_shape", None, "Queue 1 item 8 (multi-device)"),
+    ("multihost", False, _ITEM8),
+    ("mesh_shape", None, _ITEM8),
 )
-# Flags of the training loop that are parsed and have no effect yet: ``train``
-# names those set away from the parser's default, with their item.
-_IDLE_LOOP = (
-    ("i_testset", _ITEM3B),
-    ("i_video", _ITEM3B),
-    ("i_img", _ITEM3B),
-    ("render_factor", _ITEM3B),
-)
+MILESTONES = (15, 20, 25, 30, 35)  # training PSNR, dB (JAX trainer.py:55)
+PROFILE_FIRST, PROFILE_LAST = 10, 210  # --profile_dir: steps start + these
 
 
 def _per_level(arg):
@@ -102,14 +109,6 @@ def _refuse(args, flags) -> None:
     for flag, default, item in flags:
         if getattr(args, flag, default) != default:
             raise NotImplementedError(f"--{flag} comes with ROADMAP.md {item}")
-
-
-def idle_loop_flags(args) -> Tuple[Tuple[str, str], ...]:
-    """``(flag, ROADMAP item)`` for every flag of ``_IDLE_LOOP`` that
-    ``args`` holds away from the parser's default."""
-    defaults = build_parser()
-    return tuple((flag, item) for flag, item in _IDLE_LOOP
-                 if getattr(args, flag) != defaults.get_default(flag))
 
 
 def mangle_expname(args) -> str:
@@ -172,9 +171,6 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
     if scene.bounding_box is None:
         raise ValueError(f"dataset {args.dataset_type} provides no bounding "
                          "box; the block-hash grid needs one")
-    if scene.ndc and not args.no_ndc:
-        raise NotImplementedError(
-            "NDC rays come with ROADMAP.md Queue 1 item 4 (the parity path)")
 
     n_levels = args.n_levels
     feats_per_level = args.feats_per_level
@@ -234,7 +230,7 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         lindisp=args.lindisp,
         white_bkgd=args.white_bkgd,
         raw_noise_std=args.raw_noise_std,
-        ndc=False,
+        ndc=scene.ndc and not args.no_ndc,
         occupancy=occupancy,
         n_occ_samples=args.occ_samples,
     )
@@ -242,6 +238,8 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         render=render,
         near=scene.near,
         far=scene.far,
+        ndc_hwf=((int(scene.hwf[0]), int(scene.hwf[1]), float(scene.hwf[2]))
+                 if render.ndc else None),
         n_rand=args.N_rand,
         lrate=args.lrate,
         lrate_decay=args.lrate_decay,
@@ -264,89 +262,434 @@ def one_batch(args, device, seed=None):
                  for k in ("rays_o", "rays_d", "target")}
 
 
+def _write_run_files(args, logdir: str) -> None:
+    """``args.txt`` (every flag, with the mangled expname) and
+    ``config.txt`` (a copy of ``--config``), as JAX trainer.py:278-285."""
+    os.makedirs(logdir, exist_ok=True)
+    values = dict(vars(args), expname=os.path.basename(logdir))
+    with open(os.path.join(logdir, "args.txt"), "w") as f:
+        for arg in sorted(values):
+            f.write(f"{arg} = {values[arg]}\n")
+    if args.config is not None:
+        with open(args.config) as src, \
+                open(os.path.join(logdir, "config.txt"), "w") as f:
+            f.write(src.read())
+
+
+def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
+                 logdir: Optional[str]) -> Dict:
+    """``--render_only`` (JAX trainer.py:297-401): the render path, or with
+    ``--render_test`` the held-out views against their images, from the
+    state resumed, into ``renderonly_{path|test}_{step:06d}/`` with its
+    video; through a bake of the field and the baked renderer with
+    ``--render_baked``. Returns the step, the PSNRs, the directory and the
+    video."""
+    start = int(state["step"])
+    print("RENDER ONLY")
+    if start == 0:
+        print(
+            "⚠️  render_only found NO checkpoint in "
+            f"{logdir} — rendering from random init. The expname "
+            "mangling encodes hyperparameters (lr/decay/res/...); pass "
+            "the SAME flags as the training run, or use --ft_path."
+        )
+    gt = scene.images[scene.i_test] if args.render_test else None
+    savedir = None
+    if logdir is not None:
+        savedir = os.path.join(logdir, "renderonly_{}_{:06d}".format(
+            "test" if args.render_test else "path", start))
+        os.makedirs(savedir, exist_ok=True)
+    print("test poses shape", scene.render_poses.shape)
+    image_renderer = None
+    if args.render_baked:
+        from indoor_nerf_tpu_torch.models.field import serving_params
+        from indoor_nerf_tpu_torch.render.baked import (
+            bake_field,
+            make_baked_image_renderer,
+        )
+        from indoor_nerf_tpu_torch.serve import train_cameras
+
+        Hb, Wb, _ = scene.hwf
+        if args.render_factor != 0:
+            Hb //= args.render_factor
+            Wb //= args.render_factor
+        print(f"[baked] baking at {args.render_baked_res}^3 ...")
+        baked = bake_field(
+            serving_params(state["params"], cfg.render.field),
+            cfg.render.field, resolution=args.render_baked_res,
+            train_cameras=train_cameras(scene),
+            geo_resolution=args.render_baked_geo_res)
+        g = args.render_guided
+        image_renderer = make_baked_image_renderer(
+            baked, int(Hb), int(Wb), n_samples=(16 if g else 128), guided=g,
+            n_coarse=64)
+    rgbs, _, psnrs = render_path(
+        scene.render_poses, scene.hwf, scene.K, cfg.render.test_mode(),
+        state["params"], scene.near, scene.far, gt_imgs=gt, savedir=savedir,
+        render_factor=args.render_factor, occ_state=state["occ"],
+        image_renderer=image_renderer)
+    print("Done rendering", savedir)
+    video = (write_video(os.path.join(savedir, "video.mp4"), rgbs)
+             if savedir is not None else None)
+    return {"step": start, "psnrs": psnrs, "savedir": savedir, "video": video}
+
+
+def _check_finite(i: int, metrics: Dict, state: Dict) -> None:
+    """``--debug_nans``: raise at the first non-finite loss or parameter
+    after step ``i`` (the outputs of the step, read at once)."""
+    outputs = {"loss": metrics["loss"], "img_loss": metrics["img_loss"]}
+    outputs.update({f"params.{k}": v
+                    for k, v in named_leaves(state["params"]).items()})
+    for name, t in outputs.items():
+        if not bool(torch.isfinite(t).all()):
+            raise FloatingPointError(
+                f"--debug_nans: non-finite {name} after iteration {i}")
+
+
 def train(args) -> Dict:
-    """Train up to step ``args.n_iters`` on the batched ray sampler.
+    """Train up to step ``args.n_iters`` (the loop of JAX trainer.py:234-866
+    for what the port runs), or render with ``--render_only``.
 
     Resumes from the newest checkpoint of the run's directory (``resume``)
     and goes on from its step: the ray sampler and the generator of the
     draws are not part of a checkpoint, so both are advanced by the resumed
-    step count (the sampler's batches and ``draw_step``'s draws of steps 0
-    .. step - 1 are made and dropped). A resumed run therefore takes the
-    batches and draws the uninterrupted run takes, also from a checkpoint
-    of the JAX package. Saves every ``--i_weights`` steps, at the end, and
-    before raising on a non-finite loss.
+    step count (the draws of steps 1 .. step are made and dropped; the
+    image sampler of ``--no_batching`` makes its draws and no rays). A
+    resumed run therefore takes the batches and draws the uninterrupted run
+    takes, also from a checkpoint of the JAX package.
 
-    Returns {"losses": [...], "psnrs": [...] per step taken, "seconds" of
-    the step loop (closed by a device synchronize), "state", "logdir"}."""
+    Each step's loss and PSNR are read one step late, as JAX reads them
+    (:705-722), and logged as JAX logs them (:585-668): they are copied to
+    the host without blocking as the step is queued, and read once the next
+    step is queued, waiting only for the step they belong to (a blocking
+    read would wait for the next step too); a step that prints, saves,
+    renders or ends the run reads its own at once. On the card this read
+    costs nothing that ten alternating rounds can resolve (``PERF.md`` §6,
+    ``chip_smoke.py`` phase x). A non-finite loss saves the state of the
+    newest step, named by its own step, and raises.
+    ``--debug_nans`` turns on ``torch.autograd`` anomaly detection (which
+    names the backward op that made a NaN, and the forward op behind it)
+    and checks the loss and every parameter after each step, raising at the
+    first non-finite one; JAX's ``jax_debug_nans`` instead re-runs the
+    jitted step op by op and stops inside the forward at the op that made
+    the NaN, and lets an inf pass.
+
+    Returns the JAX trainer's ``time_metrics`` keys, and ``losses`` and
+    ``psnrs`` per step taken, ``seconds`` of the step loop (closed by a
+    device synchronize; ``eval_seconds`` of it went to the periodic saves,
+    test sets and videos), ``load_seconds`` of the scene's loading, ``testsets`` (step,
+    mean PSNR, SSIM, GMSD, the seconds of the render and of the metrics, per
+    ``--i_testset`` evaluation), ``state`` and ``logdir``; with
+    ``--render_only``, ``_render_only``'s dict."""
     _refuse(args, _UNPORTED_LOOP)
+    if args.render_only and args.render_test and args.render_fit_appearance:
+        raise NotImplementedError(
+            f"--render_fit_appearance comes with ROADMAP.md {_ITEM5}")
+    t_load = time.perf_counter()
     scene = load_dataset(args)
+    load_seconds = time.perf_counter() - t_load
+    print(f"[data] {args.dataset_type} scene of {len(scene.images)} "
+          f"{scene.images.shape[1]}x{scene.images.shape[2]} views loaded in "
+          f"{load_seconds:.2f} s")
     H, W, _ = scene.hwf
     cfg = build_train_config(args, scene)
     device = resolve_device(args.device)
+    logdir = logdir_of(args)
+    if logdir is not None:
+        _write_run_files(args, logdir)
     state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
                              cfg, device)
-    logdir = logdir_of(args)
     state = resume(args, state, args.no_reload)
+    if args.render_only:
+        return _render_only(args, scene, cfg, state, logdir)
     start = int(state["step"])
+    metrics_logger = MetricsLogger(
+        args.basedir, os.path.basename(logdir or ""),
+        dict(vars(args), expname=os.path.basename(logdir or "")),
+        write=logdir is not None)
+    evaluator = ComprehensiveEvaluator()
+    test_config = cfg.render.test_mode()
+
     # The JAX trainer's per-step keys split from PRNGKey(seed + 1).
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                                scene.K, args.N_rand, seed=args.seed)
+    if args.no_batching:
+        sampler = ImageRaySampler(
+            scene.images, scene.poses, scene.i_train, H, W, scene.K,
+            args.N_rand, precrop_iters=args.precrop_iters,
+            precrop_frac=args.precrop_frac, seed=args.seed)
+        sample, skip = sampler.next, sampler.skip
+    else:
+        sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train,
+                                    H, W, scene.K, args.N_rand, seed=args.seed)
+        sample = skip = lambda i: sampler.next()
+    t_replay = time.perf_counter()
     for s in range(start):
-        sampler.next()
+        skip(s + 1)
         draw_step(gen, cfg, s, args.N_rand)
+    if start:
+        print(f"replayed the sampler and the draws of {start} steps in "
+              f"{time.perf_counter() - t_replay:.2f} s")
     n_steps = max(0, args.n_iters - start)
     print(f"training {n_steps} steps (from step {start}) of {args.N_rand} "
-          f"rays on {device}; TRAIN views {scene.i_train.tolist()}")
+          f"rays on {device}; TRAIN views {scene.i_train.tolist()}, TEST "
+          f"views {scene.i_test.tolist()}")
     if logdir is None:
         print("[TRAIN] no --expname: no checkpoint is written or resumed")
-    idle = idle_loop_flags(args)
-    if idle:
-        print("[TRAIN] set and without effect yet: "
-              + ", ".join(f"--{flag} (ROADMAP.md {item})" for flag, item in idle))
-    losses, psnrs = [], []
+    elif args.i_video <= args.n_iters and not installed("imageio"):
+        print("[video] imageio is not installed: videos are written as PNG "
+              "frames (<name>_frames/)")
+
+    loss_list, psnr_list, time_list = [], [], []  # at --i_print steps
+    losses, psnrs, testsets = [], [], []  # every step; every test set
+    best_test_psnr = -np.inf
+    time_metrics = {
+        "start_time": time.time(),
+        "structural_priors_start_time": None,
+        "milestones": {},
+        "convergence_time": None,
+        "iterations_per_second": [],
+        "time_to_milestones": {},
+        "baseline_comparison": {
+            "time_to_20db": None, "time_to_25db": None, "time_to_30db": None,
+        },
+    }
+    time0 = time.time()
+    last_processed = time.time()
+
+    def queue_read(i: int, metrics: Dict):
+        """Step ``i``'s loss and PSNR on their way to the host, and the
+        event of their copy (None on the CPU)."""
+        vals = torch.stack([metrics["loss"], metrics["psnr"]]).to(
+            "cpu", non_blocking=True)
+        done = None
+        if device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record()
+        return i, vals, done, metrics["lr"]
+
+    def process_metrics(pending) -> Tuple[float, float]:
+        """JAX trainer.py:585-668 for a step queued by ``queue_read``.
+        Returns its (loss, psnr)."""
+        nonlocal last_processed
+        i, vals, done, lr = pending
+        if done is not None:
+            done.synchronize()
+        loss, psnr = vals.tolist()
+        now = time.time()
+        if not np.isfinite(loss):
+            saved = ("no checkpoint (no --expname)" if logdir is None else
+                     f"state of step {state['step']} saved to "
+                     f"{save_checkpoint(logdir, int(state['step']), state)}")
+            raise FloatingPointError(
+                f"non-finite loss {loss} at iteration {i}; {saved}. "
+                "Re-run with --debug_nans to locate the op.")
+        metrics_logger.log_iteration(i, now - time0, loss, psnr, lr)
+        losses.append(loss)
+        psnrs.append(psnr)
+        dt = now - last_processed
+        time_metrics["iterations_per_second"].append(1.0 / dt if dt > 0 else 0)
+        last_processed = now
+        for milestone in MILESTONES:
+            mkey = f"{milestone}db"
+            if psnr >= milestone and mkey not in time_metrics["milestones"]:
+                mt = now - time_metrics["start_time"]
+                time_metrics["milestones"][mkey] = {
+                    "iteration": i, "time_seconds": mt, "time_minutes": mt / 60.0,
+                }
+                bc = time_metrics["baseline_comparison"]
+                if f"time_to_{milestone}db" in bc:
+                    bc[f"time_to_{milestone}db"] = mt / 60.0
+                print(f"🎯 MILESTONE: Reached {milestone} dB PSNR at iteration "
+                      f"{i} ({mt/60:.2f} min)")
+        if (i > 2000 and len(psnr_list) > 100
+                and time_metrics["convergence_time"] is None):
+            recent = psnr_list[-100:]
+            if np.std(recent) < 0.5 and abs(recent[-1] - recent[0]) < 0.5:
+                ct = now - time_metrics["start_time"]
+                time_metrics["convergence_time"] = ct / 60.0
+                print(f"📊 CONVERGENCE DETECTED at iteration {i} "
+                      f"({ct/60:.1f} min)")
+        return loss, psnr
+
+    profiler = None
+    eval_seconds = 0.0
     saved_at = start  # the state of a step that took none is its file's
+    pending = None  # the last step queued and not read yet
     t0 = time.perf_counter()
-    for i in range(start + 1, args.n_iters + 1):
-        b = sampler.next()
-        batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
-                 for k in ("rays_o", "rays_d", "target")}
-        state, metrics = train_step(state, batch, cfg, gen)
-        losses.append(metrics["loss"])
-        psnrs.append(metrics["psnr"])
-        if i % args.i_print == 0 or i == args.n_iters:
-            loss = float(metrics["loss"])
-            if not np.isfinite(loss):
-                saved = ("no checkpoint (no --expname)" if logdir is None else
-                         f"state saved to {save_checkpoint(logdir, i, state)}")
-                raise FloatingPointError(
-                    f"non-finite loss {loss} at iteration {i}; {saved}")
-            print(f"[TRAIN] Iter: {i} Loss: {loss:.6f} "
-                  f"PSNR: {float(metrics['psnr']):.3f} lr: {metrics['lr']:.3e}")
-        if logdir is not None and args.i_weights > 0 and i % args.i_weights == 0:
-            print("Saved checkpoints at", save_checkpoint(logdir, i, state))
-            saved_at = i
+    with torch.autograd.set_detect_anomaly(args.debug_nans):
+        for i in range(start + 1, args.n_iters + 1):
+            if args.profile_dir and i == start + PROFILE_FIRST:
+                profiler = torch.profiler.profile(activities=(
+                    [torch.profiler.ProfilerActivity.CPU]
+                    + [torch.profiler.ProfilerActivity.CUDA]
+                    * (device.type == "cuda")))
+                profiler.start()
+            b = sample(i)
+            batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
+                     for k in ("rays_o", "rays_d", "target")}
+            state, metrics = train_step(state, batch, cfg, gen)
+            if args.debug_nans:
+                _check_finite(i, metrics, state)
+            if profiler is not None and (i == start + PROFILE_LAST
+                                         or i == args.n_iters):
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                profiler.stop()
+                os.makedirs(args.profile_dir, exist_ok=True)
+                trace = os.path.join(args.profile_dir, "trace.json")
+                profiler.export_chrome_trace(trace)
+                print(f"[profile] steps {start + PROFILE_FIRST}-{i} traced "
+                      f"to {trace}")
+                profiler = None
+
+            # Step i-1's metrics while step i runs (JAX trainer.py:705-722).
+            if pending is not None:
+                loss, psnr = process_metrics(pending)
+            pending = queue_read(i, metrics)
+            due = {name: every > 0 and i % every == 0 for name, every in (
+                ("weights", args.i_weights), ("print", args.i_print),
+                ("video", args.i_video), ("testset", args.i_testset))}
+            if any(due.values()) or i == args.n_iters:
+                loss, psnr = process_metrics(pending)
+                pending = None
+            t = time.time() - time0
+
+            if due["weights"] and logdir is not None:
+                t_eval = time.perf_counter()
+                print("Saved checkpoints at", save_checkpoint(logdir, i, state))
+                saved_at = i
+                metrics_logger.save_checkpoint(i)
+                metrics_logger.plot_training_curves()
+                eval_seconds += time.perf_counter() - t_eval
+
+            if due["video"] and logdir is not None:
+                t_eval = time.perf_counter()
+                rgbs, disps, _ = render_path(
+                    scene.render_poses, scene.hwf, scene.K, test_config,
+                    state["params"], scene.near, scene.far,
+                    occ_state=state["occ"], save_figures=False)
+                print("Done, saving", rgbs.shape, disps.shape)
+                moviebase = os.path.join(logdir, "{}_spiral_{:06d}_".format(
+                    os.path.basename(logdir), i))
+                write_video(moviebase + "rgb.mp4", rgbs)
+                write_video(moviebase + "disp.mp4",
+                            disps / max(np.max(disps), 1e-8))
+                eval_seconds += time.perf_counter() - t_eval
+
+            if due["testset"] and len(scene.i_test) > 0:
+                t_eval = time.perf_counter()
+                testsavedir = None
+                if logdir is not None:
+                    testsavedir = os.path.join(logdir, f"testset_{i:06d}")
+                    os.makedirs(testsavedir, exist_ok=True)
+                print("test poses shape", scene.poses[scene.i_test].shape)
+                rgbs, _, view_psnrs = render_path(
+                    scene.poses[scene.i_test], scene.hwf, scene.K,
+                    test_config, state["params"], scene.near, scene.far,
+                    gt_imgs=scene.images[scene.i_test], savedir=testsavedir,
+                    occ_state=state["occ"])
+                print("Saved test set")
+                t_metrics = time.perf_counter()
+                avg = sum(view_psnrs) / len(view_psnrs)
+                evals = [evaluator.evaluate_image(r, g)
+                         for r, g in zip(rgbs, scene.images[scene.i_test])]
+                lpips_vals = [e["lpips"] for e in evals if "lpips" in e]
+                ssim = float(np.mean([e["ssim"] for e in evals]))
+                gmsd = float(np.mean([e["lpips_proxy"] for e in evals]))
+                metrics_logger.log_test_metrics(
+                    i, avg, ssim=ssim,
+                    lpips=float(np.mean(lpips_vals)) if lpips_vals else None,
+                    lpips_proxy=gmsd)
+                print(f"Logged test PSNR: {avg:.2f}")
+                if avg > best_test_psnr:
+                    best_test_psnr = avg
+                    if logdir is not None:
+                        print(f"[best] new best held-out {avg:.2f} dB -> "
+                              f"{save_best_checkpoint(logdir, state)}")
+                now = time.perf_counter()
+                testsets.append({"step": i, "psnr": avg, "ssim": ssim,
+                                 "gmsd": gmsd,
+                                 "render_seconds": t_metrics - t_eval,
+                                 "metrics_seconds": now - t_metrics})
+                eval_seconds += now - t_eval
+
+            if due["print"] or i == args.n_iters:
+                print(f"[TRAIN] Iter: {i} Loss: {loss:.6f} PSNR: {psnr:.3f} "
+                      f"lr: {metrics['lr']:.3e}")
+            if due["print"]:
+                loss_list.append(loss)
+                psnr_list.append(psnr)
+                time_list.append(t)
+                if logdir is not None:
+                    _write_training_pickles(args, logdir, loss_list,
+                                            psnr_list, time_list, time_metrics)
+                if i % 1000 == 0:
+                    elapsed = (time.time() - time_metrics["start_time"]) / 60.0
+                    ips = np.mean(time_metrics["iterations_per_second"][-100:])
+                    print(f"\n📊 Time Efficiency Summary @ {i} iterations:")
+                    print(f"   Total Time: {elapsed:.1f} minutes")
+                    print(f"   Average Speed: {ips:.2f} it/s")
+                    for mkey, data in time_metrics["milestones"].items():
+                        print(f"     {mkey}: {data['time_minutes']:.2f} min "
+                              f"(iter {data['iteration']})")
+                    print()
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     seconds = time.perf_counter() - t0
     if n_steps:
-        print(f"{n_steps} steps in {seconds:.2f} s "
-              f"({n_steps / seconds:.2f} steps/s, "
-              f"{n_steps * args.N_rand / seconds:.0f} rays/s); test renders "
-              "come with ROADMAP.md Queue 1 item 3b")
-    if logdir is not None and saved_at != state["step"]:
-        print("Saved checkpoints at",
-              save_checkpoint(logdir, int(state["step"]), state))
-    return {"losses": [float(v) for v in losses],
-            "psnrs": [float(v) for v in psnrs],
-            "seconds": seconds, "state": state, "logdir": logdir}
+        train_s = max(seconds - eval_seconds, 1e-9)
+        print(f"{n_steps} steps in {seconds:.2f} s, {eval_seconds:.2f} s of "
+              f"it in saves, test sets and videos ({n_steps / train_s:.2f} "
+              f"steps/s, {n_steps * args.N_rand / train_s:.0f} rays/s "
+              "without them)")
+    final_step = int(state["step"])
+    if logdir is not None:
+        if saved_at != final_step:
+            print("Saved checkpoints at",
+                  save_checkpoint(logdir, final_step, state))
+        metrics_logger.save_checkpoint(final_step)
+        metrics_logger.plot_training_curves()
+    summary = metrics_logger.generate_summary_table()
+    print("\n=== Training Summary ===")
+    for row in summary:
+        print("  ".join(f"{k}: {v}" for k, v in row.items()))
+    return {**time_metrics, "losses": losses, "psnrs": psnrs,
+            "seconds": seconds, "eval_seconds": eval_seconds,
+            "load_seconds": load_seconds, "testsets": testsets,
+            "state": state, "logdir": logdir}
 
 
-def main(argv=None) -> None:
+def _write_training_pickles(args, logdir, loss_list, psnr_list, time_list,
+                            time_metrics) -> None:
+    """``training_metrics.pkl`` and ``loss_vs_time.pkl`` with the JAX
+    trainer's contents (:812-839; the structural-prior weights as parsed)."""
+    training_data = {
+        "losses": loss_list,
+        "psnr": psnr_list,
+        "time": time_list,
+        "time_metrics": time_metrics,
+        "structural_priors_enabled": args.use_structural_priors,
+        "config": {
+            "depth_prior_weight": args.depth_prior_weight,
+            "planarity_weight": args.planarity_weight,
+            "manhattan_weight": args.manhattan_weight,
+            "normal_consistency_weight": args.normal_consistency_weight,
+            "structural_loss_start_iter": args.structural_loss_start_iter,
+            "predict_normals": args.predict_normals,
+        },
+    }
+    with open(os.path.join(logdir, "training_metrics.pkl"), "wb") as fp:
+        pickle.dump(training_data, fp)
+    with open(os.path.join(logdir, "loss_vs_time.pkl"), "wb") as fp:
+        pickle.dump({"losses": loss_list, "psnr": psnr_list, "time": time_list},
+                    fp)
+
+
+def main(argv=None) -> Dict:
     argv = list(sys.argv[1:] if argv is None else argv)
     if argv and argv[0] == "--":
         argv = argv[1:]
-    train(parse_args(argv))
+    return train(parse_args(argv))
 
 
 if __name__ == "__main__":

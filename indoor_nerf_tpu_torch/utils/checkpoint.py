@@ -71,9 +71,8 @@ def save_checkpoint(logdir: str, step: int, state: Dict[str, Any]) -> str:
 def save_best_checkpoint(logdir: str, state: Dict[str, Any]) -> str:
     """The best held-out snapshot as ``best.ckpt``, kept out of auto-resume
     (``list_checkpoints`` keeps step-numbered files); load it with
-    ``--ft_path <logdir>/best.ckpt``. It has no caller yet: the held-out
-    evaluation that picks the best step comes with ROADMAP.md Queue 1 item
-    3b."""
+    ``--ft_path <logdir>/best.ckpt``. ``train`` writes it whenever a
+    test set's mean PSNR is a new best."""
     os.makedirs(logdir, exist_ok=True)
     return atomic_save(os.path.join(logdir, f"best{CKPT_SUFFIX}"),
                        _payload(state))

@@ -60,6 +60,12 @@ def assert_states_equal(a, b):
     assert (a["step"], a["opt"]["step"]) == (b["step"], b["opt"]["step"])
 
 
+def ckpt_files(logdir):
+    """The checkpoint files of a run directory (which also holds the run's
+    args.txt, metrics/ and pickles)."""
+    return sorted(f for f in os.listdir(logdir) if f.endswith(".ckpt"))
+
+
 def run_dir(tmp_path, name="run"):
     return ["--basedir", str(tmp_path / "logs"), "--expname", name]
 
@@ -285,14 +291,14 @@ def test_changed_hyper_parameter_is_a_fresh_logdir(tmp_path):
 def test_train_saves_resumes_and_continues(tmp_path, capsys):
     flags = SMALL + run_dir(tmp_path)
     first = trainer.train(parse_args(flags + ["--n_iters", "8", "--i_weights", "4"]))
-    assert sorted(os.listdir(first["logdir"])) == ["000004.ckpt", "000008.ckpt"]
+    assert ckpt_files(first["logdir"]) == ["000004.ckpt", "000008.ckpt"]
     capsys.readouterr()
     second = trainer.train(parse_args(flags + ["--n_iters", "12"]))
     text = capsys.readouterr().out
     assert "Reloading from " + os.path.join(first["logdir"], "000008.ckpt") in text
     assert "training 4 steps (from step 8)" in text
     assert len(second["losses"]) == 4 and second["state"]["step"] == 12
-    assert "000012.ckpt" in os.listdir(first["logdir"])
+    assert "000012.ckpt" in ckpt_files(first["logdir"])
     # Nothing left to do: no step, the checkpoint stays.
     third = trainer.train(parse_args(flags + ["--n_iters", "12"]))
     assert third["losses"] == [] and third["state"]["step"] == 12
@@ -343,9 +349,12 @@ def test_train_saves_before_raising_on_a_non_finite_loss(tmp_path, monkeypatch):
 
     monkeypatch.setattr(trainer, "train_step", poisoned)
     args = parse_args(SMALL + run_dir(tmp_path) + ["--n_iters", "8"])
-    with pytest.raises(FloatingPointError, match="state saved to .*000004.ckpt"):
+    # Step 4 prints (SMALL's --i_print 4), so it reads its own loss at
+    # once, and the state saved is step 4's.
+    with pytest.raises(FloatingPointError, match="non-finite loss nan at "
+                       "iteration 4; state of step 4 saved to .*000004.ckpt"):
         trainer.train(args)
-    assert os.listdir(trainer.logdir_of(args)) == ["000004.ckpt"]
+    assert ckpt_files(trainer.logdir_of(args)) == ["000004.ckpt"]
 
 
 def serve_args(flags, **kw):
@@ -432,4 +441,4 @@ def test_cli_entry_points_take_the_checkpoint_flags(tmp_path, capsys):
     text = capsys.readouterr().out
     assert "without effect" not in text and "Resumed at step 2" in text
     logdir = trainer.logdir_of(parse_args(flags))
-    assert sorted(os.listdir(logdir)) == ["000002.ckpt", "000003.ckpt"]
+    assert ckpt_files(logdir) == ["000002.ckpt", "000003.ckpt"]

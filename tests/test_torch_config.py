@@ -160,3 +160,63 @@ def test_one_batch_is_the_trainers_first_batch():
         assert torch.equal(v, torch.from_numpy(want[k]))
     _, other = one_batch(args, torch.device("cpu"), seed=args.seed + 1)
     assert not torch.equal(other["rays_o"], batch["rays_o"])
+
+
+# Every configs/*_tpu.txt file the port trains (all but the one with
+# structural priors, Queue 1 item 5); the other files run --i_embed 1, the
+# parity path (item 4).
+TPU_CONFIGS = [p for p in CONFIGS if p.endswith("_tpu.txt")
+               and os.path.basename(p) != "norcliffe_common_room_tpu.txt"]
+
+
+def _dataset_type(path):
+    return tconfig.parse_args(["--config", os.path.join(_ROOT, path)]).dataset_type
+
+
+@pytest.fixture(scope="module")
+def scene_dirs(tmp_path_factory):
+    """A tiny scene of each dataset type the configs name."""
+    from _torch_scenes import WRITERS
+
+    return {kind: WRITERS[kind](tmp_path_factory.mktemp(kind))
+            for kind in ("blender", "llff", "scannet")}
+
+
+@pytest.mark.parametrize("path", CONFIGS)
+def test_config_file_builds_the_jax_train_config(path, scene_dirs):
+    """Every config file with ``--datadir`` on a tiny scene of its dataset
+    type: the port's ``build_train_config`` builds what the JAX one builds
+    for the ``_tpu`` files the port trains, and names the ROADMAP item of
+    what it does not run for the others."""
+    from indoor_nerf_tpu.data.load import load_dataset as j_load_dataset
+    from indoor_nerf_tpu.train.trainer import build_train_config as j_build
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    argv = ["--config", os.path.join(_ROOT, path),
+            "--datadir", scene_dirs[_dataset_type(path)]]
+    targs = tconfig.parse_args(argv)
+    scene = load_dataset(targs)
+    if path not in TPU_CONFIGS:
+        item = "item 5" if targs.i_embed == 3 else "item 4"
+        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+            build_train_config(targs, scene)
+        return
+    jargs = jconfig.parse_args(argv)
+    want = j_build(jargs, j_load_dataset(jargs))
+    got = build_train_config(targs, scene)
+    for f in ("near", "far", "ndc_hwf", "n_rand", "lrate", "lrate_decay",
+              "sparse_loss_weight", "tv_loss_weight", "tv_cutoff_iter"):
+        assert getattr(got, f) == getattr(want, f), f
+    for f in ("n_samples", "n_importance", "perturb", "lindisp", "white_bkgd",
+              "raw_noise_std", "ndc", "n_occ_samples"):
+        assert getattr(got.render, f) == getattr(want.render, f), f
+    gb, wb = got.render.field.block_grid, want.render.field.block_grid
+    for f in ("bbox_min", "bbox_max", "n_levels", "n_features_per_level",
+              "log2_rows", "base_resolution", "finest_resolution",
+              "gather_dtype", "scatter_dtype", "block_size"):
+        assert getattr(gb, f) == getattr(wb, f), f
+    go, wo = got.render.occupancy, want.render.occupancy
+    for f in ("bbox_min", "bbox_max", "resolution", "weighting"):
+        assert getattr(go, f) == getattr(wo, f), f
+    assert got.render.ndc == (_dataset_type(path) == "llff")

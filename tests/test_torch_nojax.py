@@ -99,7 +99,8 @@ run = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
 train(parse_args(run + ["--n_iters", "2"]))
 result = train(parse_args(run + ["--n_iters", "3"]))
 assert result["state"]["step"] == 3 and len(result["losses"]) == 1
-assert sorted(os.listdir(result["logdir"])) == ["000002.ckpt", "000003.ckpt"]
+assert sorted(f for f in os.listdir(result["logdir"])
+              if f.endswith(".ckpt")) == ["000002.ckpt", "000003.ckpt"]
 for extra in ({}, {"baked": True, "baked_res": 8, "snapshot": "runs/snap.pt",
                    "guided": 2}):
     render, step, hw = serve.build(argparse.Namespace(
@@ -112,6 +113,37 @@ imported = restore_checkpoint(
     init_train_state(torch.Generator().manual_seed(0),
                      build_train_config(parse_args(run), scene)))
 assert imported["step"] == 2
+# The file loaders, NDC, the training loop's evaluation and render-only.
+import indoor_nerf_tpu_torch.data.bbox
+import indoor_nerf_tpu_torch.data.blender
+import indoor_nerf_tpu_torch.data.deepvoxels
+import indoor_nerf_tpu_torch.data.images
+import indoor_nerf_tpu_torch.data.linemod
+import indoor_nerf_tpu_torch.data.llff
+import indoor_nerf_tpu_torch.data.scannet
+import indoor_nerf_tpu_torch.render.path
+import indoor_nerf_tpu_torch.run_nerf
+import indoor_nerf_tpu_torch.utils.evaluation
+import indoor_nerf_tpu_torch.utils.metrics
+from indoor_nerf_tpu_torch.data.scene_files import (
+    make_plane_scene, make_sphere_scene, write_blender_scene, write_llff_scene)
+
+write_blender_scene("blender", make_sphere_scene(8, 24, 24))
+write_llff_scene("llff", make_plane_scene(16), 96, 128, 120.0, 8)
+files = ["--flagship", "--use_viewdirs", "--n_levels", "4", "--finest_res",
+         "32", "--log2_hashmap_size", "12", "--occ_resolution", "16",
+         "--N_rand", "16", "--device", "cpu", "--basedir", "runs"]
+blender = files + ["--dataset_type", "blender", "--datadir", "blender",
+                   "--half_res", "--white_bkgd", "--no_batching",
+                   "--precrop_iters", "1", "--testskip", "1", "--expname",
+                   "files", "--n_iters", "2", "--i_testset", "2"]
+result = train(parse_args(blender))
+assert [t["step"] for t in result["testsets"]] == [2]
+shown = train(parse_args(blender + ["--render_only", "--render_test"]))
+assert shown["step"] == 2 and len(shown["psnrs"]) == 4
+result = train(parse_args(files + ["--dataset_type", "llff", "--datadir",
+                                   "llff", "--n_iters", "1"]))
+assert result["state"]["step"] == 1 and np.isfinite(result["losses"][0])
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
                 or m == "flax" and sys.modules[m] is not None)
