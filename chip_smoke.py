@@ -4,6 +4,9 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --step-spread N   (not the smoke run: every check
                                              of (g), (k), (q) over N steps)
+    python3 chip_smoke.py --bake-spread N   (not the smoke run: (y5)'s baked
+                                             against online PSNR over N
+                                             trainings of (y1))
 
 Phases, each printing its lines; any failure raises and the run exits
 non-zero. There is no CPU fallback: without a CUDA card it exits 1 before
@@ -145,6 +148,37 @@ printing any result.
       this process: steps/s of each window, medians; and the two ray
       samplers' host ms per batch.
 
+  (y1) the parity path from files, in (v)'s directory: configs/lego.txt as
+      shipped (the hash grid 16 x 2 at 2^19 entries per level, 64 + 128
+      samples, NeRFSmall coarse and fine) with --lrate 0.01 on (v)'s scene
+      for 600 steps, test sets at 300 and 600: the loss falls, no kernel
+      of csrc/ launches, render-only reproduces the last test set within
+      0.01 dB, the held-out PSNR is 3 dB above the seeded field's; steps/s,
+      peak memory, the loader's and an evaluation's seconds;
+  (y2) one step of (y1)'s configuration from its trained state on the card
+      and on the CPU, same batch and draws: the hash rows of every sample
+      bit for bit, the trilinear weights within 1e-6, the loss 1e-5
+      relative (over the rays whose fine samples lie in the same places on
+      both; under a quarter may not), the moments and
+      the parameters' update in norm (5e-3);
+  (y3) configs/fern.txt (NDC, raw_noise_std 1, 64 + 64) on (w)'s plane for
+      100 steps and a test set: the loss falls, the held-out PSNR beats the
+      seeded field's;
+  (y4) --i_embed 0 --i_embed_views 0 at the parser's width (NeRF 8 x 256
+      coarse and fine) with lego's samples for 50 steps: the loss falls;
+      one held-out view rendered: seconds, the peak memory per ray;
+  (y5) (y1)'s checkpoint served through serve.build at 400x400 and 800x800
+      online (request ms, tile size, the peak memory per ray of a tile) and
+      with --baked --baked_res 128 and 256 at 800x800 (bake seconds,
+      request ms, PSNR against online on the whole view, the object and the
+      background): the 256^3 bake at least 18 dB on each held-out pose, as
+      (u);
+      online serving launches no kernel of csrc/, the baked requests
+      tent_contract alone (pass 1);
+  (z) (run after (u), before (v)) --precision bf16 on the flagship: a
+      step and an 800x800 request at f32 and at bf16, alternating, in this
+      process.
+
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
 version, the least time the card could take for the same work ("bound_ms":
@@ -168,7 +202,9 @@ model of merged groups: scalar with one thread per (group, feature),
 vector by the kernel's rule). "launches_by_path" gives each path that runs
 a kernel its own count: tent_contract's include the training from files
 and NDC training of (v) and (w), their test sets and render-only run;
-table_scatter's the two training paths. The last line is {"ok": true,
+table_scatter's the two training paths; every kernel's the parity path's
+runs of (y1)-(y5), each counted: 0 but for tent_contract's in the baked
+requests of (y5). The last line is {"ok": true,
 "device": {...}}.
 """
 
@@ -249,6 +285,11 @@ FILE_VIEWS, FILE_TEST_VIEWS, FILE_STEPS = 32, 2, 600
 # (w): configs/fern_tpu.txt on 16 views of a plane (llffhold 8 holds out 2),
 # full size 1512x2016 (images_8: 189x252), 200 steps.
 NDC_VIEWS, NDC_FULL_HWF, NDC_STEPS = 16, (1512, 2016, 1630.0), 200
+# (y1)-(y5), the parity path: configs/lego.txt's steps from files (test
+# sets at half and all of them), configs/fern.txt's NDC steps, the PE
+# run's steps; the bake resolution of its baked server.
+PARITY_STEPS, PARITY_NDC_STEPS, PE_STEPS, PARITY_BAKE_RES = 600, 100, 50, 128
+BAKE_SPREAD_STEPS = 1000  # --bake-spread's second reading
 # (x): three rounds of six alternating windows of 100 steps.
 LOOP_STEPS, LOOP_ROUNDS = 100, 3
 # The card's published peaks (H100 SXM): device memory rate, and the f32
@@ -1627,9 +1668,11 @@ def counting_evals(tally):
         yield
 
 
-def train_from_files(torch, tag, argv):
+def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter")):
     """``run_nerf.main(argv)`` in its own launch window, quietly: (result,
-    printed text, training launches, test-set launches, peak GiB)."""
+    printed text, training launches, test-set launches, peak GiB). Each of
+    ``kernels`` must launch in the steps (``tent_contract`` also in the test
+    sets); with none named, no kernel may launch at all (the parity path)."""
     from indoor_nerf_tpu_torch import run_nerf
     from indoor_nerf_tpu_torch.train.config import parse_args
 
@@ -1660,23 +1703,24 @@ def train_from_files(torch, tag, argv):
         raise AssertionError(f"[{tag}] training loss went non-finite")
     if not last < first:
         raise AssertionError(f"[{tag}] loss did not fall: {first} -> {last}")
-    for name in ("tent_contract", "table_scatter"):
+    for name in kernels:
         if training[name] <= 0:
             raise AssertionError(f"[{tag}] training launched no {name} kernel")
-    if out["testsets"] and testset["tent_contract"] <= 0:
+    if kernels and out["testsets"] and testset["tent_contract"] <= 0:
         raise AssertionError(f"[{tag}] the test sets launched no tent_contract")
+    if not kernels and any(launches.values()):
+        raise AssertionError(f"[{tag}] the parity path launched {launches}")
     return out, text, training, testset
 
 
 def render_test(flags):
     """``--render_only --render_test`` of ``flags`` through run_nerf, in its
-    own launch window: (result, tent_contract launches)."""
+    own launch window: (result, every kernel's launches)."""
     from indoor_nerf_tpu_torch import run_nerf
-    from indoor_nerf_tpu_torch.ops import tent_contract as tc
 
-    tc.reset_launch_count()
+    reset_launch_counts()
     out, _ = quietly(run_nerf.main, flags + ["--render_only", "--render_test"])
-    return out, tc.launch_count()
+    return out, launch_counts()
 
 
 def held_out_gain(tag, trained_psnr, flags, seeded_basedir, gain):
@@ -1761,6 +1805,7 @@ def phase_from_files(torch, workdir) -> dict:
           f"{last['metrics_seconds']:.3f} s of metrics (SSIM, GMSD on the "
           f"host); video {video}")
     shown, shown_launches = render_test(flags)
+    shown_launches = shown_launches["tent_contract"]
     psnr = float(np.mean(shown["psnrs"]))
     print(f"[v] --render_only --render_test from step {shown['step']}: mean "
           f"PSNR {psnr:.4f} dB against the last test set's {last['psnr']:.4f}; "
@@ -1795,6 +1840,472 @@ def phase_ndc(torch, workdir) -> dict:
     held_out_gain("w", out["testsets"][-1]["psnr"], flags,
                   os.path.join(workdir, "w0"), 0.0)
     return training
+
+
+def parity_flags(workdir, config, scene, tag, extra=()):
+    """A shipped config without _tpu on a scene that (v) or (w) wrote, with
+    its own --basedir under ``workdir``."""
+    return (["--config", os.path.join(ROOT, "configs", config), "--datadir",
+             os.path.join(workdir, scene), "--basedir",
+             os.path.join(workdir, tag)] + list(extra))
+
+
+def phase_parity_from_files(torch, workdir) -> dict:
+    """(y1) configs/lego.txt (the hash grid, 64 + 128 samples, NeRFSmall
+    coarse and fine) from (v)'s 800x800 blender-layout sphere: train ->
+    test sets -> render-only. Returns its flags, trained state and launches
+    by path (all zero: no kernel of csrc/ lies on this path)."""
+    flags = parity_flags(workdir, "lego.txt", "lego", "y1", ["--lrate", "0.01"])
+    half = PARITY_STEPS // 2
+    out, text, training, testset = train_from_files(torch, "y1", flags + [
+        "--n_iters", str(PARITY_STEPS), "--i_testset", str(half),
+        "--i_weights", str(PARITY_STEPS), "--i_video", str(10 * PARITY_STEPS)],
+        kernels=())
+    logdir = out["logdir"]
+    for step in (half, PARITY_STEPS):
+        d = os.path.join(logdir, f"testset_{step:06d}")
+        names = sorted(os.listdir(d))
+        if not (len([n for n in names if n.endswith(".png")]) == FILE_TEST_VIEWS
+                and any(n.startswith("test_psnrs_avg") for n in names)):
+            raise AssertionError(f"[y1] {d} holds {names}")
+    last = out["testsets"][-1]
+    table = tuple(out["state"]["params"]["table"].shape)
+    print(f"[y1] configs/lego.txt (hash table {table}, "
+          f"{os.path.basename(logdir)}): held-out views "
+          f"{FILE_TEST_VIEWS} at 400x400: PSNR "
+          f"{[round(t['psnr'], 3) for t in out['testsets']]} dB at steps "
+          f"{[t['step'] for t in out['testsets']]}; SSIM {last['ssim']:.4f}, "
+          f"GMSD {last['gmsd']:.4f}; one evaluation {last['render_seconds']:.3f} "
+          f"s of render + {last['metrics_seconds']:.3f} s of metrics")
+    shown, shown_launches = render_test(flags)
+    psnr_shown = float(np.mean(shown["psnrs"]))
+    print(f"[y1] --render_only --render_test from step {shown['step']}: mean "
+          f"PSNR {psnr_shown:.4f} dB against the last test set's "
+          f"{last['psnr']:.4f}; launches {shown_launches}")
+    if shown["step"] != PARITY_STEPS or not abs(psnr_shown - last["psnr"]) <= 0.01:
+        raise AssertionError("[y1] render-only did not reproduce the test set")
+    if any(shown_launches.values()):
+        raise AssertionError(f"[y1] render-only launched {shown_launches}")
+    held_out_gain("y1", last["psnr"], flags, os.path.join(workdir, "y10"), 3.0)
+    return {"flags": flags, "state": out["state"],
+            "launches": {"parity_training": training,
+                         "parity_testset": testset,
+                         "parity_render_only": shown_launches}}
+
+
+def norm_rel(got, want) -> float:
+    """||got - want|| / ||want|| over the arrays of two equal trees."""
+    g = np.concatenate([np.ravel(v) for v in got])
+    w = np.concatenate([np.ravel(v) for v in want])
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
+def phase_parity_step_check(torch, flags, state) -> None:
+    """(y2) one step of (y1)'s configuration at its width, from its trained
+    state, on the card and on the port's CPU path with the same batch and
+    draws: the hash rows of every sample of the step bit for bit, the
+    trilinear weights within 1e-6, the loss 1e-5 relative (where the fine
+    samples of some rays moved by more than rounding, over the other rays;
+    under a quarter of them may move), the RAdam
+    moments and the parameters' update held in norm (FORWARD_NORM_TOL: the
+    forwards differ in f32 order); the table's update over the entries
+    whose first moment is at least 1e-6 of its largest (RAdam's eps 1e-15
+    moves an entry with a gradient at the f32 rounding floor by an O(lr)
+    step of either sign)."""
+    from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
+    from indoor_nerf_tpu_torch.ops.encoding import hash_grid_indices
+    from indoor_nerf_tpu_torch.render.renderer import render_rays
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import draw_step, train_step
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    dev = torch.device("cuda:0")
+    cpu = torch.device("cpu")
+    cfg, batch = one_batch(parse_args(flags), cpu, seed=5)
+    tree = state_to_numpy(state)
+    step = int(tree["step"])
+    draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg, step,
+                      batch["rays_o"].shape[0])
+    rays_d = batch["rays_d"]
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    near = cfg.near * torch.ones_like(rays_d[..., :1])
+    far = cfg.far * torch.ones_like(rays_d[..., :1])
+    fwd = {}
+    with torch.no_grad():
+        for label, d in (("cpu", cpu), ("card", dev)):
+            out = render_rays(state_from_numpy(tree, d)["params"],
+                              *(t.to(d) for t in (batch["rays_o"], rays_d,
+                                                  viewdirs, near, far)),
+                              cfg.render, step=step,
+                              draws={k: v.to(d) for k, v in draws.items()})
+            fwd[label] = {k: out[k].cpu() for k in ("pts", "z_vals", "rgb_map",
+                                                    "rgb0")}
+    pts = fwd["cpu"]["pts"].reshape(-1, 3)
+    # sample_pdf divides the draw's offset in its cdf bin (a cumsum in
+    # another order on each side) by the bin's weight, floored at 1e-5, and
+    # a draw within rounding of a bin edge next to a bin of no weight lands
+    # a bin away: a fine sample of some rays moves by more than rounding
+    # (5.7% and 7.4% of the rays, by up to 2.3% and 2.7% of a bin, in two
+    # runs on an H100).
+    # Those rays are counted; the image loss of the others is held to 1e-5
+    # relative, and the moved rays to under a quarter (a sampler that
+    # differs moves nearly all).
+    z_diff = (fwd["card"]["z_vals"] - fwd["cpu"]["z_vals"]).abs()
+    moved = (z_diff > 1e-5 * cfg.far).any(-1)
+    bin_width = (cfg.far - cfg.near) / (cfg.render.n_samples - 1)
+    ray_loss = {k: sum(((f[m] - batch["target"]) ** 2).mean(-1)
+                       for m in ("rgb_map", "rgb0")) for k, f in fwd.items()}
+    held_rel = abs(float(ray_loss["card"][~moved].sum())
+                   / float(ray_loss["cpu"][~moved].sum()) - 1.0)
+    grid = cfg.render.field.grid
+    c_idx, c_w, c_keep = hash_grid_indices(pts, grid)
+    g_idx, g_w, g_keep = (t.cpu() for t in hash_grid_indices(pts.to(dev), grid))
+    idx_equal = bool(torch.equal(c_idx, g_idx)) and bool(torch.equal(c_keep, g_keep))
+    w_err = float((c_w - g_w).abs().max())
+    res, seconds = {}, {}
+    for label, d in (("cpu", cpu), ("card", dev)):
+        s = state_from_numpy(tree, d)
+        t = time.perf_counter()
+        s, m = train_step(s, {k: v.to(d) for k, v in batch.items()}, cfg,
+                          draws={k: v.to(d) for k, v in draws.items()})
+        loss = float(m["loss"])
+        seconds[label] = time.perf_counter() - t
+        res[label] = (loss, state_to_numpy(s))
+    loss_rel = abs(res["card"][0] / res["cpu"][0] - 1.0)
+    got, want = res["card"][1], res["cpu"][1]
+    moments = {f"{k}.{name}": norm_rel(_tree_leaves(got["opt"][k][name]),
+                                       _tree_leaves(want["opt"][k][name]))
+               for k in ("mu", "nu") for name in want["opt"][k]}
+    updates = {}
+    for name in want["params"]:
+        if name == "table":
+            continue
+        g = [a - b for a, b in zip(_tree_leaves(got["params"][name]),
+                                   _tree_leaves(tree["params"][name]))]
+        w = [a - b for a, b in zip(_tree_leaves(want["params"][name]),
+                                   _tree_leaves(tree["params"][name]))]
+        updates[name] = norm_rel(g, w)
+    mu = np.abs(want["opt"]["mu"]["table"])
+    resolved = mu >= 1e-6 * mu.max()
+    g = (got["params"]["table"] - tree["params"]["table"])[resolved]
+    w = (want["params"]["table"] - tree["params"]["table"])[resolved]
+    updates["table"] = norm_rel([g], [w])
+    print(f"[y2] one configs/lego.txt step at step {step} ({batch['rays_o'].shape[0]} "
+          f"rays x {cfg.render.n_samples} + {cfg.render.n_importance} samples), "
+          f"card against the CPU on one state, batch and draws: hash rows of "
+          f"all {pts.shape[0]} samples x {grid.n_levels} levels x 8 corners "
+          f"equal: {idx_equal}; weights max |diff| {w_err:.3e} (tol 1e-6); "
+          f"loss {res['card'][0]:.8f} vs {res['cpu'][0]:.8f} (rel {loss_rel:.2e}); "
+          f"{int(moved.sum())} rays with a fine sample moved by more than "
+          f"rounding (largest move {float(z_diff.max()):.3e}, a bin "
+          f"{bin_width:.3e}), the image loss "
+          f"of the other {int((~moved).sum())} rel {held_rel:.2e} (tol 1e-5); moments rel in norm, largest {max(moments.values()):.2e}; "
+          f"parameter updates rel in norm {  {k: f'{v:.2e}' for k, v in updates.items()} } "
+          f"(table over the {resolved.mean():.3f} of its entries with a "
+          f"resolved gradient; tol {FORWARD_NORM_TOL}); step seconds "
+          f"{ {k: round(v, 3) for k, v in seconds.items()} }")
+    if not idx_equal or w_err > 1e-6:
+        raise AssertionError("[y2] hash rows or weights differ card vs CPU")
+    if held_rel > 1e-5 or (not moved.any() and loss_rel > 1e-5):
+        raise AssertionError(f"[y2] loss card vs CPU rel {loss_rel}, over "
+                             f"the rays with the same samples {held_rel}")
+    if moved.float().mean() >= 0.25:
+        raise AssertionError(f"[y2] {int(moved.sum())} rays' fine samples moved, "
+                             f"by up to {float(z_diff.max())}")
+    bad = {k: v for k, v in {**moments, **updates}.items() if v > FORWARD_NORM_TOL}
+    if bad:
+        raise AssertionError(f"[y2] card vs CPU beyond {FORWARD_NORM_TOL}: {bad}")
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [v for t in tree for v in _tree_leaves(t)]
+    return [np.asarray(tree)]
+
+
+def phase_parity_ndc(torch, workdir) -> dict:
+    """(y3) configs/fern.txt (LLFF, NDC, raw_noise_std 1, 64 + 64 samples,
+    the hash grid) on (w)'s plane scene."""
+    flags = parity_flags(workdir, "fern.txt", "fern", "y3", ["--lrate", "0.01"])
+    out, _, training, testset = train_from_files(torch, "y3", flags + [
+        "--n_iters", str(PARITY_NDC_STEPS), "--i_testset",
+        str(PARITY_NDC_STEPS)], kernels=())
+    held_out_gain("y3", out["testsets"][-1]["psnr"], flags,
+                  os.path.join(workdir, "y30"), 0.0)
+    return {"parity_ndc": training, "parity_ndc_testset": testset}
+
+
+def phase_pe(torch, workdir) -> dict:
+    """(y4) --i_embed 0 --i_embed_views 0 at the parser's width (NeRF 8 x
+    256, coarse and fine; PE of 10 and 4 bands) with configs/lego.txt's
+    samples on (v)'s sphere, at the config's learning rate; then one
+    held-out view rendered (seconds, peak memory per ray of a tile)."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models.field import serving_params
+    from indoor_nerf_tpu_torch.render.renderer import (
+        bytes_per_ray,
+        default_tile_rays,
+        make_image_renderer,
+    )
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    flags = parity_flags(workdir, "lego.txt", "lego", "y4",
+                         ["--i_embed", "0", "--i_embed_views", "0"])
+    out, _, training, _ = train_from_files(torch, "y4", flags + [
+        "--n_iters", str(PE_STEPS)], kernels=())
+    sizes = [tuple(l.w.shape) for l in out["state"]["params"]["fine"].pts_linears]
+    # One held-out 400x400 view at the tile the server would take: its peak
+    # device bytes per ray of a tile against bytes_per_ray's reckoning.
+    cli = parse_args(flags)
+    scene = load_dataset(cli)
+    rc = build_train_config(cli, scene).render.test_mode()
+    H, W, focal = scene.hwf
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    torch.cuda.empty_cache()
+    tile = default_tile_rays(torch.device(cli.device), rc)
+    params = serving_params(out["state"]["params"], rc.field)
+    resident = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    maps = make_image_renderer(rc, int(H), int(W), tile)(
+        params, scene.poses[scene.i_test[0]], K, scene.near, scene.far)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - resident
+    launches = launch_counts()
+    print(f"[y4] NeRFBig pts_linears {sizes}, PE of --multires 10 and "
+          f"--multires_views 4; one held-out {int(H)}x{int(W)} view in "
+          f"{render_s:.3f} s, tiles of {tile} rays, peak device memory "
+          f"{peak / 2**30:.2f} GiB ({peak / tile / 1e6:.3f} MB per ray of a "
+          f"tile; bytes_per_ray {bytes_per_ray(rc) / 1e6:.3f} MB)")
+    if not bool(torch.isfinite(maps["rgb_map"]).all()) or any(launches.values()):
+        raise AssertionError(f"[y4] render: launches {launches}")
+    return {"pe_training": training, "pe_render": launches}
+
+
+def request_ms(torch, render, poses, rounds=2):
+    """Warm request ms (render + maps to the host) per pose, ``rounds``
+    times, and the maps of the last round."""
+    ms, maps = [], []
+    for _ in range(rounds):
+        maps = []
+        for c2w in poses:
+            out, dt = render(c2w)
+            ms.append(dt * 1e3)
+            maps.append(out)
+    return ms, maps
+
+
+def view_psnrs(got, want) -> list:
+    """PSNR of the ``got`` maps against the ``want`` maps per view, as
+    (whole image, object, background): the object is where ``want``'s
+    acc_map is at least 0.5."""
+    out = []
+    for g, w in zip(got, want):
+        err = np.mean((g["rgb_map"] - w["rgb_map"]) ** 2, axis=-1)
+        obj = w["acc_map"] >= 0.5
+        out.append(tuple(float(-10.0 * np.log10(err[m].mean()))
+                         for m in (np.ones_like(obj), obj, ~obj)))
+    return out
+
+
+def show_psnrs(quality) -> str:
+    return ", ".join("(" + ", ".join(f"{v:.2f}" for v in q) + ")"
+                     for q in quality)
+
+
+def parity_baked(flags, res, **kw):
+    """serve.build --baked --baked_res ``res`` of ``flags``' checkpoint at
+    REQUEST_SIZE: (render, bake seconds, build seconds)."""
+    from indoor_nerf_tpu_torch import serve
+
+    t0 = time.perf_counter()
+    (render, _, _), text = quietly(serve.build, argparse.Namespace(
+        width=REQUEST_SIZE, height=REQUEST_SIZE, baked=True, baked_res=res,
+        train_args=["--"] + flags, **kw))
+    build_s = time.perf_counter() - t0
+    return render, float(text.split("baked in ")[1].split("s")[0]), build_s
+
+
+def phase_parity_serving(torch, flags, workdir) -> dict:
+    """(y5) serve (y1)'s checkpoint: online at 400x400 and 800x800 (tiles
+    sized from free memory and bytes_per_ray), then --baked at 800x800 with
+    --baked_res 128 and 256, the server's default (bake seconds, request
+    ms, PSNR against online per held-out pose on the whole image, the
+    object and the background). The 256^3 bake is held to BAKED_PSNR_FLOOR
+    dB on every pose, as phase (u) holds its bake of the same resolution.
+    The 128^3 bake is printed: its object sat 16.7-18.5 dB from online on
+    the first held-out pose (geometry features on a 64^3 grid against the
+    sphere's texture; --bake-spread)."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.render.renderer import bytes_per_ray
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    cli = parse_args(flags)
+    scene = load_dataset(cli)
+    rc = build_train_config(cli, scene).render.test_mode()
+    poses = scene.poses[scene.i_test]
+    launches, ms, maps, tiles, peaks = {}, {}, {}, {}, {}
+    for size in (400, REQUEST_SIZE):
+        torch.cuda.empty_cache()
+        (render, step, _), text = quietly(serve.build, argparse.Namespace(
+            width=size, height=size, train_args=["--"] + flags))
+        if step != PARITY_STEPS or "UNTRAINED" in text:
+            raise AssertionError(f"[y5] served step {step}: {text}")
+        tiles[size] = int(text.split(" in tiles of ")[1].split()[0])
+        reset_launch_counts()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms[size], maps[size] = request_ms(torch, render, poses)
+        peaks[size] = (torch.cuda.max_memory_allocated() - resident) / 2**30
+        launches[f"parity_serving_{size}"] = launch_counts()
+        del render
+    torch.cuda.empty_cache()
+    bakes, quality = {}, {}
+    for res in (PARITY_BAKE_RES, BAKE_RES):
+        snap = os.path.join(workdir, f"y5_snapshot_{res}.pt")
+        baked, bake_s, build_s = parity_baked(flags, res, snapshot=snap)
+        name = "baked" if res == BAKE_RES else f"baked_{res}"
+        reset_launch_counts()
+        ms[name], maps[name] = request_ms(torch, baked, poses)
+        launches[f"parity_{name}_serving"] = launch_counts()
+        quality[res] = view_psnrs(maps[name], maps[REQUEST_SIZE])
+        bakes[res] = (f"bake {bake_s:.2f} s (build with load and warm-up "
+                      f"{build_s:.2f} s, snapshot {os.path.getsize(snap) / 1e6:.1f} "
+                      f"MB), PSNR baked against online per view (whole, object, "
+                      f"background) {show_psnrs(quality[res])} dB")
+        del baked
+        torch.cuda.empty_cache()
+    tile_mb = bytes_per_ray(rc) / 1e6
+    print(f"[y5] serving (y1)'s checkpoint (step {PARITY_STEPS}), warm requests "
+          f"on {len(poses)} held-out poses, twice each: "
+          + "; ".join(f"{k} {', '.join(f'{v:.1f}' for v in vs)} ms (median "
+                      f"{float(np.median(vs)):.1f})" for k, vs in ms.items())
+          + f"; online tiles {tiles} rays at bytes_per_ray {tile_mb:.3f} MB, "
+          "peak device memory of a request over what the server holds "
+          + ", ".join(f"{k}: {v:.2f} GiB ({v * 2**30 / tiles[k] / 1e6:.3f} MB "
+                      "per ray of a tile)" for k, v in peaks.items())
+          + "; " + "; ".join(f"--baked --baked_res {r}: {t}"
+                             for r, t in bakes.items())
+          + f" (floor {BAKED_PSNR_FLOOR} dB on each whole view at {BAKE_RES}^3); "
+          "launches: " + "; ".join(f"{k} { {n: v for n, v in c.items() if v} }"
+                                   for k, c in launches.items()))
+    if min(q[0] for q in quality[BAKE_RES]) < BAKED_PSNR_FLOOR:
+        raise AssertionError(f"[y5] baked vs online PSNR {quality}")
+    # Online serving of the parity field runs no kernel of csrc/; the baked
+    # renderer's pass 1 runs tent_contract on the sigma tiles, whatever
+    # field was baked (phase u).
+    baked = [k for k in launches if k.startswith("parity_baked")]
+    online = [v for k, c in launches.items() if k not in baked
+              for v in c.values()]
+    if any(online) or any({k for k, v in launches[b].items() if v}
+                          != {"tent_contract"} for b in baked):
+        raise AssertionError(f"[y5] launches {launches}")
+    return launches
+
+
+def bake_spread(torch, trials: int) -> None:
+    """The spread of (y5)'s baked-against-online PSNR: (y1)'s configuration
+    trained ``trials`` times from its seed (the table gradient's atomics
+    make each run differ), read at PARITY_STEPS and again resumed to
+    BAKE_SPREAD_STEPS, each served at 800x800 online and baked at 128^3 and
+    256^3: per held-out view, the PSNR on the whole image, the object and
+    the background (view_psnrs). This is where (y5)'s per-view floor and
+    PARITY_STEPS are read from."""
+    from indoor_nerf_tpu_torch import run_nerf, serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.data.scene_files import (
+        make_sphere_scene,
+        write_blender_scene,
+    )
+    from indoor_nerf_tpu_torch.train.config import parse_args
+
+    phase_build()
+    with tempfile.TemporaryDirectory() as workdir:
+        write_blender_scene(os.path.join(workdir, "lego"),
+                            make_sphere_scene(FILE_VIEWS, 800, 800))
+        for t in range(trials):
+            flags = parity_flags(workdir, "lego.txt", "lego", f"s{t}",
+                                 ["--lrate", "0.01"])
+            for steps in (PARITY_STEPS, BAKE_SPREAD_STEPS):
+                quietly(run_nerf.main, flags + [
+                    "--n_iters", str(steps), "--i_weights", str(steps),
+                    "--i_testset", str(10 * steps), "--i_video", str(10 * steps)])
+                scene = load_dataset(parse_args(flags))
+                poses = scene.poses[scene.i_test]
+                (online, step, _), _ = quietly(serve.build, argparse.Namespace(
+                    width=REQUEST_SIZE, height=REQUEST_SIZE,
+                    train_args=["--"] + flags))
+                if step != steps:
+                    raise AssertionError(f"[bake-spread] served step {step}")
+                want = request_ms(torch, online, poses, rounds=1)[1]
+                del online
+                for res in (PARITY_BAKE_RES, BAKE_RES):
+                    baked, _, _ = parity_baked(flags, res)
+                    got = request_ms(torch, baked, poses, rounds=1)[1]
+                    print(f"[bake-spread] trial {t}, step {steps}, "
+                          f"{res}^3: PSNR baked against online per view "
+                          f"(whole, object, background) "
+                          f"{show_psnrs(view_psnrs(got, want))} dB", flush=True)
+                    del baked
+                torch.cuda.empty_cache()
+
+
+def phase_precision(torch) -> None:
+    """(z) --precision bf16 against f32 on the flagship (the MLP's operands
+    rounded to bf16 and multiplied in f32, as on the CPU): a step (the bench
+    batch, alternating windows) and an 800x800 request (alternating) at each
+    precision, in this process."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.bench import bench_batch
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    dev = torch.device("cuda:0")
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in bench_batch().items()}
+    cfgs, states = {}, {}
+    for prec in ("f32", "bf16"):
+        cli = parse_args(SERVE_FLAGS + ["--precision", prec])
+        cfgs[prec] = build_train_config(cli, load_dataset(cli))
+        states[prec] = init_train_state(torch.Generator(device=dev).manual_seed(0),
+                                        cfgs[prec], dev)
+    gens = {p: torch.Generator(device=dev).manual_seed(1) for p in cfgs}
+    step_ms = {p: [] for p in cfgs}
+    for prec in ("f32", "bf16", "bf16", "f32") * 2:
+        for _ in range(3):  # warm
+            states[prec], m = train_step(states[prec], batch, cfgs[prec], gens[prec])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            states[prec], m = train_step(states[prec], batch, cfgs[prec], gens[prec])
+        torch.cuda.synchronize()
+        step_ms[prec].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
+    del states
+    renders, req = {}, {}
+    for prec in ("f32", "bf16"):
+        (renders[prec], _, _), _ = quietly(serve.build, argparse.Namespace(
+            width=REQUEST_SIZE, height=REQUEST_SIZE,
+            train_args=["--"] + SERVE_FLAGS + ["--precision", prec]))
+    poses = load_dataset(parse_args(SERVE_FLAGS)).poses[:2]
+    for prec in ("f32", "bf16", "bf16", "f32"):
+        req.setdefault(prec, []).extend(request_ms(torch, renders[prec], poses,
+                                                   rounds=1)[0])
+    print(f"[z] flagship at --precision f32 and bf16, alternating in this "
+          f"process: step ms ({TIMED_STEPS}-step windows, {batch['rays_o'].shape[0]} "
+          f"rays) " + "; ".join(f"{p} {', '.join(f'{v:.2f}' for v in vs)} "
+                               f"(median {float(np.median(vs)):.2f})"
+                               for p, vs in step_ms.items())
+          + f"; {REQUEST_SIZE}x{REQUEST_SIZE} request ms "
+          + "; ".join(f"{p} {', '.join(f'{v:.1f}' for v in vs)} (median "
+                      f"{float(np.median(vs)):.1f})" for p, vs in req.items()))
 
 
 def loop_seconds(torch, args, read_every_step: bool) -> float:
@@ -1925,6 +2436,10 @@ def main() -> int:
         "--step-spread", type=int, default=0, metavar="N",
         help="instead of the smoke run: the spread of (k)'s one-step "
              "comparison over N batches and draws")
+    parser.add_argument(
+        "--bake-spread", type=int, default=0, metavar="N",
+        help="instead of the smoke run: the spread of (y5)'s baked against "
+             "online PSNR over N trainings of (y1)'s configuration")
     spread = parser.parse_args()
     import torch
 
@@ -1939,6 +2454,9 @@ def main() -> int:
     name = phase_device(torch)
     if spread.step_spread:
         step_spread(torch, spread.step_spread)
+        return 0
+    if spread.bake_spread:
+        bake_spread(torch, spread.bake_spread)
         return 0
     phase_build()
     tent = phase_kernel(torch)
@@ -1973,9 +2491,23 @@ def main() -> int:
         torch.cuda.empty_cache()
         baked_launches = phase_baked_requests(torch, run_flags, scene, basedir)
     torch.cuda.empty_cache()
+    phase_precision(torch)
+    torch.cuda.empty_cache()
     with tempfile.TemporaryDirectory() as workdir:
         files = phase_from_files(torch, workdir)
         ndc_launches = phase_ndc(torch, workdir)
+        torch.cuda.empty_cache()
+        parity = phase_parity_from_files(torch, workdir)
+        phase_parity_step_check(torch, parity["flags"], parity["state"])
+        parity_launches = parity["launches"]
+        del parity["state"]
+        torch.cuda.empty_cache()
+        parity_launches.update(phase_parity_ndc(torch, workdir))
+        parity_launches.update(phase_pe(torch, workdir))
+        torch.cuda.empty_cache()
+        parity_launches.update(phase_parity_serving(torch, parity["flags"],
+                                                    workdir))
+    torch.cuda.empty_cache()
     phase_loop_timing(torch)
     # "launches" is the count of the path of its slice that runs the
     # kernel (grouped training for tent_contract and group_scatter, strided
@@ -1984,13 +2516,17 @@ def main() -> int:
     # each read from its own reset-then-read window (200, 200, 100 and 100
     # training steps, 3 requests of 800x800, one 256^3 bake, one round of
     # baked requests; phase (v)'s 600 steps from files, its two test sets
-    # and its render-only run, phase (w)'s 200 NDC steps). No path runs
+    # and its render-only run, phase (w)'s 200 NDC steps; the parity
+    # path's runs of (y1)-(y5), where no kernel launches but pass 1 of the
+    # baked requests' tent_contract). No path runs
     # lane_select: its launches are phase (o)'s.
     paths = {"training": flat_launches, "training_grouped": group_launches,
              "training_strided": stride_launches,
              "training_tile_interp": tile_launches,
              "training_from_files": files["training_from_files"],
-             "training_ndc": ndc_launches}
+             "training_ndc": ndc_launches,
+             # The parity path (y1-y5): every count read.
+             **parity_launches}
 
     def by_path(name):
         return {p: n[name] for p, n in paths.items()}
@@ -2036,11 +2572,13 @@ def main() -> int:
         {"name": "lane_select_fwd", "route": "cuda",
          "source": csrc + "lane_gather.cu",
          "replaces": pallas + "lane_gather.py:54",
-         "launches_by_path": {}, **lane["lane_select_fwd"]},
+         "launches_by_path": by_path("lane_select_fwd"),
+         **lane["lane_select_fwd"]},
         {"name": "lane_select_grad", "route": "cuda",
          "source": csrc + "lane_gather.cu",
          "replaces": pallas + "lane_gather.py:88",
-         "launches_by_path": {}, **lane["lane_select_grad"]},
+         "launches_by_path": by_path("lane_select_grad"),
+         **lane["lane_select_grad"]},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

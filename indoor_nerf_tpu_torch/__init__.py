@@ -8,6 +8,13 @@ index varying fastest), so its tests compare like with like. It imports
 
 The slices ported so far:
 
+- the parity path (what the parser's defaults and the shipped configs
+  without ``_tpu`` run): the multiresolution hash grid (``--i_embed 1``,
+  ``ops/encoding.py``, ``ops/hashing.py``, its TV loss ``ops/tv.py``), PE
+  and the classic NeRF MLP (``--i_embed 0``, ``models/mlp.py::NeRFBig``)
+  and the hierarchical fine pass (``render/renderer.py``), in training,
+  evaluation, online and baked serving; plain PyTorch, as the JAX package
+  computes it in XLA outside any Pallas kernel;
 - training from files (``run_nerf.py``, ``train/trainer.py``): the
   shipped ``configs/*_tpu.txt`` scenes through the file loaders
   (``data/``: blender, LLFF with NDC rays, ScanNet, LINEMOD, DeepVoxels),
@@ -47,6 +54,9 @@ import torch
 # the MLP outputs far past the tolerances the parity tests hold.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+# --precision bf16 multiplies bf16 operands into f32 results (the JAX
+# preferred_element_type=float32 dot): the sums stay in f32 throughout.
+torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
 __version__ = "0.1.0"
 

@@ -2,9 +2,14 @@
 
 The JAX state, fetched to numpy, is a nested dict::
 
-    {"params": {"table": [L*R, F*lpf],
+    {"params": {["table": [L*R, F*lpf] (block grid) or [L*T, F] (hash),]
                 "coarse": {"sigma_net": [{"w": [in, out]}, ...],
-                           "color_net": [{"w": [in, out]}, ...]},
+                           "color_net": [{"w": [in, out]}, ...]}
+                          (NeRFSmall) or
+                          {"pts_linears": [{"w", "b"}, ...],
+                           "feature_linear", "alpha_linear",
+                           "views_linears": [...], "rgb_linear"
+                           | "output_linear"} (NeRFBig),
                 ["fine": {...}]},
      "occ": {"density": [res^3]} or None,
      # the training leaves (state_from_numpy / state_to_numpy):
@@ -31,7 +36,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from indoor_nerf_tpu_torch.models.mlp import NeRFSmall
+from indoor_nerf_tpu_torch.models.mlp import NeRFBig, NeRFSmall
 from indoor_nerf_tpu_torch.train.optim import named_leaves
 from indoor_nerf_tpu_torch.train.step import make_train_state
 
@@ -43,26 +48,72 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(a, dtype=np.float32, copy=True)).to(device)
 
 
+def _linear_from_numpy(layer: Tree, device) -> nn.ParameterDict:
+    return nn.ParameterDict({k: nn.Parameter(_tensor(v, device))
+                             for k, v in layer.items()})
+
+
 def _nerf_small_from_numpy(tree: Tree, device) -> NeRFSmall:
     def layers(key):
-        out = []
         for layer in tree[key]:
             if set(layer) != {"w"}:
                 raise ValueError(f"{key} layers hold {sorted(layer)}; "
                                  "NeRFSmall layers are bias-free")
-            out.append(nn.ParameterDict({"w": nn.Parameter(
-                _tensor(layer["w"], device))}))
-        return out
+        return [_linear_from_numpy(layer, device) for layer in tree[key]]
 
     return NeRFSmall(layers("sigma_net"), layers("color_net"))
 
 
+_BIG_HEADS = ("feature_linear", "alpha_linear", "views_linears", "rgb_linear",
+              "output_linear")
+
+
+def _nerf_big_from_numpy(tree: Tree, device) -> NeRFBig:
+    heads = {}
+    for name in _BIG_HEADS:
+        if name in tree:
+            layer = tree[name]
+            heads[name] = ([_linear_from_numpy(l, device) for l in layer]
+                           if name == "views_linears"
+                           else _linear_from_numpy(layer, device))
+    return NeRFBig([_linear_from_numpy(l, device) for l in tree["pts_linears"]],
+                   heads)
+
+
+def _mlp_from_numpy(tree: Tree, device):
+    if "pts_linears" in tree:
+        return _nerf_big_from_numpy(tree, device)
+    return _nerf_small_from_numpy(tree, device)
+
+
+def _mlp_to_numpy(mlp) -> Tree:
+    """A NeRFSmall or NeRFBig as its JAX tree of numpy leaves."""
+    def arr(t):
+        return t.detach().cpu().numpy()
+
+    def layer(p):
+        return {k: arr(v) for k, v in p.items()}
+
+    if isinstance(mlp, NeRFSmall):
+        return {"sigma_net": [layer(l) for l in mlp.sigma_net],
+                "color_net": [layer(l) for l in mlp.color_net]}
+    out = {"pts_linears": [layer(l) for l in mlp.pts_linears]}
+    for name in _BIG_HEADS:
+        if hasattr(mlp, name):
+            head = getattr(mlp, name)
+            out[name] = ([layer(l) for l in head] if name == "views_linears"
+                         else layer(head))
+    return out
+
+
 def params_from_numpy(tree: Tree, device=None) -> Tree:
     """JAX state (numpy leaves) -> ``{"params": {...}, "occ": {...} | None}``."""
-    params = {"table": _tensor(tree["params"]["table"], device)}
+    params = {}
+    if "table" in tree["params"]:
+        params["table"] = _tensor(tree["params"]["table"], device)
     for name in _MLPS:
         if name in tree["params"]:
-            params[name] = _nerf_small_from_numpy(tree["params"][name], device)
+            params[name] = _mlp_from_numpy(tree["params"][name], device)
     occ = tree.get("occ")
     return {
         "params": params,
@@ -72,21 +123,17 @@ def params_from_numpy(tree: Tree, device=None) -> Tree:
 
 def params_to_numpy(state: Tree) -> Tree:
     """The inverse of ``params_from_numpy``: port state -> numpy leaves."""
-    def arr(t):
-        return t.detach().cpu().numpy()
-
-    params = {"table": arr(state["params"]["table"])}
+    params = {}
+    if "table" in state["params"]:
+        params["table"] = state["params"]["table"].detach().cpu().numpy()
     for name in _MLPS:
         if name in state["params"]:
-            mlp = state["params"][name]
-            params[name] = {
-                "sigma_net": [{"w": arr(l["w"])} for l in mlp.sigma_net],
-                "color_net": [{"w": arr(l["w"])} for l in mlp.color_net],
-            }
+            params[name] = _mlp_to_numpy(state["params"][name])
     occ = state.get("occ")
     return {
         "params": params,
-        "occ": None if occ is None else {"density": arr(occ["density"])},
+        "occ": None if occ is None else {
+            "density": occ["density"].detach().cpu().numpy()},
     }
 
 

@@ -1,10 +1,13 @@
-"""The radiance field: block-hash encode + NeRFSmall + out-of-bbox masking.
+"""The radiance field: encoders + MLP + out-of-bbox masking
+(models/field.py of the JAX package) without quantization, level/view
+annealing, appearance latents or tensor parallelism.
 
-Port of models/field.py of the JAX package for ``i_embed 3`` (the
-block-hash grid, flat or ray-structured) without quantization, level/view
-annealing, appearance latents or tensor parallelism. ``params`` is a dict:
-``"table"`` (the ``[L*R, F*lpf]`` tensor) and ``"coarse"`` (a
-``NeRFSmall``).
+Three encoders, as ``i_embed`` says: 3, the block-hash grid (flat or
+ray-structured); 1, the multiresolution hash grid; 0 (any other value, as
+in the JAX package), the frequency PE. ``params`` is a dict: ``"table"``
+(the block table ``[L*R, F*lpf]`` or the hash table ``[L*T, F]``; none for
+PE), ``"coarse"`` and, with ``n_importance > 0``, ``"fine"``: NeRFSmall
+nets for the grids, NeRFBig nets for PE.
 """
 
 from __future__ import annotations
@@ -15,7 +18,11 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.profiler import record_function
 
-from indoor_nerf_tpu_torch.models.mlp import init_nerf_small
+from indoor_nerf_tpu_torch.models.mlp import (
+    apply_nerf_big,
+    init_nerf_big,
+    init_nerf_small,
+)
 from indoor_nerf_tpu_torch.ops.blockhash import (
     BlockHashConfig,
     block_hash_encode,
@@ -24,44 +31,66 @@ from indoor_nerf_tpu_torch.ops.blockhash import (
     gather_table,
     init_block_table,
 )
-from indoor_nerf_tpu_torch.ops.encoding import sh_encode
+from indoor_nerf_tpu_torch.ops.encoding import (
+    HashGridConfig,
+    hash_encode,
+    init_hash_table,
+    positional_encode,
+    positional_encode_dim,
+    sh_encode,
+)
 
 Params = Dict[str, Any]
 
 
 @dataclasses.dataclass(frozen=True)
 class FieldConfig:
-    """Static model configuration (the JAX FieldConfig's serving subset)."""
+    """Static model configuration (the JAX FieldConfig's fields that the
+    port runs; same defaults)."""
 
+    grid: Optional[HashGridConfig] = None
     block_grid: Optional[BlockHashConfig] = None
-    i_embed: int = 3  # 3 = block-hash; 1 (hash grid) and 0 (PE) not ported
-    i_embed_views: int = 2  # 2 = SH degree 4
+    # 3 = block-hash, 1 = hash grid, else positional encoding. The JAX
+    # default is 1; the port's stays 3, the block grid it began with (the
+    # CLI always passes --i_embed, whose default is 1).
+    i_embed: int = 3
+    i_embed_views: int = 2  # 2 = SH degree 4, else positional encoding
+    multires: int = 10
+    multires_views: int = 4
     use_viewdirs: bool = True
     n_importance: int = 0
+    # NeRFSmall (the grid encoders)
     num_layers: int = 2
     hidden_dim: int = 64
     geo_feat_dim: int = 15
     num_layers_color: int = 3
     hidden_dim_color: int = 64
-    compute_dtype: str = "float32"  # or "bfloat16": MLP inputs rounded, f32 sums
-
-    def __post_init__(self):
-        if self.i_embed != 3:
-            raise NotImplementedError(
-                f"i_embed {self.i_embed}: the hash-grid and PE encoders come "
-                "with ROADMAP.md Queue 1 item 4 (the parity path)")
-        if self.use_viewdirs and self.i_embed_views != 2:
-            raise NotImplementedError(
-                "PE view encoding comes with ROADMAP.md Queue 1 item 4 "
-                "(the parity path)")
+    # NeRFBig (PE)
+    netdepth: int = 8
+    netwidth: int = 256
+    netdepth_fine: int = 8
+    netwidth_fine: int = 256
+    compute_dtype: str = "float32"  # or "bfloat16": NeRFSmall's products
 
     @property
     def input_ch(self) -> int:
-        return self.block_grid.out_dim
+        if self.i_embed == 1:
+            return self.grid.out_dim
+        if self.i_embed == 3:
+            return self.block_grid.out_dim
+        return positional_encode_dim(self.multires)
+
+    @property
+    def uses_grid(self) -> bool:
+        return self.i_embed in (1, 3)
 
     @property
     def input_ch_views(self) -> int:
-        return 16 if self.use_viewdirs else 0  # SH degree 4
+        if not self.use_viewdirs:
+            return 0
+        if self.i_embed_views == 2:
+            return 16  # SH degree 4
+        return positional_encode_dim(self.multires_views)
 
     @property
     def torch_compute_dtype(self) -> Optional[torch.dtype]:
@@ -70,24 +99,48 @@ class FieldConfig:
 
 def init_field_params(generator: torch.Generator, config: FieldConfig,
                       device=None) -> Params:
-    """Fresh params: the block table and the coarse NeRFSmall (the one net
-    of the occupancy pass and of ``n_importance 0``; the fine net comes with
-    the hierarchical pass, ROADMAP.md Queue 1 item 4).
+    """Fresh params: the grid's table (shared by both nets), the coarse net
+    and, with ``n_importance > 0``, the fine one: NeRFSmall for the grids,
+    NeRFBig for PE (whose coarse net has 5 outputs where a fine pass
+    follows and no view head).
 
     Same shapes and distributions as the JAX init; the numbers differ
     (torch.Generator is not jax.random), so parity tests bridge weights.
     The MLP weights are ``nn.Parameter``s; the table is a plain tensor
     until a train state marks every leaf trainable (``train/step.py``)."""
-    return {
-        "table": init_block_table(generator, config.block_grid, device),
-        "coarse": init_nerf_small(
-            generator, input_ch=config.input_ch,
-            input_ch_views=config.input_ch_views,
-            num_layers=config.num_layers, hidden_dim=config.hidden_dim,
-            geo_feat_dim=config.geo_feat_dim,
-            num_layers_color=config.num_layers_color,
-            hidden_dim_color=config.hidden_dim_color, device=device),
-    }
+    params: Params = {}
+    names = ("coarse", "fine") if config.n_importance > 0 else ("coarse",)
+    if config.uses_grid:
+        if config.i_embed == 1:
+            params["table"] = init_hash_table(generator, config.grid, device)
+        else:
+            params["table"] = init_block_table(generator, config.block_grid,
+                                               device)
+        for name in names:
+            params[name] = init_nerf_small(
+                generator, input_ch=config.input_ch,
+                input_ch_views=config.input_ch_views,
+                num_layers=config.num_layers, hidden_dim=config.hidden_dim,
+                geo_feat_dim=config.geo_feat_dim,
+                num_layers_color=config.num_layers_color,
+                hidden_dim_color=config.hidden_dim_color, device=device)
+    else:
+        for name in names:
+            fine = name == "fine"
+            params[name] = init_nerf_big(
+                generator, D=config.netdepth_fine if fine else config.netdepth,
+                W=config.netwidth_fine if fine else config.netwidth,
+                input_ch=config.input_ch, input_ch_views=config.input_ch_views,
+                output_ch=5 if config.n_importance > 0 else 4,
+                use_viewdirs=config.use_viewdirs, device=device)
+    return params
+
+
+def params_device(params: Params) -> torch.device:
+    """The device the params live on."""
+    if "table" in params:
+        return params["table"].device
+    return next(params["coarse"].parameters()).device
 
 
 def serving_params(params: Params, config: FieldConfig) -> Params:
@@ -97,10 +150,12 @@ def serving_params(params: Params, config: FieldConfig) -> Params:
     fixed, so it packs once. The copy is valid only while the params do not
     change: re-derive it after any update. It carries no gradient. The
     tile-interp route gathers whole rows of the master layout, so its table
-    stays as it is."""
+    stays as it is, and so does the hash grid's."""
     out = dict(params)
+    if "table" not in params:
+        return out
     table = params["table"].detach()
-    if not config.block_grid.uses_tile_interp:
+    if config.i_embed == 3 and not config.block_grid.uses_tile_interp:
         table = gather_table(table, config.block_grid)
     out["table"] = table
     return out
@@ -108,20 +163,40 @@ def serving_params(params: Params, config: FieldConfig) -> Params:
 
 def encode_position(x: torch.Tensor, params: Params, config: FieldConfig
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Encode flat ``[N, 3]`` positions -> (feats ``[N, L*F]``, keep_mask ``[N]``)."""
-    return block_hash_encode(x, params["table"], config.block_grid)
+    """Encode flat ``[N, 3]`` positions -> (feats ``[N, input_ch]``,
+    keep_mask ``[N]``; all True for PE)."""
+    if config.i_embed == 1:
+        return hash_encode(x, params["table"], config.grid)
+    if config.i_embed == 3:
+        return block_hash_encode(x, params["table"], config.block_grid)
+    feats = positional_encode(x, config.multires)
+    return feats, torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
 
 
-def encode_views(dirs: torch.Tensor, config: FieldConfig) -> torch.Tensor:
-    return sh_encode(dirs, degree=4)
+def encode_views(dirs: torch.Tensor, i_embed_views: int,
+                 multires_views: int) -> torch.Tensor:
+    """SH of degree 4 (``i_embed_views`` 2) or PE of ``multires_views``
+    frequencies (0) of the view directions."""
+    if i_embed_views == 2:
+        return sh_encode(dirs, degree=4)
+    return positional_encode(dirs, multires_views)
 
 
 def sigma_query(params: Params, mlp_name: str, pts: torch.Tensor,
                 config: FieldConfig, with_geo: bool = False):
     """Density-only query ``[N]`` (encode + sigma net), zero outside the
     bbox. ``with_geo`` also returns the sigma net's geometry features
-    ``[N, geo_feat_dim]`` (not masked), which the bake stores per vertex."""
-    h, keep = encode_position(pts, params, config)
+    ``[N, geo_feat_dim]`` (not masked), which the bake stores per vertex;
+    grid fields only. For PE the whole NeRFBig runs, with the view
+    encoding of zero directions (the JAX form)."""
+    feats, keep = encode_position(pts, params, config)
+    if not config.uses_grid:
+        view_feats = (encode_views(torch.zeros_like(pts), config.i_embed_views,
+                                   config.multires_views)
+                      if config.use_viewdirs else None)
+        raw = apply_nerf_big(params[mlp_name], feats, view_feats)
+        return torch.where(keep, raw[..., 3], 0.0)
+    h = feats
     sigma_net = params[mlp_name].sigma_net
     for l, layer in enumerate(sigma_net):
         h = h @ layer["w"]
@@ -134,7 +209,8 @@ def sigma_query(params: Params, mlp_name: str, pts: torch.Tensor,
 def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
                 viewdirs: Optional[torch.Tensor], config: FieldConfig
                 ) -> torch.Tensor:
-    """Query the field on an ``[R, S, 3]`` sample grid -> raw ``[R, S, 4]``.
+    """Query the field on an ``[R, S, 3]`` sample grid -> raw ``[R, S, C]``
+    (C = 4; 5 for a PE net without view head ahead of a fine pass).
 
     With ``ray_groups`` or ``ray_strides`` set on the block grid the encode
     is the ray-structured one (JAX field.py:519-546); else the flat one.
@@ -143,7 +219,8 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
     r, s, _ = pts.shape
     bg = config.block_grid
     with record_function("encode"):
-        if bg.ray_groups is not None or bg.ray_strides is not None:
+        if config.i_embed == 3 and (bg.ray_groups is not None
+                                    or bg.ray_strides is not None):
             enc = (block_hash_encode_grouped if bg.ray_groups is not None
                    else block_hash_encode_strided)
             feats3, keep2 = enc(pts, params["table"], bg)
@@ -153,11 +230,12 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
 
     view_feats = None
     if config.use_viewdirs and viewdirs is not None:
-        vf = encode_views(viewdirs, config)  # [R, D]
+        vf = encode_views(viewdirs, config.i_embed_views,
+                          config.multires_views)  # [R, D]
         view_feats = vf[:, None, :].expand(r, s, vf.shape[-1]).reshape(r * s, -1)
 
     with record_function("mlp"):
         raw = params[mlp_name](feats, view_feats, config.torch_compute_dtype)
         sigma = torch.where(keep, raw[..., 3], 0.0)
-        raw = torch.cat([raw[..., :3], sigma[..., None]], dim=-1)
+        raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
     return raw.reshape(r, s, -1)

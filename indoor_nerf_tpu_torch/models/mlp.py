@@ -1,13 +1,16 @@
-"""NeRFSmall (models/mlp.py of the JAX package) as an ``nn.Module``.
+"""The NeRF MLPs of models/mlp.py of the JAX package as ``nn.Module``s:
+``NeRFSmall`` (the grid encoders' net) and ``NeRFBig`` (the classic NeRF of
+the PE path, 8 x 256 with a skip at layer 4).
 
 Weights keep the JAX layout ``[in_dim, out_dim]`` (``y = x @ w``), so the
 bridge moves them across without a transpose. The state-dict keys
-(``sigma_net.0.w``) mirror the JAX pytree paths (``sigma_net[0]["w"]``).
+(``sigma_net.0.w``, ``pts_linears.4.b``, ``rgb_linear.w``) mirror the JAX
+pytree paths (``sigma_net[0]["w"]``, ...).
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -105,3 +108,77 @@ def apply_nerf_small(model: NeRFSmall, input_pts: torch.Tensor,
         if l != len(model.color_net) - 1:
             h = torch.relu(h)
     return torch.cat([h, sigma], dim=-1)
+
+
+class NeRFBig(nn.Module):
+    """The classic NeRF MLP: ``pts_linears`` (``D`` biased Linears of width
+    ``W``, the encoded input concatenated back in after the ``skips``
+    layers), then either the view head (``alpha_linear``,
+    ``feature_linear``, ``views_linears``, ``rgb_linear``) or
+    ``output_linear``.
+
+    forward(input_pts [N, input_ch], input_views [N, input_ch_views] | None)
+    -> ``[N, 4]`` (rgb logits, sigma) with the view head, else ``[N,
+    output_ch]``."""
+
+    def __init__(self, pts_linears, heads, skips=(4,)):
+        super().__init__()
+        self.pts_linears = nn.ModuleList(pts_linears)
+        for name, layer in heads.items():
+            setattr(self, name, nn.ModuleList(layer) if name == "views_linears"
+                    else layer)
+        self.skips = tuple(skips)
+
+    @property
+    def use_viewdirs(self) -> bool:
+        return hasattr(self, "rgb_linear")
+
+    def forward(self, input_pts: torch.Tensor,
+                input_views: Optional[torch.Tensor],
+                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """``compute_dtype`` is taken and not used: the JAX big NeRF runs in
+        f32 whatever ``--precision`` says."""
+        return apply_nerf_big(self, input_pts, input_views)
+
+
+def init_nerf_big(generator: torch.Generator, D: int = 8, W: int = 256,
+                  input_ch: int = 3, input_ch_views: int = 3,
+                  output_ch: int = 4, skips: Sequence[int] = (4,),
+                  use_viewdirs: bool = False, device=None) -> NeRFBig:
+    """Init the classic NeRF MLP (the JAX ``init_nerf_big``'s shapes and
+    distributions, torch-default Linear init)."""
+    pts_linears = [init_linear(generator, input_ch, W, device=device)]
+    for i in range(D - 1):
+        in_dim = W + input_ch if i in skips else W
+        pts_linears.append(init_linear(generator, in_dim, W, device=device))
+    if use_viewdirs:
+        heads = {
+            "feature_linear": init_linear(generator, W, W, device=device),
+            "alpha_linear": init_linear(generator, W, 1, device=device),
+            "views_linears": [init_linear(generator, input_ch_views + W,
+                                          W // 2, device=device)],
+            "rgb_linear": init_linear(generator, W // 2, 3, device=device),
+        }
+    else:
+        heads = {"output_linear": init_linear(generator, W, output_ch,
+                                              device=device)}
+    return NeRFBig(pts_linears, heads, skips)
+
+
+def apply_nerf_big(model: NeRFBig, input_pts: torch.Tensor,
+                   input_views: Optional[torch.Tensor]) -> torch.Tensor:
+    """Forward the classic NeRF MLP (the JAX ``apply_nerf_big``)."""
+    h = input_pts
+    for i, layer in enumerate(model.pts_linears):
+        h = torch.relu(_linear(layer, h))
+        if i in model.skips:
+            h = torch.cat([input_pts, h], dim=-1)
+    if model.use_viewdirs:
+        alpha = _linear(model.alpha_linear, h)
+        feature = _linear(model.feature_linear, h)
+        h = torch.cat([feature, input_views], dim=-1)
+        for layer in model.views_linears:
+            h = torch.relu(_linear(layer, h))
+        rgb = _linear(model.rgb_linear, h)
+        return torch.cat([rgb, alpha], dim=-1)
+    return _linear(model.output_linear, h)

@@ -2,8 +2,9 @@
 renders without the per-sample MLP (render/baked.py of the JAX package).
 
 1. **Bake** (``bake_field``): the trained sigma net is evaluated once per
-   grid vertex (through ``encode_position`` -> ``block_hash_encode``, which
-   on the card runs the hand-written ``tent_contract`` kernel), and the
+   grid vertex (through ``encode_position``: ``block_hash_encode``, which
+   on the card runs the hand-written ``tent_contract`` kernel, or the hash
+   grid's ``hash_encode``), and the
    results are laid out so that every render fetch is one 128-lane row:
    - sigma in halo'd 5^3 block tiles ``[E^3, 128]`` with perfect
      (collision-free) linear block indexing;
@@ -41,8 +42,13 @@ import torch
 import torch.nn.functional as nnf
 from torch.profiler import record_function
 
-from indoor_nerf_tpu_torch.models.field import FieldConfig, serving_params, sigma_query
-from indoor_nerf_tpu_torch.ops.encoding import sh_encode
+from indoor_nerf_tpu_torch.models.field import (
+    FieldConfig,
+    encode_views,
+    params_device,
+    serving_params,
+    sigma_query,
+)
 from indoor_nerf_tpu_torch.ops.rays import get_rays
 from indoor_nerf_tpu_torch.ops.sampling import linspace01
 from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract
@@ -186,7 +192,7 @@ def _visibility_mask(params, config: FieldConfig, mlp_name: str,
     training ray ever looked is unconstrained by the loss, and the bake
     would otherwise put such floaters on the grid. The mask is never finer
     than the visibility rays (``R <= H, W``)."""
-    dev = params["table"].device
+    dev = params_device(params)
     poses = torch.as_tensor(np.asarray(cameras["poses"], np.float32), device=dev)
     K = torch.as_tensor(np.asarray(cameras["K"], np.float32), device=dev)
     H = int(cameras["H"]) // subsample
@@ -253,7 +259,7 @@ def bake_field(params: Dict[str, Any], config: FieldConfig,
     Returns ``{"sigma_table": [n_blocks, 128], "voxel_geo": [R^3, 128],
     "block_max": [n_blocks], "color_net": [{"w": ...}, ...], "config":
     BakedConfig}`` plus ``sigma_scale`` / ``geo_scale`` for int8 tables, on
-    the device of ``params["table"]``. ``block_max`` is the largest sigma
+    the device of the params. ``block_max`` is the largest sigma
     per block, in density units.
 
     ``train_cameras`` ({"poses" [V,3,4], "K", "H", "W", "near", "far"})
@@ -262,11 +268,12 @@ def bake_field(params: Dict[str, Any], config: FieldConfig,
     baking (see ``_visibility_mask``).
 
     The vertex sweep queries ``blocks_per_chunk * 128`` points at a time
-    through the encode; the table is packed once for it
+    through the encode of the field's grid (``encode_position``: the block
+    grid or the hash grid); a block table is packed once for it
     (``serving_params``), so on the card every chunk is one ``tent_contract``
     launch. ``geo_resolution`` -1 is ``resolution // 2``, 0 the full
     resolution."""
-    if config.block_grid is None:
+    if not config.uses_grid:
         raise ValueError("bake_field needs a NeRFSmall-style grid field")
     if sigma_enc not in ("sqrt", "log1p"):
         raise ValueError(f"sigma_enc must be 'sqrt' or 'log1p', got "
@@ -284,20 +291,20 @@ def bake_field(params: Dict[str, Any], config: FieldConfig,
     geo_dim = config.geo_feat_dim
     if geo_dim > 15:
         raise ValueError("voxel-corner rows fit geo_feat_dim <= 15")
-    src = config.block_grid
+    src = config.grid if config.grid is not None else config.block_grid
     mlp_name = "fine" if "fine" in params else "coarse"
     bc = BakedConfig(
         bbox_min=tuple(float(v) for v in src.bbox_min),
         bbox_max=tuple(float(v) for v in src.bbox_max),
         resolution=resolution, n_features=1 + geo_dim,
         i_embed_views=config.i_embed_views,
-        multires_views=getattr(config, "multires_views", 4),
+        multires_views=config.multires_views,
         table_dtype=table_dtype, geo_resolution=geo_resolution,
         sigma_enc=sigma_enc)
     E, n_blocks = bc.blocks_per_edge, bc.n_blocks
     V = resolution + 1  # vertices per edge
     params = serving_params(params, config)
-    dev = params["table"].device
+    dev = params_device(params)
 
     bmin = np.asarray(bc.bbox_min, np.float32)
     bmax = np.asarray(bc.bbox_max, np.float32)
@@ -560,7 +567,8 @@ def baked_render_rays(baked: Dict[str, Any], rays_o: torch.Tensor,
 
     with record_function("baked_color"):
         # Deferred shading: one colour-net pass per ray.
-        h = torch.cat([sh_encode(viewdirs, degree=4), feat_ray], dim=-1)
+        h = torch.cat([encode_views(viewdirs, bc.i_embed_views,
+                                    bc.multires_views), feat_ray], dim=-1)
         for l, layer in enumerate(baked["color_net"]):
             h = h @ layer["w"]
             if "b" in layer:

@@ -21,7 +21,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 import torch
 
-from indoor_nerf_tpu_torch.models.field import serving_params
+from indoor_nerf_tpu_torch.models.field import params_device, serving_params
 from indoor_nerf_tpu_torch.render.renderer import (
     RenderConfig,
     _render_pose_block,
@@ -81,7 +81,7 @@ def render_path(
     else:
         block = max(1, min(POSE_BLOCK, n_poses))
         sp = serving_params(params, config.field)
-        dev = sp["table"].device
+        dev = params_device(sp)
         tile = tile_rays or default_tile_rays(dev, config)
         K_t = torch.as_tensor(np.asarray(K, np.float32), device=dev)
 

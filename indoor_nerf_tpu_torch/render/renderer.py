@@ -1,11 +1,14 @@
 """Volumetric rendering (render/renderer.py of the JAX package).
 
-``render_rays`` runs the occupancy-guided single pass (the flagship) or the
-stratified single pass (``n_importance == 0``); the hierarchical fine pass
-comes with ROADMAP.md Queue 1 item 4. Full images are rendered as a Python
-loop over fixed ray tiles in place of the JAX ``lax.map``. Serving draws no
-random numbers: ``test_mode`` sets ``perturb = 0`` and no sigma noise.
-Training passes the jitter and sigma-noise draws (``draw_render``).
+``render_rays`` runs the occupancy-guided single pass (the flagship), the
+stratified single pass (``n_importance == 0``) or the hierarchical one
+(stratified coarse samples, then ``n_importance`` more drawn from the
+coarse weights, and the fine net on all of them). Full images are rendered
+as a Python loop over ray tiles in place of the JAX ``lax.map``, tiles
+sized from the card's free memory and the config (``bytes_per_ray``).
+Serving draws no random numbers: ``test_mode`` sets ``perturb = 0`` and no
+sigma noise. Training passes the jitter and sigma-noise draws
+(``draw_render``).
 """
 
 from __future__ import annotations
@@ -17,10 +20,20 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
-from indoor_nerf_tpu_torch.models.field import FieldConfig, query_field, serving_params
+from indoor_nerf_tpu_torch.models.field import (
+    FieldConfig,
+    params_device,
+    query_field,
+    serving_params,
+)
 from indoor_nerf_tpu_torch.ops.occupancy import OccState, OccupancyConfig, occupancy_z_vals
 from indoor_nerf_tpu_torch.ops.rays import get_rays, ndc_rays
-from indoor_nerf_tpu_torch.ops.sampling import draw_pdf_u, draw_stratified, stratified_z_vals
+from indoor_nerf_tpu_torch.ops.sampling import (
+    draw_pdf_u,
+    draw_stratified,
+    sample_pdf,
+    stratified_z_vals,
+)
 from indoor_nerf_tpu_torch.ops.volume import draw_sigma_noise, raw2outputs
 
 MAP_KEYS = ("rgb_map", "depth_map", "acc_map", "disp_map")
@@ -58,31 +71,38 @@ def _draw_shapes(config: RenderConfig, n_rays: int) -> Dict[str, Tuple[int, int]
     """The draws a render of ``n_rays`` rays takes under ``config``."""
     occ = config.occupancy
     n_samples = config.n_samples if occ is None else config.n_occ_samples
+    fine = occ is None and config.n_importance > 0
     shapes = {}
     if config.perturb != 0.0:
         if occ is None:
             shapes["t_rand"] = (n_rays, config.n_samples)
+            if fine:
+                shapes["u"] = (n_rays, config.n_importance)
         else:
             shapes["t_rand"] = (n_rays, occ.n_candidates)
             shapes["u"] = (n_rays, config.n_occ_samples)
     if config.raw_noise_std > 0.0:
         shapes["sigma_noise"] = (n_rays, n_samples)
+        if fine:
+            shapes["sigma_noise1"] = (n_rays, n_samples + config.n_importance)
     return shapes
 
 
 def draw_render(generator: torch.Generator, n_rays: int,
                 config: RenderConfig) -> Dict[str, torch.Tensor]:
     """A training render's draws from ``generator`` (on its device):
-    ``t_rand`` (stratum jitter), ``u`` (inverse-CDF draws, occupancy path)
-    and ``sigma_noise`` (already scaled by ``raw_noise_std``), each only
-    where ``config`` uses it. Empty for ``test_mode()`` configs."""
+    ``t_rand`` (stratum jitter), ``u`` (inverse-CDF draws of the occupancy
+    path or of the fine pass), ``sigma_noise`` and, on the hierarchical
+    path, ``sigma_noise1`` of the fine pass (already scaled by
+    ``raw_noise_std``), each only where ``config`` uses it. Empty for
+    ``test_mode()`` configs."""
     out = {}
     for k, shape in _draw_shapes(config, n_rays).items():
         if k == "t_rand":
             out[k] = draw_stratified(generator, *shape)
         elif k == "u":
             out[k] = draw_pdf_u(generator, *shape)
-        else:
+        else:  # sigma_noise, sigma_noise1
             out[k] = draw_sigma_noise(generator, shape, config.raw_noise_std)
     return out
 
@@ -96,11 +116,15 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                 ) -> Dict[str, torch.Tensor]:
     """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
     ``[N, 1]``). Returns rgb/depth/acc/disp maps, the entropy
-    ``sparsity_loss``, ``weights`` and ``z_vals``.
+    ``sparsity_loss``, ``weights``, ``z_vals`` and ``pts``; the hierarchical
+    path also the coarse pass's ``rgb0``, ``depth0``, ``acc0`` and
+    ``sparsity_loss0``, and ``z_std``, the population std of the fine
+    samples' depths.
 
-    A ``test_mode()`` config renders deterministically. Otherwise
-    ``draws`` (``draw_render``) carries the jitter and sigma noise, as the
-    JAX ``render_rays`` key does with ``train=True``."""
+    A ``test_mode()`` config renders deterministically (the fine samples at
+    the inverse CDF of a linspace). Otherwise ``draws`` (``draw_render``)
+    carries the jitter and sigma noise, as the JAX ``render_rays`` key does
+    with ``train=True``."""
     draws = draws or {}
     missing = sorted(set(_draw_shapes(config, rays_o.shape[0])) - set(draws))
     if missing:
@@ -115,21 +139,40 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                                       step, t_rand=draws.get("t_rand"),
                                       u=draws.get("u"))
         mlp_name = "fine" if "fine" in params else "coarse"
-    elif config.n_importance == 0:
-        z_vals = stratified_z_vals(near, far, config.n_samples,
-                                   lindisp=config.lindisp,
-                                   t_rand=draws.get("t_rand"))
-        mlp_name = "coarse"
     else:
-        raise NotImplementedError(
-            "the hierarchical fine pass (N_importance > 0 without occupancy) "
-            "comes with ROADMAP.md Queue 1 item 4 (the parity path)")
+        with record_function("sample"):
+            z_vals = stratified_z_vals(near, far, config.n_samples,
+                                       lindisp=config.lindisp,
+                                       t_rand=draws.get("t_rand"))
+        mlp_name = "coarse"
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw = query_field(params, mlp_name, pts, viewdirs, fc)
     with record_function("composite"):
         out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd,
                           sigma_noise=draws.get("sigma_noise"))
+
+    if config.occupancy is None and config.n_importance > 0:
+        coarse = out
+        with record_function("sample"):
+            z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
+            z_samples = sample_pdf(z_mid, coarse["weights"][..., 1:-1],
+                                   config.n_importance,
+                                   u=draws.get("u")).detach()
+            z_vals = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
+        pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
+        raw = query_field(params, "fine" if "fine" in params else "coarse",
+                          pts, viewdirs, fc)
+        with record_function("composite"):
+            out = raw2outputs(raw, z_vals, rays_d,
+                              white_bkgd=config.white_bkgd,
+                              sigma_noise=draws.get("sigma_noise1"))
+        out["rgb0"] = coarse["rgb_map"]
+        out["depth0"] = coarse["depth_map"]
+        out["acc0"] = coarse["acc_map"]
+        out["sparsity_loss0"] = coarse["sparsity_loss"]
+        out["z_std"] = torch.std(z_samples, dim=-1, correction=0)
     out["z_vals"] = z_vals
+    out["pts"] = pts
     return out
 
 
@@ -153,16 +196,55 @@ def _prepare_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, H: int,
     return rays_o, rays_d, viewdirs, near_a, far_a
 
 
+# Device bytes per sample of the compositing and sampling tensors of a
+# pass beside the encode and the MLP (raw, rgb, alpha, weights, depths,
+# points, their temporaries). With it the reckoning of ``_sample_bytes``
+# lies above the peak per ray of a tile measured with max_memory_allocated
+# on an H100 at configs/lego.txt's width, hash grid and PE (chip_smoke.py
+# phases y4, y5; PERF.md §6).
+SAMPLE_BYTES = 160
+
+
+def _sample_bytes(fc: FieldConfig) -> int:
+    """Device bytes one sample holds at the peak of a test-mode pass with
+    the hash grid or PE: the encode's live tensors (hash grid: the int32
+    corner rows, the f32 corner weights, the gathered corner features and
+    their weighted copy, ``L * (32 + 32 + 64 F)``; PE: the features and a
+    band's sin and cos) and the widest MLP layer's input and output."""
+    if fc.i_embed == 1:
+        g = fc.grid
+        enc = g.n_levels * (32 + 32 + 64 * g.n_features_per_level)
+        mlp = 4 * (fc.input_ch + fc.input_ch_views
+                   + 2 * max(fc.hidden_dim, fc.hidden_dim_color))
+    else:
+        enc = 4 * 3 * fc.input_ch
+        width = max(fc.netwidth, fc.netwidth_fine)
+        mlp = 4 * (3 * width + fc.input_ch + fc.input_ch_views)
+    return enc + mlp + SAMPLE_BYTES
+
+
 def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
-    """Device bytes one ray of a test-mode render holds at its peak:
-    ``BYTES_PER_RAY``, plus, on the tile-interp route of the encode, the
-    gathered rows, which that route alone keeps in device memory: samples x
-    levels rows of ``F * lpf`` f32 (32 x 16 x 1 KiB = 512 KiB at the
-    block-hash defaults), and their bf16 form before the cast where the
-    gather reads bf16."""
-    if config is None or not config.field.block_grid.uses_tile_interp:
+    """Device bytes one ray of a test-mode render holds at its peak.
+
+    The block-hash grid (``i_embed 3``): ``BYTES_PER_RAY``, plus, on the
+    tile-interp route of the encode, the gathered rows, which that route
+    alone keeps in device memory: samples x levels rows of ``F * lpf`` f32
+    (32 x 16 x 1 KiB = 512 KiB at the block-hash defaults), and their bf16
+    form before the cast where the gather reads bf16.
+
+    The hash grid and PE: the samples of the largest pass (the fine pass's
+    ``n_samples + n_importance``) at ``_sample_bytes`` (0.76 MB at
+    configs/lego.txt's 192 samples x 16 levels)."""
+    if config is None:
         return BYTES_PER_RAY
-    bg = config.field.block_grid
+    fc = config.field
+    if fc.i_embed != 3:
+        n = (config.n_occ_samples if config.occupancy is not None
+             else config.n_samples + config.n_importance)
+        return n * _sample_bytes(fc)
+    if not fc.block_grid.uses_tile_interp:
+        return BYTES_PER_RAY
+    bg = fc.block_grid
     n_samples = (config.n_samples if config.occupancy is None
                  else config.n_occ_samples)
     row_bytes = bg.n_features_per_level * bg.lanes_per_feature * (
@@ -217,11 +299,11 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
 def make_image_renderer(config: RenderConfig, H: int, W: int,
                         tile_rays: Optional[int] = None):
     """A full-image renderer ``(params, c2w, K, near, far[, occ_state]) ->
-    maps`` on the device of ``params["table"]``. ``tile_rays=None`` sizes
-    tiles from the card's memory and ``config`` (``default_tile_rays``)."""
+    maps`` on the device of the params. ``tile_rays=None`` sizes tiles from
+    the card's memory and ``config`` (``default_tile_rays``)."""
 
     def render_fn(params, c2w, K, near, far, occ_state=None):
-        dev = params["table"].device
+        dev = params_device(params)
         tile = tile_rays or default_tile_rays(dev, config)
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=dev)
         K = torch.as_tensor(np.asarray(K, np.float32), device=dev)

@@ -10,7 +10,8 @@ Serves the newest checkpoint of the run the training flags name
 training run's, since the expname is mangled with them) and reports its step
 in /health; with none it serves the seeded initial state and says so.
 Renders on the CUDA card (the block-hash encode then runs the hand-written
-``tent_contract`` kernel) unless the training flags hold ``--device cpu``;
+``tent_contract`` kernel; the hash grid and PE of the parity path are plain
+PyTorch) unless the training flags hold ``--device cpu``;
 with no card visible and no such flag it raises.
 
 ``--baked`` bakes the field into the deferred-shading snapshot

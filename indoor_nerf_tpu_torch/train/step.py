@@ -1,5 +1,5 @@
-"""The flagship training step: render -> loss -> backward -> RAdam -> grid
-refresh (train/step.py of the JAX package, its flagship subset).
+"""The training step: render -> loss -> backward -> RAdam -> grid refresh
+(train/step.py of the JAX package, without its training extensions).
 
     state, metrics = train_step(state, batch, config, generator)
 
@@ -10,10 +10,10 @@ draws. The step updates ``state`` in place (parameters and moments) and
 returns it. Scalars that the host needs only for printing (losses, PSNR)
 stay on the device, so a step never waits for the card.
 
-Off this path, with the ROADMAP.md Queue 1 item that brings each: the
-hierarchical fine pass (item 4), structural priors, A-CAQ,
-distortion, table decay, EMA, reg patches and appearance latents (item 5).
-The CLI refuses their flags (``train/trainer.py``).
+Off this path, with the ROADMAP.md Queue 1 item that brings each:
+structural priors, A-CAQ, distortion, table decay, EMA, reg patches and
+appearance latents (item 5). The CLI refuses their flags
+(``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from indoor_nerf_tpu_torch.ops.occupancy import (
     occupancy_update,
 )
 from indoor_nerf_tpu_torch.ops.rays import ndc_rays
+from indoor_nerf_tpu_torch.ops.tv import draw_tv_origins, total_variation_loss
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig, draw_render, render_rays
 from indoor_nerf_tpu_torch.train.optim import (
     exp_decay_lr,
@@ -52,8 +53,8 @@ LOSS_EMA_DECAY = 0.99
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """Static training configuration: the JAX TrainConfig's flagship fields
-    (reference flags: run_nerf.py:552-715), same defaults."""
+    """Static training configuration: the JAX TrainConfig's fields that the
+    port runs (reference flags: run_nerf.py:552-715), same defaults."""
 
     render: RenderConfig
     near: float = 2.0
@@ -76,7 +77,7 @@ def make_train_state(params: Dict[str, Any], occ: Optional[OccState]
     leaves = named_leaves(params)
     for t in leaves.values():
         t.requires_grad_(True)
-    dev = leaves["table"].device
+    dev = next(iter(leaves.values())).device
     inf = torch.tensor(math.inf, dtype=torch.float32, device=dev)
     return {
         "params": params,
@@ -99,7 +100,9 @@ def init_train_state(generator: torch.Generator, config: TrainConfig,
 
 
 def _tv_active(config: TrainConfig, step: int) -> bool:
-    return config.tv_loss_weight > 0 and step <= config.tv_cutoff_iter
+    """TV on the grid's table (either grid; none for PE) up to the cutoff."""
+    return (config.render.field.uses_grid and config.tv_loss_weight > 0
+            and step <= config.tv_cutoff_iter)
 
 
 def _refresh_due(config: TrainConfig, step: int) -> bool:
@@ -110,10 +113,15 @@ def _refresh_due(config: TrainConfig, step: int) -> bool:
 def draw_step(generator: torch.Generator, config: TrainConfig, step: int,
               n_rays: int) -> Dict[str, torch.Tensor]:
     """Every draw step ``step`` takes: the render's (``draw_render``), the TV
-    rows while TV is on, and the grid refresh's on refresh steps."""
+    rows (block grid) or cube origins (hash grid) while TV is on, and the
+    grid refresh's on refresh steps."""
     draws = draw_render(generator, n_rays, config.render)
+    fc = config.render.field
     if _tv_active(config, step):
-        draws["tv_rows"] = draw_tv_rows(generator, config.render.field.block_grid)
+        if fc.i_embed == 1:
+            draws["tv_origins"] = draw_tv_origins(generator, fc.grid)
+        else:
+            draws["tv_rows"] = draw_tv_rows(generator, fc.block_grid)
     if _refresh_due(config, step):
         cells, jitter = draw_occupancy_update(generator, config.render.occupancy)
         draws["occ_cells"], draws["occ_jitter"] = cells, jitter
@@ -127,8 +135,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One optimization step over the ``[N]`` rays of ``batch``
     (``rays_o``, ``rays_d``, ``target``, each ``[N, 3]``).
 
-    The loss is MSE + ``sparse_loss_weight`` * the summed ray entropy +
-    ``tv_loss_weight`` * ``block_tv_loss`` while ``step <= tv_cutoff_iter``
+    The loss is MSE + ``sparse_loss_weight`` * the summed ray entropy (with
+    a fine pass, of both passes: the coarse pass's MSE and entropy are
+    added) + ``tv_loss_weight`` * the grid's TV (``block_tv_loss`` or the
+    hash grid's ``total_variation_loss``) while ``step <= tv_cutoff_iter``
     (JAX :235-266). Then RAdam at the learning rate of the optimizer's step
     before its increment (:383), the loss EMAs (:392-411), and on every
     ``update_interval``-th step (step 0 included) the grid refresh, which
@@ -160,10 +170,20 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     out = render_rays(params, rays_o, rays_d, viewdirs, near, far, rc,
                       occ_state=state["occ"], step=step, draws=draws)
     img_loss = torch.mean((out["rgb_map"] - target) ** 2)
-    loss = img_loss + config.sparse_loss_weight * torch.sum(out["sparsity_loss"])
+    loss = img_loss
+    sparsity = torch.sum(out["sparsity_loss"])
+    if "rgb0" in out:
+        loss = loss + torch.mean((out["rgb0"] - target) ** 2)
+        sparsity = sparsity + torch.sum(out["sparsity_loss0"])
+    loss = loss + config.sparse_loss_weight * sparsity
     if _tv_active(config, step):
         with record_function("tv"):
-            tv = block_tv_loss(params["table"], fc.block_grid, draws["tv_rows"])
+            if fc.i_embed == 1:
+                tv = total_variation_loss(params["table"], fc.grid,
+                                          draws["tv_origins"])
+            else:
+                tv = block_tv_loss(params["table"], fc.block_grid,
+                                   draws["tv_rows"])
         loss = loss + config.tv_loss_weight * tv
 
     leaves = named_leaves(params)

@@ -4,13 +4,18 @@ the static config assembly that serving shares.
 
     python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego_tpu.txt \
         --datadir DIR
+    python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego.txt \
+        --datadir DIR
     python -m indoor_nerf_tpu_torch.train.trainer -- --flagship \
         --dataset_type synthetic --use_viewdirs --white_bkgd --n_iters 200
 
-trains on the CUDA card (``--device cuda``, the default; the encode then
-runs the hand-written ``tent_contract`` kernel, and its backward
-``table_scatter``, or ``group_scatter`` with ``--ray_groups``) or, with
-``--device cpu``, on the CPU. With no card visible and no ``--device cpu``
+trains on the CUDA card (``--device cuda``, the default; the block-hash
+encode then runs the hand-written ``tent_contract`` kernel, and its
+backward ``table_scatter``, or ``group_scatter`` with ``--ray_groups``) or,
+with ``--device cpu``, on the CPU. The parser's default encoder, the hash
+grid (``--i_embed 1``, what the configs without ``_tpu`` run), and PE
+(``--i_embed 0``, the classic NeRF MLP) are plain PyTorch, with the
+hierarchical fine pass where ``--N_importance > 0``. With no card visible and no ``--device cpu``
 it raises. Scenes come from ``data/load.py`` (blender, llff with NDC rays,
 scannet, and the synthetic ones); rays from the shuffled pool of every
 training ray, or with ``--no_batching`` one image per step
@@ -55,6 +60,7 @@ from indoor_nerf_tpu_torch.data.load import SceneData, load_dataset
 from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler, ImageRaySampler
 from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
+from indoor_nerf_tpu_torch.ops.encoding import HashGridConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
 from indoor_nerf_tpu_torch.render.path import render_path, write_video
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
@@ -154,12 +160,8 @@ def resume(args, state: Dict, no_reload: bool) -> Dict:
 
 
 def build_train_config(args, scene: SceneData) -> TrainConfig:
-    """Assemble the static config from CLI args + scene geometry."""
-    if args.i_embed != 3:
-        raise NotImplementedError(
-            f"--i_embed {args.i_embed}: the port runs the block-hash grid "
-            "(--i_embed 3, e.g. --flagship); the others come with ROADMAP.md "
-            "Queue 1 item 4 (the parity path)")
+    """Assemble the static config from CLI args + scene geometry (the JAX
+    ``build_train_config``, for what the port runs)."""
     _refuse(args, _UNPORTED)
     if args.use_occupancy and args.N_importance > 0:
         raise ValueError(
@@ -168,47 +170,70 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
             "--N_importance 0 (the JAX package fails on the pair: its step "
             "reads out[\"rgb0\"], which the occupancy branch of render_rays "
             "never returns)")
-    if scene.bounding_box is None:
-        raise ValueError(f"dataset {args.dataset_type} provides no bounding "
-                         "box; the block-hash grid needs one")
+    if args.i_embed in (1, 3) and scene.bounding_box is None:
+        raise ValueError(
+            f"dataset {args.dataset_type} provides no bounding box; grid "
+            "encodings (--i_embed 1/3) need one — use --i_embed 0")
+    if args.use_occupancy and scene.bounding_box is None:
+        raise ValueError("--use_occupancy needs a scene bounding box")
 
     n_levels = args.n_levels
     feats_per_level = args.feats_per_level
-    # Capacity parity with the reference's 2^log2T-entry tables, at equal
-    # float budget across (L, F) (JAX trainer.py:104-119).
-    lf_shift = int(np.round(np.log2((n_levels * feats_per_level) / 32.0)))
-    block_grid = BlockHashConfig(
-        bbox_min=scene.bounding_box[0],
-        bbox_max=scene.bounding_box[1],
-        n_levels=n_levels,
-        n_features_per_level=feats_per_level,
-        log2_rows=max(4, args.log2_hashmap_size
-                      - (7 if args.block_size == 4 else 6) - lf_shift),
-        base_resolution=16,
-        finest_resolution=args.finest_res,
-        gather_dtype={"f32": "float32", "bf16": "bfloat16",
-                      "int8": "int8"}[args.block_io],
-        scatter_dtype=("bfloat16" if args.block_io in ("bf16", "int8")
-                       else "float32"),
-        block_size=args.block_size,
-        ray_strides=_per_level(args.ray_strides),
-        ray_groups=_per_level(args.ray_groups),
-        tile_interp=args.use_pallas,
-    )
+    grid = block_grid = None
+    if args.i_embed == 1:
+        grid = HashGridConfig(
+            bbox_min=scene.bounding_box[0],
+            bbox_max=scene.bounding_box[1],
+            n_levels=n_levels,
+            n_features_per_level=feats_per_level,
+            log2_hashmap_size=args.log2_hashmap_size,
+            base_resolution=16,
+            finest_resolution=args.finest_res,
+        )
+    elif args.i_embed == 3:
+        # Capacity parity with the reference's 2^log2T-entry tables, at
+        # equal float budget across (L, F) (JAX trainer.py:104-119).
+        lf_shift = int(np.round(np.log2((n_levels * feats_per_level) / 32.0)))
+        block_grid = BlockHashConfig(
+            bbox_min=scene.bounding_box[0],
+            bbox_max=scene.bounding_box[1],
+            n_levels=n_levels,
+            n_features_per_level=feats_per_level,
+            log2_rows=max(4, args.log2_hashmap_size
+                          - (7 if args.block_size == 4 else 6) - lf_shift),
+            base_resolution=16,
+            finest_resolution=args.finest_res,
+            gather_dtype={"f32": "float32", "bf16": "bfloat16",
+                          "int8": "int8"}[args.block_io],
+            scatter_dtype=("bfloat16" if args.block_io in ("bf16", "int8")
+                           else "float32"),
+            block_size=args.block_size,
+            ray_strides=_per_level(args.ray_strides),
+            ray_groups=_per_level(args.ray_groups),
+            tile_interp=args.use_pallas,
+        )
     if args.use_pallas:
-        if block_grid.uses_tile_interp:
+        if block_grid is not None and block_grid.uses_tile_interp:
             print("[pallas] tile_interp kernel enabled (see BENCH_NOTES.md)")
         else:
             print("[pallas] --use_pallas ignored: the tile_interp route "
-                  "applies at --block_size 4 with --block_io f32 only, as in "
-                  f"the JAX package (got block_size {args.block_size}, "
-                  f"block_io {args.block_io})")
+                  "applies to --i_embed 3 at --block_size 4 with --block_io "
+                  "f32 only, as in the JAX package (got i_embed "
+                  f"{args.i_embed}, block_size {args.block_size}, block_io "
+                  f"{args.block_io})")
     field = FieldConfig(
+        grid=grid,
         block_grid=block_grid,
         i_embed=args.i_embed,
         i_embed_views=args.i_embed_views,
+        multires=args.multires,
+        multires_views=args.multires_views,
         use_viewdirs=args.use_viewdirs,
         n_importance=args.N_importance,
+        netdepth=args.netdepth,
+        netwidth=args.netwidth,
+        netdepth_fine=args.netdepth_fine,
+        netwidth_fine=args.netwidth_fine,
         compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
     )
     occupancy = None

@@ -137,7 +137,7 @@ def restore_checkpoint(path: str, state_template: Dict[str, Any],
     through ``bridge.load_jax_checkpoint`` and ``bridge.state_from_numpy``
     and held to the same shape check."""
     if device is None:
-        device = state_template["params"]["table"].device
+        device = next(iter(named_leaves(state_template["params"]).values())).device
     with open(path, "rb") as f:
         magic = f.read(4)
     if magic == _ZIP_MAGIC:

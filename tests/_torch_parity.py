@@ -85,34 +85,69 @@ def both_train_states(jcfg, seed=0):
 def jax_step_draws(key, jcfg, n_rays, step):
     """The draws the JAX ``train_step(key)`` makes at ``step``, replayed
     for the port's ``draws=``: the key splits of train/step.py:187,
-    render/renderer.py:89 and ops/occupancy.py:102,142."""
+    render/renderer.py:89, ops/sampling.py (the stratified jitter, the
+    fine pass's inverse-CDF draws), ops/volume.py:56 (the sigma noise of
+    each pass), ops/tv.py:42-51 (the hash grid's cube origins) and
+    ops/occupancy.py:102,142."""
     rc = jcfg.render
     oc = rc.occupancy
-    bg = rc.field.block_grid
+    fc = rc.field
     k_render, k_tv, _, k_occ = jax.random.split(key, 4)
-    k_strat, _, k_noise0, _ = jax.random.split(k_render, 4)
-    k_cand, k_pdf = jax.random.split(k_strat)
-    S = rc.n_occ_samples
-    xi = np.asarray(jax.random.uniform(k_pdf, (n_rays, S)))
-    draws = {
-        "t_rand": np.asarray(jax.random.uniform(k_cand, (n_rays, oc.n_candidates))),
-        "u": (np.arange(S, dtype=np.float32) + xi) / np.float32(S),
-    }
+    k_strat, k_pdf, k_noise0, k_noise1 = jax.random.split(k_render, 4)
+    draws = {}
+    if oc is not None:
+        k_cand, k_occ_pdf = jax.random.split(k_strat)
+        S = rc.n_occ_samples
+        xi = np.asarray(jax.random.uniform(k_occ_pdf, (n_rays, S)))
+        draws["t_rand"] = np.asarray(
+            jax.random.uniform(k_cand, (n_rays, oc.n_candidates)))
+        draws["u"] = (np.arange(S, dtype=np.float32) + xi) / np.float32(S)
+    else:
+        S = rc.n_samples
+        if rc.perturb > 0:
+            draws["t_rand"] = np.asarray(
+                jax.random.uniform(k_strat, (n_rays, S)))
+        if rc.n_importance > 0 and rc.perturb != 0:
+            n = rc.n_importance
+            xi = np.asarray(jax.random.uniform(k_pdf, (n_rays, n)))
+            draws["u"] = (np.arange(n, dtype=np.float32) + xi) / np.float32(n)
     if rc.raw_noise_std > 0:
+        std = np.float32(rc.raw_noise_std)
         draws["sigma_noise"] = np.asarray(
-            jax.random.normal(k_noise0, (n_rays, S))) * np.float32(rc.raw_noise_std)
-    if jcfg.tv_loss_weight > 0 and step <= jcfg.tv_cutoff_iter:
+            jax.random.normal(k_noise0, (n_rays, S))) * std
+        if oc is None and rc.n_importance > 0:
+            draws["sigma_noise1"] = np.asarray(jax.random.normal(
+                k_noise1, (n_rays, S + rc.n_importance))) * std
+    tv_on = jcfg.tv_loss_weight > 0 and step <= jcfg.tv_cutoff_iter
+    if tv_on and fc.i_embed == 3:
+        bg = fc.block_grid
         L, R = bg.n_levels, bg.rows_per_level
         rows = jax.random.randint(k_tv, (L, min(256, R)), 0, R) \
             + jnp.arange(L, dtype=jnp.int32)[:, None] * R
         draws["tv_rows"] = np.asarray(rows).reshape(-1).astype(np.int64)
-    if step % oc.update_interval == 0:
+    if tv_on and fc.i_embed == 1:
+        draws["tv_origins"] = jax_tv_origins(k_tv, fc.grid)
+    if oc is not None and step % oc.update_interval == 0:
         k_cell, k_jit = jax.random.split(k_occ)
         m = int(oc.n_cells * oc.update_fraction)
         draws["occ_cells"] = np.asarray(jax.random.randint(
             k_cell, (m,), 0, oc.n_cells, jnp.int32)).astype(np.int64)
         draws["occ_jitter"] = np.asarray(jax.random.uniform(k_jit, (m, 3)))
     return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+
+
+def jax_tv_origins(k_tv, grid):
+    """The cube origins ``[L, 3]`` the JAX ``total_variation_loss(k_tv)``
+    draws (ops/tv.py:42-51)."""
+    from indoor_nerf_tpu.ops.encoding import level_resolutions
+    from indoor_nerf_tpu.ops.tv import _level_cube_size
+
+    res = level_resolutions(grid)
+    keys = jax.random.split(k_tv, grid.n_levels)
+    return np.stack([np.asarray(jax.random.randint(
+        keys[level], (3,), 0,
+        int(res[level]) - _level_cube_size(res[level], grid.base_resolution),
+        dtype=jnp.int32)) for level in range(grid.n_levels)]).astype(np.int64)
 
 
 def jax_batch_sampler(scene, n, seed=0):

@@ -163,10 +163,14 @@ def test_one_batch_is_the_trainers_first_batch():
 
 
 # Every configs/*_tpu.txt file the port trains (all but the one with
-# structural priors, Queue 1 item 5); the other files run --i_embed 1, the
-# parity path (item 4).
+# structural priors, Queue 1 item 5), and every file without _tpu (the
+# parity path: the hash grid and the hierarchical fine pass), again all but
+# the structural-prior one.
+PRIORS_CONFIGS = ("norcliffe_common_room_tpu.txt", "norcliffe_common_room.txt")
 TPU_CONFIGS = [p for p in CONFIGS if p.endswith("_tpu.txt")
-               and os.path.basename(p) != "norcliffe_common_room_tpu.txt"]
+               and os.path.basename(p) not in PRIORS_CONFIGS]
+PARITY_CONFIGS = [p for p in CONFIGS if not p.endswith("_tpu.txt")
+                  and os.path.basename(p) not in PRIORS_CONFIGS]
 
 
 def _dataset_type(path):
@@ -185,9 +189,10 @@ def scene_dirs(tmp_path_factory):
 @pytest.mark.parametrize("path", CONFIGS)
 def test_config_file_builds_the_jax_train_config(path, scene_dirs):
     """Every config file with ``--datadir`` on a tiny scene of its dataset
-    type: the port's ``build_train_config`` builds what the JAX one builds
-    for the ``_tpu`` files the port trains, and names the ROADMAP item of
-    what it does not run for the others."""
+    type: the port's ``build_train_config`` builds what the JAX one builds,
+    field for field (the hash grid's HashGridConfig, the block grid's
+    geometry, the PE and NeRFBig widths), for the 40 files the port trains;
+    it names the ROADMAP item of the structural priors for the other two."""
     from indoor_nerf_tpu.data.load import load_dataset as j_load_dataset
     from indoor_nerf_tpu.train.trainer import build_train_config as j_build
     from indoor_nerf_tpu_torch.data.load import load_dataset
@@ -197,9 +202,8 @@ def test_config_file_builds_the_jax_train_config(path, scene_dirs):
             "--datadir", scene_dirs[_dataset_type(path)]]
     targs = tconfig.parse_args(argv)
     scene = load_dataset(targs)
-    if path not in TPU_CONFIGS:
-        item = "item 5" if targs.i_embed == 3 else "item 4"
-        with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
+    if os.path.basename(path) in PRIORS_CONFIGS:
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
             build_train_config(targs, scene)
         return
     jargs = jconfig.parse_args(argv)
@@ -211,12 +215,29 @@ def test_config_file_builds_the_jax_train_config(path, scene_dirs):
     for f in ("n_samples", "n_importance", "perturb", "lindisp", "white_bkgd",
               "raw_noise_std", "ndc", "n_occ_samples"):
         assert getattr(got.render, f) == getattr(want.render, f), f
-    gb, wb = got.render.field.block_grid, want.render.field.block_grid
-    for f in ("bbox_min", "bbox_max", "n_levels", "n_features_per_level",
-              "log2_rows", "base_resolution", "finest_resolution",
-              "gather_dtype", "scatter_dtype", "block_size"):
-        assert getattr(gb, f) == getattr(wb, f), f
-    go, wo = got.render.occupancy, want.render.occupancy
-    for f in ("bbox_min", "bbox_max", "resolution", "weighting"):
-        assert getattr(go, f) == getattr(wo, f), f
+    gf, wf = got.render.field, want.render.field
+    for f in ("i_embed", "i_embed_views", "multires", "multires_views",
+              "use_viewdirs", "n_importance", "num_layers", "hidden_dim",
+              "geo_feat_dim", "num_layers_color", "hidden_dim_color",
+              "netdepth", "netwidth", "netdepth_fine", "netwidth_fine",
+              "compute_dtype", "input_ch", "input_ch_views", "uses_grid"):
+        assert getattr(gf, f) == getattr(wf, f), f
+    if path in PARITY_CONFIGS:
+        assert gf.i_embed == 1 and wf.block_grid is None and gf.block_grid is None
+        for f in ("bbox_min", "bbox_max", "n_levels", "n_features_per_level",
+                  "log2_hashmap_size", "base_resolution", "finest_resolution",
+                  "table_size", "out_dim"):
+            assert getattr(gf.grid, f) == getattr(wf.grid, f), f
+        assert got.render.occupancy is None and want.render.occupancy is None
+        assert got.render.n_importance in (64, 128)
+    else:
+        assert wf.grid is None and gf.grid is None
+        gb, wb = gf.block_grid, wf.block_grid
+        for f in ("bbox_min", "bbox_max", "n_levels", "n_features_per_level",
+                  "log2_rows", "base_resolution", "finest_resolution",
+                  "gather_dtype", "scatter_dtype", "block_size"):
+            assert getattr(gb, f) == getattr(wb, f), f
+        go, wo = got.render.occupancy, want.render.occupancy
+        for f in ("bbox_min", "bbox_max", "resolution", "weighting"):
+            assert getattr(go, f) == getattr(wo, f), f
     assert got.render.ndc == (_dataset_type(path) == "llff")

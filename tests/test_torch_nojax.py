@@ -144,6 +144,37 @@ assert shown["step"] == 2 and len(shown["psnrs"]) == 4
 result = train(parse_args(files + ["--dataset_type", "llff", "--datadir",
                                    "llff", "--n_iters", "1"]))
 assert result["state"]["step"] == 1 and np.isfinite(result["losses"][0])
+# The parity path: a hash-grid field with the fine pass and a PE field
+# with the classic NeRF built and rendered, one step each, and the first
+# trained from files through configs/lego.txt's flags.
+import indoor_nerf_tpu_torch.ops.hashing
+import indoor_nerf_tpu_torch.ops.tv
+for extra in ([], ["--i_embed", "0", "--i_embed_views", "0", "--netdepth",
+                   "2", "--netwidth", "16", "--netdepth_fine", "2",
+                   "--netwidth_fine", "16"]):
+    parity = parse_args(["--dataset_type", "synthetic", "--use_viewdirs",
+                         "--white_bkgd", "--n_levels", "4", "--finest_res",
+                         "32", "--log2_hashmap_size", "12", "--N_samples",
+                         "8", "--N_importance", "8", "--N_rand", "16",
+                         "--n_iters", "1", "--device", "cpu"] + extra)
+    pcfg = build_train_config(parity, scene)
+    pparams = init_field_params(torch.Generator().manual_seed(0),
+                                pcfg.render.field)
+    assert sorted(pparams) == (["coarse", "fine", "table"] if not extra
+                               else ["coarse", "fine"])
+    out = render_image(pparams, 8, 8, scene.K, scene.poses[0], scene.near,
+                       scene.far, pcfg.render)
+    assert out["rgb_map"].shape == (8, 8, 3)
+    assert np.all(np.isfinite(out["rgb_map"]))
+    result = train(parity)
+    assert result["state"]["step"] == 1 and np.isfinite(result["losses"][0])
+lego = ["--config", "configs/lego.txt", "--datadir", "blender", "--basedir",
+        "runs", "--n_levels", "4", "--finest_res", "32", "--log2_hashmap_size",
+        "12", "--N_samples", "8", "--N_importance", "8", "--N_rand", "16",
+        "--precrop_iters", "1", "--testskip", "1", "--n_iters", "1",
+        "--i_testset", "1", "--device", "cpu"]
+result = train(parse_args(lego))
+assert result["state"]["step"] == 1 and len(result["testsets"]) == 1
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
                 or m == "flax" and sys.modules[m] is not None)
@@ -154,11 +185,12 @@ print("NOJAX_OK")
 
 def test_port_renders_without_jax(tmp_path):
     """Serving and training steps with every `import jax` failing, from a
-    copy of the tree that holds the port's package and no
-    ``indoor_nerf_tpu/`` directory."""
+    copy of the tree that holds the port's package and the config files,
+    and no ``indoor_nerf_tpu/`` directory; the parity path among them."""
     shutil.copytree(os.path.join(_ROOT, "indoor_nerf_tpu_torch"),
                     tmp_path / "indoor_nerf_tpu_torch",
                     ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copytree(os.path.join(_ROOT, "configs"), tmp_path / "configs")
     assert not (tmp_path / "indoor_nerf_tpu").exists()
     from test_torch_checkpoint import jax_checkpoint
 

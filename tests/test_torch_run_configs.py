@@ -1,6 +1,8 @@
-"""Every shipped configs/*_tpu.txt but norcliffe_common_room_tpu.txt trains
-one step in the port, from a tiny scene of its own dataset type on disk;
-that one (structural priors) is refused naming ROADMAP.md Queue 1 item 5."""
+"""Every shipped config file but the two norcliffe_common_room ones trains
+one step in the port, from a tiny scene of its own dataset type on disk:
+the 20 configs/*_tpu.txt (the block-hash grid) and the 20 files without
+_tpu (the parity path: the hash grid, the hierarchical fine pass); those
+two (structural priors) are refused naming ROADMAP.md Queue 1 item 5."""
 
 import os
 
@@ -11,7 +13,13 @@ from _torch_parity import CPU
 from _torch_scenes import WRITERS
 from indoor_nerf_tpu_torch.train import trainer
 from indoor_nerf_tpu_torch.train.config import parse_args
-from test_torch_config import CONFIGS, TPU_CONFIGS, _ROOT, _dataset_type
+from test_torch_config import (
+    CONFIGS,
+    PARITY_CONFIGS,
+    TPU_CONFIGS,
+    _ROOT,
+    _dataset_type,
+)
 
 # The model cut to test size; 16 rays fit every config's precrop.
 TINY = ["--n_levels", "4", "--finest_res", "32", "--log2_hashmap_size", "12",
@@ -25,9 +33,14 @@ def scene_dirs(tmp_path_factory):
             for kind in ("blender", "llff", "scannet")}
 
 
+# The parity files cut to test size: 4 levels, 8 + 8 samples.
+TINY_PARITY = TINY + ["--N_samples", "8", "--N_importance", "8"]
+
+
 def test_twenty_of_the_twenty_one_tpu_configs_train():
     assert len([p for p in CONFIGS if p.endswith("_tpu.txt")]) == 21
     assert len(TPU_CONFIGS) == 20
+    assert len(CONFIGS) == 42 and len(PARITY_CONFIGS) == 20
 
 
 @pytest.mark.parametrize("path", TPU_CONFIGS)
@@ -40,8 +53,24 @@ def test_tpu_config_trains_one_step_from_files(path, scene_dirs, tmp_path):
                   if f.endswith(".ckpt")) == ["000001.ckpt"]
 
 
-def test_structural_priors_config_is_refused(scene_dirs, tmp_path):
-    path = os.path.join(_ROOT, "configs", "norcliffe_common_room_tpu.txt")
+@pytest.mark.parametrize("path", PARITY_CONFIGS)
+def test_parity_config_trains_one_step_from_files(path, scene_dirs, tmp_path):
+    """The hash grid with the fine pass (N_importance 64 or 128 as shipped,
+    cut to 8 here), the parser's NeRFSmall widths."""
+    argv = ["--config", os.path.join(_ROOT, path), "--datadir",
+            scene_dirs[_dataset_type(path)], "--basedir", str(tmp_path)] \
+        + TINY_PARITY
+    out = trainer.train(parse_args(argv))
+    assert out["state"]["step"] == 1 and np.isfinite(out["losses"][0])
+    assert sorted(out["state"]["params"]) == ["coarse", "fine", "table"]
+    assert sorted(f for f in os.listdir(out["logdir"])
+                  if f.endswith(".ckpt")) == ["000001.ckpt"]
+
+
+@pytest.mark.parametrize("name", ["norcliffe_common_room_tpu.txt",
+                                  "norcliffe_common_room.txt"])
+def test_structural_priors_config_is_refused(scene_dirs, tmp_path, name):
+    path = os.path.join(_ROOT, "configs", name)
     args = parse_args(["--config", path, "--datadir", scene_dirs["blender"],
                        "--basedir", str(tmp_path)] + TINY)
     with pytest.raises(NotImplementedError,

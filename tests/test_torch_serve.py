@@ -2,6 +2,7 @@
 plumbing and the numpy-only copies it serves from."""
 
 import argparse
+import dataclasses
 import io
 import json
 import os
@@ -81,8 +82,23 @@ def test_build_train_config_matches_jax():
 
 
 def test_unported_flags_name_the_roadmap_item():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        configs(["--dataset_type", "synthetic"])  # i_embed 1
+    """The parser's defaults (the hash grid, ``--i_embed 1``) and PE
+    (``--i_embed 0``) build the JAX config field for field since the
+    parity path came (Queue 1 item 4); the training extensions are still
+    refused by their item."""
+    for flags in (["--dataset_type", "synthetic"],
+                  ["--dataset_type", "synthetic", "--i_embed", "0",
+                   "--i_embed_views", "0", "--N_importance", "64"]):
+        jcfg, tcfg, _ = configs(flags)
+        jf, tf = jcfg.render.field, tcfg.render.field
+        for f in ("i_embed", "i_embed_views", "multires", "multires_views",
+                  "netdepth", "netwidth", "netdepth_fine", "netwidth_fine",
+                  "input_ch", "input_ch_views", "n_importance"):
+            assert getattr(tf, f) == getattr(jf, f), f
+        if jf.grid is None:
+            assert tf.grid is None
+        else:
+            assert dataclasses.asdict(tf.grid) == dataclasses.asdict(jf.grid)
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
         configs(TINY_FLAGSHIP + ["--use_quantization"])
 
@@ -221,3 +237,46 @@ def test_serve_answers_health_and_render():
         srv.server_close()
         thread.join(timeout=30)
     assert not thread.is_alive()
+
+
+# The parity path at test size: the hash grid (4 levels) with a fine pass,
+# and PE with the classic NeRF, narrowed.
+TINY_PARITY = ["--dataset_type", "synthetic", "--use_viewdirs", "--white_bkgd",
+               "--n_levels", "4", "--finest_res", "32", "--log2_hashmap_size",
+               "12", "--N_samples", "8", "--N_importance", "8"]
+TINY_PE = TINY_PARITY + ["--i_embed", "0", "--i_embed_views", "0",
+                         "--netdepth", "3", "--netwidth", "32",
+                         "--netdepth_fine", "3", "--netwidth_fine", "32"]
+
+
+@pytest.mark.parametrize("train_flags,server_flags", [
+    (TINY_PARITY, []),
+    (TINY_PARITY, BAKED8),
+    (TINY_PARITY + ["--i_embed_views", "0"], BAKED8 + ["--guided", "4"]),
+    (TINY_PE, []),
+], ids=["hash_online", "hash_baked", "hash_pe_views_guided", "pe_online"])
+def test_serve_parity_field(train_flags, server_flags, baked_calls):
+    """A parity field serves online and, for the hash grid, baked (its
+    vertex sweep through the hash encode; a field with PE view features
+    bakes with them and shades with them)."""
+    render, step, hw = _build(server_flags, train_flags + CPU)
+    maps, _ = render(pose_spherical(30.0, -30.0, 4.0))
+    assert maps["rgb_map"].shape == (10, 12, 3)
+    assert all(np.all(np.isfinite(v)) for v in maps.values())
+    if server_flags:
+        cfg = baked_calls["baked"]["config"]
+        views = 0 if "--i_embed_views" in train_flags else 2
+        assert cfg.i_embed_views == views and cfg.resolution == 8
+        width = baked_calls["baked"]["color_net"][0]["w"].shape[0]
+        assert width == (27 if views == 0 else 16) + 15
+
+
+def test_bake_refuses_a_pe_field():
+    """PE has no grid to bake, as in the JAX package."""
+    from indoor_nerf_tpu_torch.models.field import init_field_params
+    from indoor_nerf_tpu_torch.render.baked import bake_field
+
+    _, tcfg, _ = configs(TINY_PE)
+    params = init_field_params(torch.Generator().manual_seed(0), tcfg.render.field)
+    with pytest.raises(ValueError, match="NeRFSmall-style grid field"):
+        bake_field(params, tcfg.render.field, resolution=8)
