@@ -179,6 +179,36 @@ printing any result.
       step and an 800x800 request at f32 and at bf16, alternating, in this
       process.
 
+  (sp1) the structural priors from files, in (v)'s directory: the room of
+      data/scene_files.py (make_room_blender_scene: 24 views of 400x400,
+      6 held out) in blender layout; configs/norcliffe_common_room_tpu.txt
+      as shipped (the flagship preset, 1024 rays, no_batching, precrop 500,
+      lrate 5e-4) for 1000 steps with --structural_loss_start_iter 300
+      --structural_loss_ramp_iters 200 --i_testset 500: the countdown, the
+      banner, seven [PRIOR] lines (floor and wall pixels, the wall angle),
+      the overfitting check at 1000; tent_contract and table_scatter launch
+      in the steps, tent_contract in the test sets; the loss falls; the
+      held-out PSNR 1 dB above the seeded field's; steps/s before and with
+      the priors;
+  (sp2) one step with the priors from (sp1)'s state: through the kernels
+      and their plain versions as (g); card against CPU on one batch and
+      draws (loss 1e-5, floor and wall counts equal, the prior terms 1e-4,
+      moments and updates in norm); the priors' functions on the card's
+      render, card against CPU (masks, counts, nearest pixels equal, the
+      frame 1e-5, losses 1e-6); the host synchronisations of the step with
+      and without the priors (equal) and of torch.linalg.svd (reported);
+  (sp3) configs/norcliffe_common_room.txt as shipped (the parity path with
+      the priors: hash grid, 64 + 128 samples, normal nets coarse and
+      fine) on the room for 400 steps, the priors from 200: no csrc/
+      kernel launches, the loss falls, held-out PSNR 0.5 dB above the
+      seeded field's, steps/s before and with the priors;
+  (sp4) the flagship with --distortion_loss_weight, --table_decay_weight,
+      --ema_decay and both anneals for 100 steps (both kernels launch, the
+      loss falls), one step of it halfway through the anneals card against
+      CPU (the EMA's update too); (sp1)'s field served at 800x800 online
+      and --baked at 256^3 (ms, tent_contract launches, baked against
+      online PSNR on a held-out pose).
+
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
 version, the least time the card could take for the same work ("bound_ms":
@@ -204,8 +234,10 @@ a kernel its own count: tent_contract's include the training from files
 and NDC training of (v) and (w), their test sets and render-only run;
 table_scatter's the two training paths; every kernel's the parity path's
 runs of (y1)-(y5), each counted: 0 but for tent_contract's in the baked
-requests of (y5). The last line is {"ok": true,
-"device": {...}}.
+requests of (y5); and the priors' paths: training with the priors (sp1) and
+with the step's other extensions (sp4), tent_contract's test sets, online
+and baked requests of (sp1)'s field, and (sp3)'s parity run (0). The last
+line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -292,6 +324,31 @@ PARITY_STEPS, PARITY_NDC_STEPS, PE_STEPS, PARITY_BAKE_RES = 600, 100, 50, 128
 BAKE_SPREAD_STEPS = 1000  # --bake-spread's second reading
 # (x): three rounds of six alternating windows of 100 steps.
 LOOP_STEPS, LOOP_ROUNDS = 100, 3
+# (sp1)-(sp4), the structural priors: the room scene of
+# data/scene_files.py in blender layout (24 views of 400x400, 6 held out);
+# configs/norcliffe_common_room_tpu.txt as shipped for 1000 steps with the
+# priors from 300 over a ramp of 200 and test sets every 500 (one
+# overfitting check at 1000); configs/norcliffe_common_room.txt for 400
+# steps with the priors from 200; the step's other extensions on the
+# flagship for 100 steps.
+ROOM_VIEWS, ROOM_SIZE = 24, 400
+PRIOR_STEPS, PRIOR_START, PRIOR_RAMP, PRIOR_TESTSET = 1000, 300, 200, 500
+PRIOR_PRINT = 100  # the parser's --i_print: a [PRIOR] line every 100 steps
+PARITY_PRIOR_STEPS, PARITY_PRIOR_START = 400, 200
+EXT_STEPS = 100
+EXT_FLAGS = SERVE_FLAGS + [
+    "--distortion_loss_weight", "0.01", "--table_decay_weight", "1e-3",
+    "--ema_decay", "0.99", "--freq_anneal_iters", "50",
+    "--view_anneal_iters", "50"]
+# The priors on identical inputs, card against CPU: the losses to 1e-6
+# relative plus 8 f32 ulps of a unit term times the weight (rsqrt rounds
+# differently on each side, and 1 - cos of two near-parallel normals keeps
+# that rounding while the term itself is small); the frame to 1e-5.
+PRIOR_LOSS_RTOL, PRIOR_LOSS_ATOL, PRIOR_FRAME_TOL = 1e-6, 2.0 ** -20, 1e-5
+# The priors' terms of one step, card against CPU (their forwards differ
+# in f32 order, so their normals by ~1e-7 relative): 1e-4 relative plus
+# 1e-6 times the term's weight.
+PRIOR_STEP_RTOL, PRIOR_STEP_ATOL = 1e-4, 1e-6
 # The card's published peaks (H100 SXM): device memory rate, and the f32
 # rate outside the tensor cores, which is the type all seven kernels use.
 HBM_BYTES_PER_S = 3.35e12
@@ -772,7 +829,7 @@ def step_from(torch, flags, trained, batch_seed=5, draw_seed=3):
               if not isinstance(v, torch.nn.Module)}
     params["coarse"] = copy.deepcopy(trained["params"]["coarse"])
     draws = draw_step(torch.Generator(device=dev).manual_seed(draw_seed), cfg,
-                      0, cli.N_rand)
+                      0, cli.N_rand, "spatial_coords" in batch)
 
     def one_step(cfg):
         # Zero moments: after this first step mu = 0.1 g and nu = 0.01 g^2.
@@ -2308,6 +2365,333 @@ def phase_precision(torch) -> None:
                       f"{float(np.median(vs)):.1f})" for p, vs in req.items()))
 
 
+def room_flags(workdir, config, tag, extra=()):
+    """A norcliffe config on (sp1)'s room scene with its own --basedir."""
+    return (["--config", os.path.join(ROOT, "configs", config), "--datadir",
+             os.path.join(workdir, "room"), "--basedir",
+             os.path.join(workdir, tag)] + list(extra))
+
+
+def step_rates(out, spans) -> list:
+    """Median steps/s of ``trainer.train``'s steps in each ``(first, last)``
+    span of iterations (from the host times between the steps' metrics,
+    read one step late)."""
+    ips = np.asarray(out["iterations_per_second"])
+    return [float(np.median(ips[a - 1:b])) for a, b in spans]
+
+
+def phase_priors(torch, workdir) -> dict:
+    """(sp1) configs/norcliffe_common_room_tpu.txt as shipped (the flagship
+    preset with the structural priors) on the room scene written in
+    blender layout, PRIOR_STEPS steps with the priors from PRIOR_START over
+    PRIOR_RAMP and test sets every PRIOR_TESTSET: the countdown, the banner,
+    the [PRIOR] lines and the overfitting check of the trainer run; the
+    kernels launch in the steps and the test sets, the loss falls, the
+    held-out PSNR rises above the seeded field's. Steps/s before and after
+    the priors start."""
+    from indoor_nerf_tpu_torch.data.scene_files import (
+        make_room_blender_scene,
+        write_blender_scene,
+    )
+
+    t0 = time.perf_counter()
+    scene = make_room_blender_scene(ROOM_VIEWS, ROOM_SIZE, ROOM_SIZE)
+    write_blender_scene(os.path.join(workdir, "room"), scene)
+    print(f"[sp1] wrote the room scene: {ROOM_VIEWS} views of {ROOM_SIZE}x"
+          f"{ROOM_SIZE} in blender layout in {time.perf_counter() - t0:.2f} s; "
+          f"camera depths of its surfaces {float(scene['depth'].min()):.3f}-"
+          f"{float(scene['depth'].max()):.3f} (near/far 2/6)")
+    flags = room_flags(workdir, "norcliffe_common_room_tpu.txt", "sp1", [
+        "--structural_loss_start_iter", str(PRIOR_START),
+        "--structural_loss_ramp_iters", str(PRIOR_RAMP)])
+    out, text, training, testset = train_from_files(torch, "sp1", flags + [
+        "--n_iters", str(PRIOR_STEPS), "--i_testset", str(PRIOR_TESTSET),
+        "--i_weights", str(PRIOR_STEPS), "--i_print", str(PRIOR_PRINT)])
+    lines = text.splitlines()
+    priors = [l for l in lines if l.startswith("[PRIOR]")]
+    schedule = [l.strip() for l in lines if "Structural priors activate in" in l
+                or "ACTIVATING STRUCTURAL" in l or "Overfitting" in l
+                or "Reduced structural" in l]
+    for l in schedule + priors:
+        print(f"[sp1] {l}")
+    before, after = step_rates(out, [(PRIOR_START // 3 + 1, PRIOR_START - 1),
+                                     (PRIOR_START + PRIOR_RAMP + 1,
+                                      PRIOR_STEPS - 1)])
+    print(f"[sp1] steps/s (median, 1024 rays) before the priors "
+          f"{before:.2f}, with them {after:.2f}: the priors cost "
+          f"{1e3 / after - 1e3 / before:.2f} ms a step; held-out PSNR "
+          f"{[round(t['psnr'], 3) for t in out['testsets']]} dB at "
+          f"{[t['step'] for t in out['testsets']]}; prior weights at the end "
+          f"{out['prior_weights']}, decays {out['prior_decays']}")
+    if len(priors) != (PRIOR_STEPS - PRIOR_START) // PRIOR_PRINT:
+        raise AssertionError(f"[sp1] {len(priors)} [PRIOR] lines")
+    if not any("ACTIVATING" in l for l in schedule):
+        raise AssertionError("[sp1] no activation banner")
+    held_out_gain("sp1", out["testsets"][-1]["psnr"], flags,
+                  os.path.join(workdir, "sp10"), 1.0)
+    return {"flags": flags, "state": out["state"], "training": training,
+            "testset": testset["tent_contract"]}
+
+
+def _syncs(torch, fn) -> list:
+    """The host synchronisations ``fn()`` makes on the card, as
+    ``torch.cuda.set_sync_debug_mode("warn")`` reports them: the
+    ``file:line`` of the Python call that made each."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")  # outside the record: it warns too
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    return [f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def card_vs_cpu_step(torch, tag, flags, state) -> dict:
+    """One step of ``flags`` from ``state`` on the card and on the port's
+    CPU path with one batch and one set of draws: the loss 1e-5 relative,
+    every RAdam moment, the params' update and (where kept) the EMA's
+    relative in norm (FORWARD_NORM_TOL: the forwards differ in f32 order;
+    the table's over the entries whose first moment is at least 1e-6 of its
+    largest, as (y2)). Returns the config and both steps' metrics."""
+    from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import draw_step, train_step
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    cpu = torch.device("cpu")
+    cfg, batch = one_batch(parse_args(flags), cpu, seed=5)
+    tree = state_to_numpy(state)
+    step = int(tree["step"])
+    draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg, step,
+                      batch["rays_o"].shape[0], "spatial_coords" in batch)
+
+    def on(d, x):
+        return ({k: on(d, v) for k, v in x.items()} if isinstance(x, dict)
+                else x.to(d))
+
+    res, metrics = {}, {}
+    for label, d in (("cpu", cpu), ("card", torch.device("cuda:0"))):
+        s, m = train_step(state_from_numpy(tree, d), on(d, batch), cfg,
+                          draws=on(d, draws))
+        metrics[label] = {k: float(v) for k, v in m.items()}
+        res[label] = state_to_numpy(s)
+    got, want = res["card"], res["cpu"]
+    errs = {"loss": abs(metrics["card"]["loss"] / metrics["cpu"]["loss"] - 1)}
+    errs.update({f"{k}.{n}": norm_rel(_tree_leaves(got["opt"][k][n]),
+                                      _tree_leaves(want["opt"][k][n]))
+                 for k in ("mu", "nu") for n in want["opt"][k]})
+    mu = np.abs(want["opt"]["mu"]["table"])
+    resolved = mu >= 1e-6 * mu.max()
+    for key in ("params", "ema") if "ema" in want else ("params",):
+        for n in want[key]:
+            g = [a - b for a, b in zip(_tree_leaves(got[key][n]),
+                                       _tree_leaves(tree[key][n]))]
+            w = [a - b for a, b in zip(_tree_leaves(want[key][n]),
+                                       _tree_leaves(tree[key][n]))]
+            if n == "table":
+                g, w = [g[0][resolved]], [w[0][resolved]]
+            errs[f"{key} update {n}"] = norm_rel(g, w)
+    print(f"[{tag}] one step at step {step}, card against the CPU on one "
+          f"state, batch ({batch['rays_o'].shape[0]} rays) and draws: loss "
+          f"{metrics['card']['loss']:.8f} vs {metrics['cpu']['loss']:.8f}; "
+          "relative in norm " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol 1e-5 for the loss, {FORWARD_NORM_TOL} else)")
+    bad = {k: v for k, v in errs.items()
+           if v > (1e-5 if k == "loss" else FORWARD_NORM_TOL)}
+    if bad:
+        raise AssertionError(f"[{tag}] card vs CPU: {bad}")
+    return cfg, metrics
+
+
+def phase_priors_step(torch, flags, state) -> None:
+    """(sp2) one step with the priors (from step 0) from (sp1)'s trained
+    state: (a) through the kernels and their plain versions, held as (g);
+    (b) card against CPU (``card_vs_cpu_step``), the priors' floor and wall
+    counts equal and their terms 1e-4 relative; then the priors' functions
+    on the card's rendered depth and normals, on the card and on the CPU:
+    masks, counts and the consistency pairs' nearest neighbours equal, the
+    frame within PRIOR_FRAME_TOL, each loss within PRIOR_LOSS_RTOL; (c) the
+    host synchronisations of one step with and without the priors, and of
+    torch.linalg.svd on a 3x3 card tensor (reported; the step's own gated
+    to add none with the priors)."""
+    import dataclasses as dc
+
+    from indoor_nerf_tpu_torch.losses import priors as lp
+    from indoor_nerf_tpu_torch.render.renderer import render_rays
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import draw_step, prior_ramp_weights
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    now = flags + ["--structural_loss_start_iter", "0"]
+    phase_step_check(torch, "sp2", now, state)
+    cfg, metrics = card_vs_cpu_step(torch, "sp2", now, {**state, "step": 0})
+    for k in ("structural_semantic_floor_count", "structural_semantic_wall_count"):
+        if metrics["card"][k] != metrics["cpu"][k]:
+            raise AssertionError(f"[sp2] {k} card {metrics['card'][k]} cpu "
+                                 f"{metrics['cpu'][k]}")
+    for k, w in prior_ramp_weights(cfg, 0).items():
+        c, g = metrics["card"][f"structural_{k}"], metrics["cpu"][f"structural_{k}"]
+        tol = PRIOR_STEP_RTOL * abs(g) + PRIOR_STEP_ATOL * w
+        print(f"[sp2] structural_{k} card {c:.6e} cpu {g:.6e} (|diff| "
+              f"{abs(c - g):.2e}, tol {tol:.2e})")
+        if abs(c - g) > tol:
+            raise AssertionError(f"[sp2] structural_{k} card {c} cpu {g}")
+
+    # The priors' functions on identical inputs: the card's render.
+    dev, cpu = torch.device("cuda:0"), torch.device("cpu")
+    cfg, batch = one_batch(parse_args(now), dev, seed=5)
+    n = batch["rays_o"].shape[0]
+    draws = draw_step(torch.Generator(device=dev).manual_seed(3), cfg, 0, n, True)
+    rays_d = batch["rays_d"]
+    with torch.no_grad():
+        out = render_rays(state["params"], batch["rays_o"], rays_d,
+                          rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True),
+                          cfg.near * torch.ones_like(rays_d[..., :1]),
+                          cfg.far * torch.ones_like(rays_d[..., :1]),
+                          cfg.render, occ_state=state["occ"], step=0,
+                          draws=draws)
+    weights = prior_ramp_weights(cfg, 0)
+    pc = cfg.priors
+    found = {}
+    for label, d in (("card", dev), ("cpu", cpu)):
+        normals, depth = out["normal_map"].to(d), out["depth_map"].to(d)
+        coords = batch["spatial_coords"].to(d)
+        pd = {k: v.to(d) for k, v in draws["priors"].items()}
+        sem = lp.detect_planes(normals, pc)
+        frame = lp.estimate_manhattan_frame(
+            normals, torch.linalg.norm(normals, dim=-1), pd["centers"], pc)
+        idx1 = pd["consist_idx"]
+        dist = torch.linalg.norm(coords[idx1][:, None] - coords[None], dim=-1)
+        dist[torch.arange(len(idx1), device=d), idx1] = float("inf")
+        found[label] = {
+            "floor_mask": sem["floor_mask"].cpu(), "wall_mask": sem["wall_mask"].cpu(),
+            "pairs": torch.argmin(dist, dim=-1).cpu(), "frame": frame.cpu(),
+            "manhattan": float(lp.manhattan_sdf_loss(normals, frame, sem,
+                                                     weights["manhattan"])),
+            "planarity": float(lp.structured_planarity_loss(
+                depth, sem, weights["planarity"], pd)),
+            "normal_consistency": float(lp.spatial_normal_consistency_loss(
+                normals, depth, coords, weights["normal_consistency"], idx1))}
+    c, g = found["card"], found["cpu"]
+    same = {k: bool(torch.equal(c[k], g[k]))
+            for k in ("floor_mask", "wall_mask", "pairs")}
+    frame_err = float((c["frame"] - g["frame"]).abs().max())
+    loss_err = {k: abs(c[k] - g[k]) / max(abs(g[k]), 1e-30) for k in weights}
+    print(f"[sp2] the priors on the card's render of {n} rays, card against "
+          f"CPU: floor rays {int(c['floor_mask'].sum())}, wall rays "
+          f"{int(c['wall_mask'].sum())}; equal {same}; frame max |diff| "
+          f"{frame_err:.2e} (tol {PRIOR_FRAME_TOL}); losses rel "
+          + ", ".join(f"{k} {v:.2e}" for k, v in loss_err.items())
+          + f" (tol {PRIOR_LOSS_RTOL} + {PRIOR_LOSS_ATOL:.2e} x weight)")
+    if not all(same.values()) or frame_err > PRIOR_FRAME_TOL:
+        raise AssertionError(f"[sp2] masks/pairs {same}, frame {frame_err}")
+    for k in weights:
+        if abs(c[k] - g[k]) > PRIOR_LOSS_RTOL * abs(g[k]) + PRIOR_LOSS_ATOL * weights[k]:
+            raise AssertionError(f"[sp2] {k} card {c[k]} cpu {g[k]}")
+
+    # (c) host synchronisations.
+    cfg_s, one_step = step_from(torch, now, state)
+    off = dc.replace(cfg_s, use_structural_priors=False)
+    one_step(cfg_s)
+    one_step(off)
+    with_priors, without = _syncs(torch, lambda: one_step(cfg_s)), \
+        _syncs(torch, lambda: one_step(off))
+    a = torch.randn(3, 3, device=dev)
+    svd_syncs = _syncs(torch, lambda: torch.linalg.svd(a))
+    extra = list(with_priors)
+    for where in without:
+        if where in extra:
+            extra.remove(where)
+    print(f"[sp2] host synchronisations of one step (a fresh train state "
+          f"and the step): with the priors {len(with_priors)}, without "
+          f"{len(without)} at {sorted(set(without))}; the priors' own "
+          f"{extra}; torch.linalg.svd of a 3x3 card tensor {len(svd_syncs)} "
+          "(the priors' frame uses polar_factor, no SVD)")
+    if extra:
+        raise AssertionError(f"[sp2] the priors add host synchronisations "
+                             f"to the step at {extra}")
+
+
+def phase_parity_priors(torch, workdir) -> dict:
+    """(sp3) configs/norcliffe_common_room.txt as shipped (the hash grid,
+    64 + 128 samples, NeRFSmall coarse and fine with normal nets) on the
+    room, PARITY_PRIOR_STEPS steps with the priors from PARITY_PRIOR_START:
+    no kernel of csrc/ launches, the loss falls, the held-out PSNR rises
+    above the seeded field's; steps/s before and with the priors."""
+    flags = room_flags(workdir, "norcliffe_common_room.txt", "sp3", [
+        "--structural_loss_start_iter", str(PARITY_PRIOR_START),
+        "--structural_loss_ramp_iters", "100"])
+    out, text, training, testset = train_from_files(torch, "sp3", flags + [
+        "--n_iters", str(PARITY_PRIOR_STEPS), "--i_testset",
+        str(PARITY_PRIOR_STEPS), "--i_weights", str(PARITY_PRIOR_STEPS)],
+        kernels=())
+    for l in text.splitlines():
+        if l.startswith("[PRIOR]"):
+            print(f"[sp3] {l}")
+    before, after = step_rates(out, [(PARITY_PRIOR_START // 4 + 1,
+                                      PARITY_PRIOR_START - 1),
+                                     (PARITY_PRIOR_START + 1,
+                                      PARITY_PRIOR_STEPS - 1)])
+    print(f"[sp3] steps/s (median) before the priors {before:.2f}, with them "
+          f"{after:.2f} ({1e3 / after - 1e3 / before:.2f} ms a step)")
+    held_out_gain("sp3", out["testsets"][-1]["psnr"], flags,
+                  os.path.join(workdir, "sp30"), 0.5)
+    return {"parity_priors_training": training,
+            "parity_priors_testset": testset}
+
+
+def phase_extensions(torch, prior_flags) -> dict:
+    """(sp4) the flagship with the distortion loss, the table decay, the
+    params EMA and both anneals for EXT_STEPS steps (the kernels launch,
+    the loss falls), one such step card against CPU; then (sp1)'s field
+    served: an 800x800 request online and one --baked (256^3), each timed,
+    baked against online in PSNR on a held-out pose."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.train.config import parse_args
+
+    out, launches = phase_training(torch, "sp4", EXT_FLAGS, EXT_STEPS,
+                                   ("tent_contract", "table_scatter"))
+    # Halfway through both anneals (50 steps): every extension acts.
+    card_vs_cpu_step(torch, "sp4", EXT_FLAGS, {**out["state"], "step": 25})
+    del out
+    torch.cuda.empty_cache()
+    (render, step, _), text = quietly(serve.build, argparse.Namespace(
+        width=REQUEST_SIZE, height=REQUEST_SIZE, train_args=["--"] + prior_flags))
+    if step != PRIOR_STEPS or "UNTRAINED" in text:
+        raise AssertionError(f"[sp4] served step {step}: {text}")
+    scene = load_dataset(parse_args(prior_flags))
+    scene_poses = scene.poses[scene.i_test]
+    reset_launch_counts()
+    ms, online = request_ms(torch, render, scene_poses[:1])
+    serving = launch_counts()["tent_contract"]
+    del render
+    torch.cuda.empty_cache()
+    baked, bake_s, _ = parity_baked(prior_flags, BAKE_RES)
+    reset_launch_counts()
+    baked_ms, baked_maps = request_ms(torch, baked, scene_poses[:1])
+    baked_launches = launch_counts()["tent_contract"]
+    del baked
+    torch.cuda.empty_cache()
+    quality = psnr(baked_maps[0]["rgb_map"], online[0]["rgb_map"])
+    print(f"[sp4] (sp1)'s field at step {step} served at {REQUEST_SIZE}x"
+          f"{REQUEST_SIZE}: online {', '.join(f'{v:.1f}' for v in ms)} ms "
+          f"(tent_contract launches {serving}); --baked at {BAKE_RES}^3 (bake "
+          f"{bake_s:.2f} s) {', '.join(f'{v:.1f}' for v in baked_ms)} ms "
+          f"(tent_contract launches {baked_launches}); baked against online "
+          f"{quality:.2f} dB on a held-out pose")
+    if serving <= 0 or baked_launches <= 0:
+        raise AssertionError("[sp4] serving launched no tent_contract")
+    return {"training_extensions": launches, "serving_priors": serving,
+            "baked_serving_priors": baked_launches}
+
+
 def loop_seconds(torch, args, read_every_step: bool) -> float:
     """The trainer's bare step loop, for timing against trainer.train in
     one process: each step's loss and PSNR stay on the card and only an
@@ -2507,6 +2891,14 @@ def main() -> int:
         torch.cuda.empty_cache()
         parity_launches.update(phase_parity_serving(torch, parity["flags"],
                                                     workdir))
+        torch.cuda.empty_cache()
+        prior = phase_priors(torch, workdir)
+        phase_priors_step(torch, prior["flags"], prior["state"])
+        del prior["state"]
+        torch.cuda.empty_cache()
+        parity_launches.update(phase_parity_priors(torch, workdir))
+        torch.cuda.empty_cache()
+        ext = phase_extensions(torch, prior["flags"])
     torch.cuda.empty_cache()
     phase_loop_timing(torch)
     # "launches" is the count of the path of its slice that runs the
@@ -2525,7 +2917,10 @@ def main() -> int:
              "training_tile_interp": tile_launches,
              "training_from_files": files["training_from_files"],
              "training_ndc": ndc_launches,
-             # The parity path (y1-y5): every count read.
+             # The priors' paths (sp1, sp4) and the parity path (y1-y5,
+             # sp3): every count read.
+             "training_priors": prior["training"],
+             "training_extensions": ext["training_extensions"],
              **parity_launches}
 
     def by_path(name):
@@ -2543,7 +2938,11 @@ def main() -> int:
                               "testset": files["testset"]["tent_contract"],
                               "render_only": files["render_only"],
                               "bake": bake_launches,
-                              "baked_serving": baked_launches},
+                              "baked_serving": baked_launches,
+                              "testset_priors": prior["testset"],
+                              "serving_priors": ext["serving_priors"],
+                              "baked_serving_priors":
+                                  ext["baked_serving_priors"]},
          **tent},
         {"name": "table_scatter", "route": "cuda",
          "source": csrc + "table_scatter.cu",

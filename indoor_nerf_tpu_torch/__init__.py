@@ -15,6 +15,13 @@ The slices ported so far:
   and the hierarchical fine pass (``render/renderer.py``), in training,
   evaluation, online and baked serving; plain PyTorch, as the JAX package
   computes it in XLA outside any Pallas kernel;
+- the structural priors (``losses/priors.py``: the Manhattan frame, the
+  floor and wall masks, the Manhattan, planarity and consistency losses,
+  with NeRFSmall's normal net and the composited normal map) and the
+  step's small extensions (``losses/distortion.py``, the table decay, the
+  params EMA, the level and view anneals), which the two
+  ``configs/norcliffe_common_room*.txt`` files train with; plain PyTorch,
+  as the JAX package computes them in XLA;
 - training from files (``run_nerf.py``, ``train/trainer.py``): the
   shipped ``configs/*_tpu.txt`` scenes through the file loaders
   (``data/``: blender, LLFF with NDC rays, ScanNet, LINEMOD, DeepVoxels),

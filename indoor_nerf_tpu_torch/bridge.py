@@ -4,7 +4,8 @@ The JAX state, fetched to numpy, is a nested dict::
 
     {"params": {["table": [L*R, F*lpf] (block grid) or [L*T, F] (hash),]
                 "coarse": {"sigma_net": [{"w": [in, out]}, ...],
-                           "color_net": [{"w": [in, out]}, ...]}
+                           "color_net": [{"w": [in, out]}, ...],
+                           ["normal_net": [{"w", "b"}, {"w", "b"}]]}
                           (NeRFSmall) or
                           {"pts_linears": [{"w", "b"}, ...],
                            "feature_linear", "alpha_linear",
@@ -14,6 +15,7 @@ The JAX state, fetched to numpy, is a nested dict::
      "occ": {"density": [res^3]} or None,
      # the training leaves (state_from_numpy / state_to_numpy):
      "opt": {"mu": <params tree>, "nu": <params tree>, "step": int},
+     ["ema": <params tree>] (the params EMA of ``--ema_decay``),
      "step": int, "best_loss": f32, "loss_ema": f32, "loss_ema_slow": f32}
 
 The port keeps the same layouts (weights ``[in, out]``), so the leaves
@@ -54,14 +56,18 @@ def _linear_from_numpy(layer: Tree, device) -> nn.ParameterDict:
 
 
 def _nerf_small_from_numpy(tree: Tree, device) -> NeRFSmall:
-    def layers(key):
+    def layers(key, biased):
         for layer in tree[key]:
-            if set(layer) != {"w"}:
-                raise ValueError(f"{key} layers hold {sorted(layer)}; "
-                                 "NeRFSmall layers are bias-free")
+            if set(layer) != ({"w", "b"} if biased else {"w"}):
+                raise ValueError(
+                    f"{key} layers hold {sorted(layer)}; NeRFSmall's "
+                    + ("normal layers are biased" if biased else
+                       "sigma and color layers are bias-free"))
         return [_linear_from_numpy(layer, device) for layer in tree[key]]
 
-    return NeRFSmall(layers("sigma_net"), layers("color_net"))
+    normal_net = layers("normal_net", True) if "normal_net" in tree else None
+    return NeRFSmall(layers("sigma_net", False), layers("color_net", False),
+                     normal_net)
 
 
 _BIG_HEADS = ("feature_linear", "alpha_linear", "views_linears", "rgb_linear",
@@ -95,8 +101,11 @@ def _mlp_to_numpy(mlp) -> Tree:
         return {k: arr(v) for k, v in p.items()}
 
     if isinstance(mlp, NeRFSmall):
-        return {"sigma_net": [layer(l) for l in mlp.sigma_net],
-                "color_net": [layer(l) for l in mlp.color_net]}
+        out = {"sigma_net": [layer(l) for l in mlp.sigma_net],
+               "color_net": [layer(l) for l in mlp.color_net]}
+        if mlp.predict_normals:
+            out["normal_net"] = [layer(l) for l in mlp.normal_net]
+        return out
     out = {"pts_linears": [layer(l) for l in mlp.pts_linears]}
     for name in _BIG_HEADS:
         if hasattr(mlp, name):
@@ -106,14 +115,29 @@ def _mlp_to_numpy(mlp) -> Tree:
     return out
 
 
+def _params_tree_from_numpy(tree: Tree, device) -> Tree:
+    params = {}
+    if "table" in tree:
+        params["table"] = _tensor(tree["table"], device)
+    for name in _MLPS:
+        if name in tree:
+            params[name] = _mlp_from_numpy(tree[name], device)
+    return params
+
+
+def _params_tree_to_numpy(params: Tree) -> Tree:
+    out = {}
+    if "table" in params:
+        out["table"] = params["table"].detach().cpu().numpy()
+    for name in _MLPS:
+        if name in params:
+            out[name] = _mlp_to_numpy(params[name])
+    return out
+
+
 def params_from_numpy(tree: Tree, device=None) -> Tree:
     """JAX state (numpy leaves) -> ``{"params": {...}, "occ": {...} | None}``."""
-    params = {}
-    if "table" in tree["params"]:
-        params["table"] = _tensor(tree["params"]["table"], device)
-    for name in _MLPS:
-        if name in tree["params"]:
-            params[name] = _mlp_from_numpy(tree["params"][name], device)
+    params = _params_tree_from_numpy(tree["params"], device)
     occ = tree.get("occ")
     return {
         "params": params,
@@ -123,15 +147,9 @@ def params_from_numpy(tree: Tree, device=None) -> Tree:
 
 def params_to_numpy(state: Tree) -> Tree:
     """The inverse of ``params_from_numpy``: port state -> numpy leaves."""
-    params = {}
-    if "table" in state["params"]:
-        params["table"] = state["params"]["table"].detach().cpu().numpy()
-    for name in _MLPS:
-        if name in state["params"]:
-            params[name] = _mlp_to_numpy(state["params"][name])
     occ = state.get("occ")
     return {
-        "params": params,
+        "params": _params_tree_to_numpy(state["params"]),
         "occ": None if occ is None else {
             "density": occ["density"].detach().cpu().numpy()},
     }
@@ -166,9 +184,15 @@ def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix=""):
 
 
 def state_from_numpy(tree: Tree, device=None) -> Tree:
-    """A whole JAX train state (numpy leaves) -> the port's train state."""
+    """A whole JAX train state (numpy leaves) -> the port's train state,
+    with the params EMA where the tree holds one."""
     base = params_from_numpy(tree, device)
     state = make_train_state(base["params"], base["occ"])
+    if tree.get("ema") is not None:
+        ema = _params_tree_from_numpy(tree["ema"], device)
+        for t in named_leaves(ema).values():
+            t.requires_grad_(False)
+        state["ema"] = ema
     for key in ("mu", "nu"):
         flat = _flatten(tree["opt"][key])
         for name, t in state["opt"][key].items():
@@ -191,6 +215,8 @@ def state_to_numpy(state: Tree) -> Tree:
             raise ValueError(f"opt {key} holds {sorted(flat)}, params {sorted(names)}")
         moments[key] = _unflatten_like(out["params"], flat)
     out["opt"] = {**moments, "step": np.int32(state["opt"]["step"])}
+    if state.get("ema") is not None:
+        out["ema"] = _params_tree_to_numpy(state["ema"])
     out["step"] = np.int32(state["step"])
     for key in _SCALARS:
         out[key] = state[key].detach().cpu().numpy()
@@ -251,23 +277,26 @@ def load_flax_msgpack(path: str) -> Tree:
 
 def load_jax_checkpoint(path: str) -> Tree:
     """A checkpoint written by the JAX package's ``save_checkpoint`` as the
-    numpy tree ``state_from_numpy`` takes.
+    numpy tree ``state_from_numpy`` takes, the params EMA (``ema``)
+    included where it holds one.
 
-    The JAX state also holds ``quant`` (A-CAQ), ``ema`` (the params EMA) and
-    ``infl_ema`` (A-CAQ's inflation statistic), which the port has not
-    ported. ``None`` and the statistic are dropped; a checkpoint that holds
-    a trained ``quant`` or ``ema`` is refused, never read without them."""
+    The JAX state also holds ``quant`` (A-CAQ) and ``infl_ema`` (A-CAQ's
+    inflation statistic), which the port has not ported. ``None`` and the
+    statistic are dropped; a checkpoint that holds a trained ``quant`` is
+    refused, never read without it."""
     tree = load_flax_msgpack(path)
     if not isinstance(tree, dict) or "params" not in tree:
         raise ValueError(f"{path}: not a train state (no 'params')")
-    for key in ("quant", "ema"):
-        if tree.get(key) is not None:
-            raise NotImplementedError(
-                f"{path} holds a trained '{key}' state, which comes with "
-                "ROADMAP.md Queue 1 item 5 (training extensions); importing "
-                "the checkpoint without it would drop trained state")
+    if tree.get("quant") is not None:
+        raise NotImplementedError(
+            f"{path} holds a trained 'quant' state, which comes with "
+            "ROADMAP.md Queue 1 item 5b (A-CAQ and the int8 gather); "
+            "importing the checkpoint without it would drop trained state")
     keep = ("params", "opt", "occ", "step") + _SCALARS
-    return {k: tree[k] for k in keep if k in tree}
+    out = {k: tree[k] for k in keep if k in tree}
+    if tree.get("ema") is not None:
+        out["ema"] = tree["ema"]
+    return out
 
 
 _BAKED_ARRAYS = ("sigma_table", "voxel_geo", "block_max", "sigma_scale",

@@ -11,7 +11,12 @@ scenes, and write them with ``utils/png.py``:
 - ``make_plane_scene`` + ``write_llff_scene``: a forward-facing rig of
   cameras on a small circle looking down -z at a smooth-textured plane, in
   the LLFF layout, ``poses_bounds.npy``, ``images/`` and
-  ``images_{factor}/``.
+  ``images_{factor}/``;
+- ``make_room_blender_scene`` + ``write_blender_scene``: the Manhattan
+  room of ``data/synthetic.py::make_room_scene`` (the structural priors'
+  scene) scaled to the Blender loader's fixed near/far, for the
+  ``configs/norcliffe_common_room*.txt`` files, which say ``dataset_type =
+  blender``.
 
 Views are rendered in a thread pool (numpy releases the GIL in its array
 passes), so an 800x800 scene of a few dozen views takes seconds.
@@ -26,7 +31,11 @@ from typing import Dict, Sequence
 
 import numpy as np
 
-from indoor_nerf_tpu_torch.data.synthetic import _render_analytic, make_synthetic_scene
+from indoor_nerf_tpu_torch.data.synthetic import (
+    _render_analytic,
+    _render_room,
+    make_synthetic_scene,
+)
 from indoor_nerf_tpu_torch.ops.rays import get_rays_np
 from indoor_nerf_tpu_torch.utils.png import encode_png, to8b
 
@@ -160,3 +169,57 @@ def write_llff_scene(root: str, c2ws: np.ndarray, H: int, W: int,
     np.save(os.path.join(root, "poses_bounds.npy"),
             np.concatenate([poses.reshape(n, -1), bds], -1))
     return small
+
+
+# The room's scale in blender layout: the Blender loader fixes near/far at
+# 2/6 (data/load.py), and at this scale and with the cameras of
+# make_room_blender_scene every surface a camera sees lies at a camera
+# depth between 2.24 and 5.56 (tests/test_torch_loaders.py holds it in
+# [2, 6]).
+ROOM_SCALE = 1.9
+
+
+def make_room_blender_scene(n_views: int, H: int, W: int,
+                            threads: int = 8) -> Dict:
+    """The Manhattan room (walls at x, y = +-1.5, floor 0, ceiling 1.5, two
+    boxes on the floor; ``data/synthetic.py``) scaled by ``ROOM_SCALE``
+    (walls at +-2.85, ceiling 2.85), seen from ``n_views`` cameras at
+    height 2.28 on a circle of radius 1.14 around the room's axis, each looking
+    across the axis toward the opposite walls and 15 degrees down (floor,
+    walls and boxes in view), with focal 1.1 W. A scaled room seen from
+    scaled positions is the room seen from the positions unscaled, so the
+    views are ``_render_room``'s. Returns ``images`` ``[N, H, W, 4]`` (alpha
+    1: every ray hits a surface), ``poses`` ``[N, 4, 4]``, ``hwf``,
+    ``depth`` ``[N, H, W]`` (each pixel's depth along the camera axis, in
+    the scaled room: the loader's ``z_vals``) and ``i_split``: every fourth
+    view, starting at the third, held out for val and test."""
+    s = ROOM_SCALE
+    focal = 1.1 * W
+    K = _pinhole(H, W, focal)
+    pitch = np.radians(15.0)
+    thetas = 2 * np.pi * np.arange(n_views) / n_views + 0.3
+    c2ws = np.tile(np.eye(4, dtype=np.float32), (n_views, 1, 1))
+    for i, th in enumerate(thetas):
+        pos = np.array([-0.6 * np.cos(th), -0.6 * np.sin(th), 1.2]) * s
+        fwd = np.array([np.cos(th), np.sin(th), -np.tan(pitch)])
+        z = -fwd / np.linalg.norm(fwd)
+        x = np.cross([0.0, 0.0, 1.0], z)
+        x /= np.linalg.norm(x)
+        c2ws[i, :3, :4] = np.stack([x, np.cross(z, x), z, pos], -1)
+
+    def render(c2w):
+        ro, rd = get_rays_np(H, W, K, c2w[:3, :4])
+        rd = rd.reshape(-1, 3)
+        rgb, t = _render_room(ro.reshape(-1, 3) / s, rd, with_t=True)
+        depth = s * t / np.linalg.norm(rd, axis=-1)
+        return (np.concatenate([rgb, np.ones_like(rgb[:, :1])], -1
+                               ).reshape(H, W, 4),
+                depth.reshape(H, W).astype(np.float32))
+
+    views = _parallel(render, c2ws, threads)
+    idx = np.arange(n_views)
+    held = idx[2::4]
+    return {"images": np.stack([v[0] for v in views]),
+            "depth": np.stack([v[1] for v in views]),
+            "poses": c2ws, "hwf": [H, W, focal],
+            "i_split": (np.setdiff1d(idx, held), held, held)}

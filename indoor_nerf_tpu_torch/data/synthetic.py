@@ -113,11 +113,14 @@ _ROOM_LIGHT = np.array([0.25, 0.15, -1.0]) / np.linalg.norm(
     [0.25, 0.15, -1.0])
 
 
-def _render_room(rays_o: np.ndarray, rays_d: np.ndarray) -> np.ndarray:
+def _render_room(rays_o: np.ndarray, rays_d: np.ndarray,
+                 with_t: bool = False):
     """Ray-trace the analytic room: floor/ceiling/4 walls seen from inside
     plus two axis-aligned boxes. Lambert shading from a fixed light +
     ambient; floor is checkered (gives the planarity losses texture to
-    work against). Every ray hits geometry (indoor scene — no background)."""
+    work against). Every ray hits geometry (indoor scene — no background).
+    With ``with_t`` also returns each ray's hit distance along its unit
+    direction."""
     d = rays_d / np.linalg.norm(rays_d, axis=-1, keepdims=True)
     o = rays_o
     n_rays = o.shape[0]
@@ -190,8 +193,9 @@ def _render_room(rays_o: np.ndarray, rays_d: np.ndarray) -> np.ndarray:
                                          (n_rays, 3)).copy(), hit)
 
     light = np.clip(-np.sum(best_n * _ROOM_LIGHT[None], axis=-1), 0.0, 1.0)
-    rgb = best_alb * (0.35 + 0.65 * light)[:, None]
-    return np.clip(rgb, 0.0, 1.0).astype(np.float32)
+    rgb = np.clip(best_alb * (0.35 + 0.65 * light)[:, None], 0.0, 1.0
+                  ).astype(np.float32)
+    return (rgb, best_t) if with_t else rgb
 
 
 def make_room_scene(

@@ -1,13 +1,19 @@
 """The radiance field: encoders + MLP + out-of-bbox masking
-(models/field.py of the JAX package) without quantization, level/view
-annealing, appearance latents or tensor parallelism.
+(models/field.py of the JAX package) without quantization, appearance
+latents or tensor parallelism.
 
 Three encoders, as ``i_embed`` says: 3, the block-hash grid (flat or
 ray-structured); 1, the multiresolution hash grid; 0 (any other value, as
 in the JAX package), the frequency PE. ``params`` is a dict: ``"table"``
 (the block table ``[L*R, F*lpf]`` or the hash table ``[L*T, F]``; none for
 PE), ``"coarse"`` and, with ``n_importance > 0``, ``"fine"``: NeRFSmall
-nets for the grids, NeRFBig nets for PE.
+nets for the grids (with ``predict_normals`` each with a normal net),
+NeRFBig nets for PE.
+
+Two schedules act on training queries only (``step`` given; evaluation
+passes none): ``freq_anneal_iters`` fades the grid levels in one after
+another (FreeNeRF's schedule on grid levels, ``level_anneal_weights``) and
+``view_anneal_iters`` ramps the encoded view directions from zero.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch.profiler import record_function
 
@@ -58,6 +65,9 @@ class FieldConfig:
     multires: int = 10
     multires_views: int = 4
     use_viewdirs: bool = True
+    # NeRFSmall's normal net: 3 more output channels, the unit normal
+    # (NeRFBig has none: a PE field composites no normal map).
+    predict_normals: bool = False
     n_importance: int = 0
     # NeRFSmall (the grid encoders)
     num_layers: int = 2
@@ -71,6 +81,10 @@ class FieldConfig:
     netdepth_fine: int = 8
     netwidth_fine: int = 256
     compute_dtype: str = "float32"  # or "bfloat16": NeRFSmall's products
+    # Training schedules (0 = off): the grid levels fade in over
+    # freq_anneal_iters steps, the view encoding over view_anneal_iters.
+    freq_anneal_iters: int = 0
+    view_anneal_iters: int = 0
 
     @property
     def input_ch(self) -> int:
@@ -95,6 +109,12 @@ class FieldConfig:
     @property
     def torch_compute_dtype(self) -> Optional[torch.dtype]:
         return torch.bfloat16 if self.compute_dtype == "bfloat16" else None
+
+
+def field_output_channels(config: FieldConfig) -> int:
+    """Channels of the raw field output: rgb logits, sigma and, with
+    ``predict_normals``, the normal (JAX field.py:144)."""
+    return 7 if config.predict_normals else 4
 
 
 def init_field_params(generator: torch.Generator, config: FieldConfig,
@@ -123,7 +143,8 @@ def init_field_params(generator: torch.Generator, config: FieldConfig,
                 num_layers=config.num_layers, hidden_dim=config.hidden_dim,
                 geo_feat_dim=config.geo_feat_dim,
                 num_layers_color=config.num_layers_color,
-                hidden_dim_color=config.hidden_dim_color, device=device)
+                hidden_dim_color=config.hidden_dim_color,
+                predict_normals=config.predict_normals, device=device)
     else:
         for name in names:
             fine = name == "fine"
@@ -159,6 +180,39 @@ def serving_params(params: Params, config: FieldConfig) -> Params:
         table = gather_table(table, config.block_grid)
     out["table"] = table
     return out
+
+
+def _ramp(step: int, iters: int) -> float:
+    """``clip(step / iters, 0, 1)`` rounded to float32, as the JAX schedules
+    compute it from their int32 step."""
+    return float(np.clip(np.float32(step) / np.float32(iters), 0.0, 1.0))
+
+
+def level_anneal_weights(step: int, n_levels: int, anneal_iters: int,
+                         device=None) -> torch.Tensor:
+    """Per-level feature weights ``[n_levels]`` of the frequency anneal
+    (JAX field.py:387): level ``l`` gets ``clip(p * (L - 1) + 1 - l, 0,
+    1)`` at progress ``p = clip(step / anneal_iters, 0, 1)``, so level 0 is
+    always on, the frontier level fades in and every level is on from
+    ``anneal_iters``. The scalar part is computed on the host in float32
+    (no copy to the card); the levels on ``device``."""
+    frontier = float(np.float32(_ramp(step, anneal_iters))
+                     * np.float32(n_levels - 1) + np.float32(1.0))
+    levels = torch.arange(n_levels, dtype=torch.float32, device=device)
+    return torch.clamp(frontier - levels, 0.0, 1.0)
+
+
+def _apply_level_anneal(feats: torch.Tensor, config: FieldConfig,
+                        step: Optional[int]) -> torch.Tensor:
+    """Grid features ``[N, L*F]`` times the anneal's level weights (JAX
+    field.py:402); unchanged when the anneal is off or for an evaluation
+    query (no ``step``)."""
+    if config.freq_anneal_iters <= 0 or step is None or not config.uses_grid:
+        return feats
+    g = config.block_grid if config.i_embed == 3 else config.grid
+    L, F = g.n_levels, g.n_features_per_level
+    w = level_anneal_weights(step, L, config.freq_anneal_iters, feats.device)
+    return (feats.reshape(-1, L, F) * w[None, :, None]).reshape(feats.shape)
 
 
 def encode_position(x: torch.Tensor, params: Params, config: FieldConfig
@@ -207,15 +261,18 @@ def sigma_query(params: Params, mlp_name: str, pts: torch.Tensor,
 
 
 def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
-                viewdirs: Optional[torch.Tensor], config: FieldConfig
-                ) -> torch.Tensor:
+                viewdirs: Optional[torch.Tensor], config: FieldConfig,
+                step: Optional[int] = None) -> torch.Tensor:
     """Query the field on an ``[R, S, 3]`` sample grid -> raw ``[R, S, C]``
-    (C = 4; 5 for a PE net without view head ahead of a fine pass).
+    (C = 4, 7 with ``predict_normals``; 5 for a PE net without view head
+    ahead of a fine pass).
 
     With ``ray_groups`` or ``ray_strides`` set on the block grid the encode
     is the ray-structured one (JAX field.py:519-546); else the flat one.
     ``viewdirs`` ``[R, 3]`` unit directions are encoded once per ray and
-    broadcast over the samples. Sigma is zeroed outside the bbox."""
+    broadcast over the samples. A training query (``step`` given) applies
+    the level and view anneals. Sigma is zeroed outside the bbox; the
+    normal channels are kept as they are."""
     r, s, _ = pts.shape
     bg = config.block_grid
     with record_function("encode"):
@@ -227,11 +284,14 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
             feats, keep = feats3.reshape(r * s, -1), keep2.reshape(r * s)
         else:
             feats, keep = encode_position(pts.reshape(-1, 3), params, config)
+        feats = _apply_level_anneal(feats, config, step)
 
     view_feats = None
     if config.use_viewdirs and viewdirs is not None:
         vf = encode_views(viewdirs, config.i_embed_views,
                           config.multires_views)  # [R, D]
+        if config.view_anneal_iters > 0 and step is not None:
+            vf = vf * _ramp(step, config.view_anneal_iters)
         view_feats = vf[:, None, :].expand(r, s, vf.shape[-1]).reshape(r * s, -1)
 
     with record_function("mlp"):

@@ -51,16 +51,25 @@ def _linear(p: nn.ParameterDict, x: torch.Tensor,
 
 
 class NeRFSmall(nn.Module):
-    """Instant-NGP-style sigma net + color net, bias-free Linears.
+    """Instant-NGP-style sigma net + color net, bias-free Linears, and with
+    ``normal_net`` (``--predict_normals``) two biased Linears from the
+    geometry features to a unit normal.
 
     forward(input_pts [N, input_ch], input_views [N, input_ch_views] | None)
-    -> [N, 4] = (rgb logits, sigma); the sigmoid is applied in compositing.
+    -> [N, 4] = (rgb logits, sigma), or [N, 7] with the normal; the sigmoid
+    is applied in compositing.
     """
 
-    def __init__(self, sigma_net, color_net):
+    def __init__(self, sigma_net, color_net, normal_net=None):
         super().__init__()
         self.sigma_net = nn.ModuleList(sigma_net)
         self.color_net = nn.ModuleList(color_net)
+        if normal_net is not None:
+            self.normal_net = nn.ModuleList(normal_net)
+
+    @property
+    def predict_normals(self) -> bool:
+        return hasattr(self, "normal_net")
 
     def forward(self, input_pts: torch.Tensor,
                 input_views: Optional[torch.Tensor],
@@ -72,9 +81,9 @@ def init_nerf_small(generator: torch.Generator, input_ch: int = 32,
                     input_ch_views: int = 16, num_layers: int = 2,
                     hidden_dim: int = 64, geo_feat_dim: int = 15,
                     num_layers_color: int = 3, hidden_dim_color: int = 64,
-                    device=None) -> NeRFSmall:
-    """Init NeRFSmall (``predict_normals`` is not ported: ROADMAP.md Queue 1
-    item 5, training extensions)."""
+                    predict_normals: bool = False, device=None) -> NeRFSmall:
+    """Init NeRFSmall; with ``predict_normals`` also the normal net
+    ``geo_feat_dim -> hidden_dim // 2 -> 3`` (JAX mlp.py:154-158)."""
     sigma_net = []
     for l in range(num_layers):
         in_dim = input_ch if l == 0 else hidden_dim
@@ -87,13 +96,21 @@ def init_nerf_small(generator: torch.Generator, input_ch: int = 32,
         out_dim = 3 if l == num_layers_color - 1 else hidden_dim_color
         color_net.append(init_linear(generator, in_dim, out_dim, bias=False,
                                      device=device))
-    return NeRFSmall(sigma_net, color_net)
+    normal_net = None
+    if predict_normals:
+        normal_net = [
+            init_linear(generator, geo_feat_dim, hidden_dim // 2, device=device),
+            init_linear(generator, hidden_dim // 2, 3, device=device),
+        ]
+    return NeRFSmall(sigma_net, color_net, normal_net)
 
 
 def apply_nerf_small(model: NeRFSmall, input_pts: torch.Tensor,
                      input_views: Optional[torch.Tensor],
                      compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Forward NeRFSmall -> ``[N, 4]`` (rgb logits, sigma)."""
+    """Forward NeRFSmall -> ``[N, 4]`` (rgb logits, sigma), ``[N, 7]`` with
+    the unit normal ``n / max(|n|, 1e-12)`` of the normal net, which runs in
+    f32 whatever ``compute_dtype`` says (JAX mlp.py:98-103)."""
     h = input_pts
     for l, layer in enumerate(model.sigma_net):
         h = _linear(layer, h, compute_dtype)
@@ -107,7 +124,12 @@ def apply_nerf_small(model: NeRFSmall, input_pts: torch.Tensor,
         h = _linear(layer, h, compute_dtype)
         if l != len(model.color_net) - 1:
             h = torch.relu(h)
-    return torch.cat([h, sigma], dim=-1)
+    if not model.predict_normals:
+        return torch.cat([h, sigma], dim=-1)
+    n = _linear(model.normal_net[1], torch.relu(_linear(model.normal_net[0],
+                                                        geo_feat)))
+    n = n / torch.clamp_min(torch.linalg.norm(n, dim=-1, keepdim=True), 1e-12)
+    return torch.cat([h, sigma, n], dim=-1)
 
 
 class NeRFBig(nn.Module):

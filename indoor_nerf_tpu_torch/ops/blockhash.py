@@ -36,6 +36,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
 from indoor_nerf_tpu_torch.ops.group_scatter import (
     group_scatter_anchored,
@@ -93,7 +94,7 @@ class BlockHashConfig:
         if self.gather_dtype not in ("float32", "bfloat16"):
             raise NotImplementedError(
                 f"gather_dtype {self.gather_dtype!r}: the int8 gather comes "
-                "with ROADMAP.md Queue 1 item 5 (training extensions)")
+                "with ROADMAP.md Queue 1 item 5b (A-CAQ and the int8 gather)")
         if self.scatter_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"scatter_dtype {self.scatter_dtype!r}")
         if self.ray_strides is not None and self.ray_groups is not None:
@@ -169,8 +170,8 @@ def _block_row_hash(block: torch.Tensor, level: torch.Tensor,
 
 def _keep_mask(x: torch.Tensor, config: BlockHashConfig) -> torch.Tensor:
     """Points inside the bbox (faces included) ``[...]`` bool."""
-    box_min = torch.tensor(config.bbox_min, dtype=torch.float32, device=x.device)
-    box_max = torch.tensor(config.bbox_max, dtype=torch.float32, device=x.device)
+    box_min = device_constant(config.bbox_min, torch.float32, x.device)
+    box_max = device_constant(config.bbox_max, torch.float32, x.device)
     return torch.all((x >= box_min) & (x <= box_max), dim=-1)
 
 
@@ -190,18 +191,18 @@ def _vertex_coords(x: torch.Tensor, config: BlockHashConfig, lv: np.ndarray
     faces are C0 seams, so one ulp in ``rel`` can change a row: the op
     order below is the JAX one, in f32, and the tests hold it exact."""
     dev = x.device
-    box_min = torch.tensor(config.bbox_min, dtype=torch.float32, device=dev)
-    box_max = torch.tensor(config.bbox_max, dtype=torch.float32, device=dev)
-    res = torch.from_numpy(level_resolutions(config)[lv]).to(dev)  # [L]
+    box_min = device_constant(config.bbox_min, torch.float32, dev)
+    box_max = device_constant(config.bbox_max, torch.float32, dev)
+    res = device_constant(level_resolutions(config)[lv], torch.float32, dev)
     keep_mask = torch.all((x >= box_min) & (x <= box_max), dim=-1)
     xc = torch.minimum(torch.maximum(x, box_min), box_max)
     grid_size = (box_max - box_min)[None, :] / res[:, None]  # [L, 3]
     rel = (xc[:, None, :] - box_min) / grid_size[None, :, :]  # [N, L, 3]
     bl = torch.floor(rel).to(torch.int32)
     w = rel - bl.to(torch.float32)
-    stagger = torch.from_numpy(_stagger(config.n_levels,
-                                        config.block_size)[lv]).to(dev)
-    level_ids = torch.from_numpy(lv.astype(np.int64)).to(dev)
+    stagger = device_constant(
+        _stagger(config.n_levels, config.block_size)[lv], torch.int32, dev)
+    level_ids = device_constant(lv, torch.int64, dev)
     return bl + stagger[None, :, :], w, level_ids, keep_mask
 
 

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 from torch.profiler import record_function
 
+from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.hashing import PRIMES
 
 
@@ -88,9 +89,9 @@ def hash_grid_indices(x: torch.Tensor, config: HashGridConfig
     masked: the XOR of the masked terms is the masked hash, so the corner
     rows equal ``spatial_hash`` of the corner coordinates."""
     dev = x.device
-    box_min = torch.tensor(config.bbox_min, dtype=torch.float32, device=dev)
-    box_max = torch.tensor(config.bbox_max, dtype=torch.float32, device=dev)
-    res = torch.from_numpy(level_resolutions(config)).to(dev)  # [L]
+    box_min = device_constant(config.bbox_min, torch.float32, dev)
+    box_max = device_constant(config.bbox_max, torch.float32, dev)
+    res = device_constant(level_resolutions(config), torch.float32, dev)
 
     keep_mask = torch.all((x >= box_min) & (x <= box_max), dim=-1)
     xc = torch.minimum(torch.maximum(x, box_min), box_max)

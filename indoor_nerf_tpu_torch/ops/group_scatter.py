@@ -68,6 +68,7 @@ from typing import Sequence
 import torch
 
 from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
+from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.table_scatter import cot_rows, unpack_grad
 
 MAX_LEVELS = 32  # the kernel's level table
@@ -96,8 +97,8 @@ def merged_rows(g: torch.Tensor, p: torch.Tensor, groups: Sequence[int],
     F = g.shape[-1] // L
     g4 = g.reshape(Rn, S, L, F)
     for G in sorted(set(groups)):
-        lv = torch.tensor([l for l, k in enumerate(groups) if k == G],
-                          device=g.device)
+        lv = device_constant([l for l, k in enumerate(groups) if k == G],
+                             torch.int64, g.device)
         cot = cot_rows(g4[:, :, lv].reshape(-1, F), p[:, :, lv].reshape(-1, 3),
                        side, lpf).reshape(Rn, S // G, G, len(lv), F * lpf)
         acc = cot[:, :, 0]

@@ -15,6 +15,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
+from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.sampling import sample_pdf, stratified_z_vals
 
 OccState = Dict[str, torch.Tensor]
@@ -50,8 +51,8 @@ def init_occupancy(config: OccupancyConfig, device=None) -> OccState:
 
 def _cell_index(pts: torch.Tensor, config: OccupancyConfig) -> torch.Tensor:
     g = config.resolution
-    bmin = torch.tensor(config.bbox_min, dtype=torch.float32, device=pts.device)
-    bmax = torch.tensor(config.bbox_max, dtype=torch.float32, device=pts.device)
+    bmin = device_constant(config.bbox_min, torch.float32, pts.device)
+    bmax = device_constant(config.bbox_max, torch.float32, pts.device)
     rel = (pts - bmin) / (bmax - bmin)
     # astype(int32) truncates toward zero, like .to(torch.int32).
     ijk = torch.clamp((rel * g).to(torch.int32), 0, g - 1).to(torch.int64)
@@ -95,8 +96,8 @@ def occupancy_update(occ: OccState,
     dev = occ["density"].device
     ijk = torch.stack([(cells // (g * g)) % g, (cells // g) % g, cells % g],
                       dim=-1).to(torch.float32)
-    bmin = torch.tensor(config.bbox_min, dtype=torch.float32, device=dev)
-    bmax = torch.tensor(config.bbox_max, dtype=torch.float32, device=dev)
+    bmin = device_constant(config.bbox_min, torch.float32, dev)
+    bmax = device_constant(config.bbox_max, torch.float32, dev)
     pts = bmin + (ijk + jitter) / g * (bmax - bmin)
     sigma = torch.relu(sigma_fn(pts))
     decayed = occ["density"] * config.decay

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 
@@ -22,8 +23,9 @@ def linspace01(n: int, device=None) -> torch.Tensor:
     if n == 1:
         return torch.zeros(1, dtype=torch.float32, device=device)
     t = torch.arange(n, dtype=torch.float32, device=device)
-    t = t * torch.tensor(1.0 / (n - 1), dtype=torch.float32, device=device)
-    t[-1] = 1.0
+    # f32(1/(n-1)) as a Python number: an exact f32 operand, no copy.
+    t = t * float(np.float32(1.0 / (n - 1)))
+    t[-1:].fill_(1.0)
     return t
 
 

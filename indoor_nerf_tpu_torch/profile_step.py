@@ -35,7 +35,7 @@ import time
 
 WARMUP_STEPS = 20
 TOP_KERNELS = 12
-SPANS = ("sample", "encode", "mlp", "composite", "tv", "backward",
+SPANS = ("sample", "encode", "mlp", "composite", "tv", "priors", "backward",
          "encode_bwd", "optimizer", "occ_update", "baked_sample",
          "baked_pass1", "baked_composite", "baked_pass2", "baked_color")
 # The kernels of csrc/, by a part of their names on the device.

@@ -116,10 +116,12 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                 ) -> Dict[str, torch.Tensor]:
     """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
     ``[N, 1]``). Returns rgb/depth/acc/disp maps, the entropy
-    ``sparsity_loss``, ``weights``, ``z_vals`` and ``pts``; the hierarchical
-    path also the coarse pass's ``rgb0``, ``depth0``, ``acc0`` and
-    ``sparsity_loss0``, and ``z_std``, the population std of the fine
-    samples' depths.
+    ``sparsity_loss``, ``weights``, ``z_vals`` (of the last pass: the
+    distortion loss reads both) and ``pts``, and with ``predict_normals``
+    ``normal_map``; the hierarchical path also the coarse pass's ``rgb0``,
+    ``depth0``, ``acc0``, ``sparsity_loss0`` (and ``normal0``), and
+    ``z_std``, the population std of the fine samples' depths. A training
+    render passes its ``step``, which also drives the field's anneals.
 
     A ``test_mode()`` config renders deterministically (the fine samples at
     the inverse CDF of a linspace). Otherwise ``draws`` (``draw_render``)
@@ -146,7 +148,7 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                                        t_rand=draws.get("t_rand"))
         mlp_name = "coarse"
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_field(params, mlp_name, pts, viewdirs, fc)
+    raw = query_field(params, mlp_name, pts, viewdirs, fc, step)
     with record_function("composite"):
         out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd,
                           sigma_noise=draws.get("sigma_noise"))
@@ -161,7 +163,7 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
             z_vals = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
         raw = query_field(params, "fine" if "fine" in params else "coarse",
-                          pts, viewdirs, fc)
+                          pts, viewdirs, fc, step)
         with record_function("composite"):
             out = raw2outputs(raw, z_vals, rays_d,
                               white_bkgd=config.white_bkgd,
@@ -170,6 +172,8 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
         out["depth0"] = coarse["depth_map"]
         out["acc0"] = coarse["acc_map"]
         out["sparsity_loss0"] = coarse["sparsity_loss"]
+        if "normal_map" in coarse:
+            out["normal0"] = coarse["normal_map"]
         out["z_std"] = torch.std(z_samples, dim=-1, correction=0)
     out["z_vals"] = z_vals
     out["pts"] = pts

@@ -8,7 +8,11 @@
 Serves the newest checkpoint of the run the training flags name
 (``basedir/mangle_expname``, or ``--ft_path``; the flags must match the
 training run's, since the expname is mangled with them) and reports its step
-in /health; with none it serves the seeded initial state and says so.
+in /health; with none it serves the seeded initial state and says so. A
+field trained with normals (``--predict_normals``, which
+``--use_structural_priors`` switches on) serves as the JAX server serves it:
+the normals are computed and not served, and the bake leaves the normal net
+out. The server renders the params, not their EMA, as the JAX server does.
 Renders on the CUDA card (the block-hash encode then runs the hand-written
 ``tent_contract`` kernel; the hash grid and PE of the parity path are plain
 PyTorch) unless the training flags hold ``--device cpu``;
@@ -60,7 +64,12 @@ from indoor_nerf_tpu_torch.render.renderer import (
 )
 from indoor_nerf_tpu_torch.train.config import parse_args
 from indoor_nerf_tpu_torch.train.step import init_train_state
-from indoor_nerf_tpu_torch.train.trainer import build_train_config, logdir_of, resume
+from indoor_nerf_tpu_torch.train.trainer import (
+    build_train_config,
+    enable_normals,
+    logdir_of,
+    resume,
+)
 from indoor_nerf_tpu_torch.utils.png import encode_png
 
 
@@ -104,6 +113,7 @@ def build(args):
     if train_args and train_args[0] == "--":
         train_args = train_args[1:]
     cli = parse_args(train_args)
+    enable_normals(cli)
     scene = load_dataset(cli)
     cfg = build_train_config(cli, scene)
     device = resolve_device(cli.device)

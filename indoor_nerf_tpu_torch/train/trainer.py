@@ -1,6 +1,6 @@
 """The training entry point (train/trainer.py of the JAX package: the loop of
-its ``train``, without the multi-device and training-extension parts) and
-the static config assembly that serving shares.
+its ``train``, without the multi-device parts, A-CAQ, the reg patches and
+the appearance latents) and the static config assembly that serving shares.
 
     python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego_tpu.txt \
         --datadir DIR
@@ -41,6 +41,17 @@ newest checkpoint into ``renderonly_{path|test}_{step:06d}/``, through the
 baked renderer with ``--render_baked``. The expname is mangled with the
 hyper-parameters, so a changed ``--lrate`` or ``--finest_res`` resolves to
 a fresh directory. Without ``--expname`` nothing is written or resumed.
+
+``--use_structural_priors`` (it switches ``--predict_normals`` on) adds
+the Manhattan, planarity and consistency losses from
+``--structural_loss_start_iter`` on, ramped over
+``--structural_loss_ramp_iters``; every 500 steps after the first 500 of
+them, a train PSNR more than ``--overfitting_threshold`` dB above the last
+held-out PSNR multiplies the prior weights by 0.7 (not below
+``--min_structural_weight``). ``--distortion_loss_weight``,
+``--table_decay_weight``, ``--ema_decay`` (held-out renders then use the
+params EMA), ``--freq_anneal_iters`` and ``--view_anneal_iters`` are the
+step's other extensions (``train/step.py``, ``models/field.py``).
 """
 
 from __future__ import annotations
@@ -68,6 +79,7 @@ from indoor_nerf_tpu_torch.train.config import parse_args
 from indoor_nerf_tpu_torch.train.step import (
     TrainConfig,
     draw_step,
+    eval_params,
     init_train_state,
     train_step,
 )
@@ -80,22 +92,21 @@ from indoor_nerf_tpu_torch.utils.checkpoint import (
 from indoor_nerf_tpu_torch.utils.evaluation import ComprehensiveEvaluator
 from indoor_nerf_tpu_torch.utils.metrics import MetricsLogger
 
-_ITEM5 = "Queue 1 item 5 (training extensions)"
+_ITEM5B = "Queue 1 item 5b (A-CAQ and the int8 gather)"
+_ITEM5C = "Queue 1 item 5c (reg patches and appearance latents)"
 # Flags whose non-default value changes the model or the step, with the
 # ROADMAP item that brings each.
 _UNPORTED = (
-    ("use_quantization", False, _ITEM5),
-    ("use_acaq", False, _ITEM5),
-    ("predict_normals", False, _ITEM5),
-    ("use_structural_priors", False, _ITEM5),
-    ("distortion_loss_weight", 0.0, _ITEM5),
-    ("table_decay_weight", 0.0, _ITEM5),
-    ("ema_decay", 0.0, _ITEM5),
-    ("reg_views", 0, _ITEM5),
-    ("use_appearance", False, _ITEM5),
-    ("freq_anneal_iters", 0, _ITEM5),
-    ("view_anneal_iters", 0, _ITEM5),
+    ("use_quantization", False, _ITEM5B),
+    ("use_acaq", False, _ITEM5B),
+    ("reg_views", 0, _ITEM5C),
+    ("use_appearance", False, _ITEM5C),
 )
+PRIOR_KEYS = ("planarity", "manhattan", "normal_consistency", "depth_prior")
+# The step's structural-prior diagnostics the [PRIOR] line prints.
+PRIOR_DIAG = ("manhattan", "planarity", "normal_consistency",
+              "semantic_floor_count", "semantic_wall_count",
+              "wall_cluster_angle_deg")
 # Flags of the training loop only, refused by ``train``.
 _ITEM8 = "Queue 1 item 8 (multi-device)"
 _UNPORTED_LOOP = (
@@ -159,6 +170,42 @@ def resume(args, state: Dict, no_reload: bool) -> Dict:
     return maybe_resume(logdir or "", state, args.ft_path, no_reload)
 
 
+def decay_prior_weights(args, i: int, psnr_list, last_test_psnr,
+                        prior_weights: Dict[str, float]) -> bool:
+    """The overfitting decay of the prior weights (JAX trainer.py:650-666),
+    read at step ``i``: every 500 steps after the first 500 with the priors,
+    once more than 50 training PSNRs are logged (``psnr_list``, one per
+    ``--i_print``) and a test set was rendered, a mean of the last 20 that
+    exceeds ``last_test_psnr`` by more than ``--overfitting_threshold``
+    multiplies each weight by 0.7, not below ``--min_structural_weight``.
+    Updates ``prior_weights`` in place; returns whether it decayed them."""
+    if not (args.use_structural_priors
+            and i > args.structural_loss_start_iter + 500
+            and i % 500 == 0 and len(psnr_list) > 50
+            and last_test_psnr is not None):
+        return False
+    recent_train = float(np.mean(psnr_list[-20:]))
+    if recent_train - last_test_psnr <= args.overfitting_threshold:
+        return False
+    print(f"\n⚠️  Overfitting detected at iteration {i}")
+    print(f"   Train PSNR: {recent_train:.1f} dB, "
+          f"Last Test: {last_test_psnr:.1f} dB")
+    for k in PRIOR_KEYS:
+        prior_weights[k] = max(args.min_structural_weight,
+                               prior_weights[k] * 0.7)
+    print(f"   Reduced structural weights by 30%: {prior_weights}")
+    return True
+
+
+def enable_normals(args) -> None:
+    """``--use_structural_priors`` switches ``--predict_normals`` on (the
+    JAX trainer's switch, trainer.py:257-261); the server makes it too, so
+    that it builds the nets the training run saved."""
+    if args.use_structural_priors and not args.predict_normals:
+        print("🔧 AUTOMATICALLY ENABLING NORMAL PREDICTION for structural priors")
+        args.predict_normals = True
+
+
 def build_train_config(args, scene: SceneData) -> TrainConfig:
     """Assemble the static config from CLI args + scene geometry (the JAX
     ``build_train_config``, for what the port runs)."""
@@ -176,6 +223,12 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
             "encodings (--i_embed 1/3) need one — use --i_embed 0")
     if args.use_occupancy and scene.bounding_box is None:
         raise ValueError("--use_occupancy needs a scene bounding box")
+    if args.use_structural_priors and args.i_embed not in (1, 3):
+        raise ValueError(
+            "--use_structural_priors needs the normals of NeRFSmall, the "
+            f"grid encoders' net (--i_embed 1 or 3; got {args.i_embed}): "
+            "the classic NeRF MLP of PE predicts none (the JAX package "
+            "fails on the pair with an IndexError when it traces the step)")
 
     n_levels = args.n_levels
     feats_per_level = args.feats_per_level
@@ -229,12 +282,15 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         multires=args.multires,
         multires_views=args.multires_views,
         use_viewdirs=args.use_viewdirs,
+        predict_normals=args.predict_normals,
         n_importance=args.N_importance,
         netdepth=args.netdepth,
         netwidth=args.netwidth,
         netdepth_fine=args.netdepth_fine,
         netwidth_fine=args.netwidth_fine,
         compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
+        freq_anneal_iters=args.freq_anneal_iters,
+        view_anneal_iters=args.view_anneal_iters,
     )
     occupancy = None
     if args.use_occupancy:
@@ -270,21 +326,37 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         lrate_decay=args.lrate_decay,
         sparse_loss_weight=args.sparse_loss_weight,
         tv_loss_weight=args.tv_loss_weight,
+        distortion_loss_weight=args.distortion_loss_weight,
+        table_decay_weight=args.table_decay_weight,
+        ema_decay=args.ema_decay,
+        use_structural_priors=args.use_structural_priors,
+        structural_loss_start_iter=args.structural_loss_start_iter,
+        structural_loss_ramp_iters=args.structural_loss_ramp_iters,
     )
 
 
 def one_batch(args, device, seed=None):
     """``(cfg, batch)`` for single steps of the CLI configuration ``args``:
     the static config ``train`` builds, and the first batch of the scene's
-    training rays from ``seed`` (``args.seed`` by default) on ``device``."""
+    training rays from ``seed`` (``args.seed`` by default) on ``device``;
+    with ``--no_batching`` the image sampler's, with its pixels'
+    ``spatial_coords``."""
+    enable_normals(args)
     scene = load_dataset(args)
     H, W, _ = scene.hwf
     cfg = build_train_config(args, scene)
-    b = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                          scene.K, args.N_rand,
-                          seed=args.seed if seed is None else seed).next()
+    seed = args.seed if seed is None else seed
+    if args.no_batching:
+        b = ImageRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                            scene.K, args.N_rand,
+                            precrop_iters=args.precrop_iters,
+                            precrop_frac=args.precrop_frac, seed=seed).next(1)
+    else:
+        b = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                              scene.K, args.N_rand, seed=seed).next()
     return cfg, {k: torch.from_numpy(b[k]).to(device)
-                 for k in ("rays_o", "rays_d", "target")}
+                 for k in ("rays_o", "rays_d", "target", "spatial_coords")
+                 if k in b}
 
 
 def _write_run_files(args, logdir: str) -> None:
@@ -340,7 +412,7 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
             Wb //= args.render_factor
         print(f"[baked] baking at {args.render_baked_res}^3 ...")
         baked = bake_field(
-            serving_params(state["params"], cfg.render.field),
+            serving_params(eval_params(state), cfg.render.field),
             cfg.render.field, resolution=args.render_baked_res,
             train_cameras=train_cameras(scene),
             geo_resolution=args.render_baked_geo_res)
@@ -350,7 +422,7 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
             n_coarse=64)
     rgbs, _, psnrs = render_path(
         scene.render_poses, scene.hwf, scene.K, cfg.render.test_mode(),
-        state["params"], scene.near, scene.far, gt_imgs=gt, savedir=savedir,
+        eval_params(state), scene.near, scene.far, gt_imgs=gt, savedir=savedir,
         render_factor=args.render_factor, occ_state=state["occ"],
         image_renderer=image_renderer)
     print("Done rendering", savedir)
@@ -404,12 +476,15 @@ def train(args) -> Dict:
     device synchronize; ``eval_seconds`` of it went to the periodic saves,
     test sets and videos), ``load_seconds`` of the scene's loading, ``testsets`` (step,
     mean PSNR, SSIM, GMSD, the seconds of the render and of the metrics, per
-    ``--i_testset`` evaluation), ``state`` and ``logdir``; with
+    ``--i_testset`` evaluation), ``prior_weights`` (the base weights of the
+    structural priors at the end) and ``prior_decays`` (step and weights of
+    each overfitting decay), ``state`` and ``logdir``; with
     ``--render_only``, ``_render_only``'s dict."""
     _refuse(args, _UNPORTED_LOOP)
     if args.render_only and args.render_test and args.render_fit_appearance:
         raise NotImplementedError(
-            f"--render_fit_appearance comes with ROADMAP.md {_ITEM5}")
+            f"--render_fit_appearance comes with ROADMAP.md {_ITEM5C}")
+    enable_normals(args)
     t_load = time.perf_counter()
     scene = load_dataset(args)
     load_seconds = time.perf_counter() - t_load
@@ -450,7 +525,7 @@ def train(args) -> Dict:
     t_replay = time.perf_counter()
     for s in range(start):
         skip(s + 1)
-        draw_step(gen, cfg, s, args.N_rand)
+        draw_step(gen, cfg, s, args.N_rand, args.no_batching)
     if start:
         print(f"replayed the sampler and the draws of {start} steps in "
               f"{time.perf_counter() - t_replay:.2f} s")
@@ -467,6 +542,16 @@ def train(args) -> Dict:
     loss_list, psnr_list, time_list = [], [], []  # at --i_print steps
     losses, psnrs, testsets = [], [], []  # every step; every test set
     best_test_psnr = -np.inf
+    last_test_psnr: Optional[float] = None
+    # The base weights of the structural priors, decayed on overfitting
+    # (JAX trainer.py:550-555); the step ramps them.
+    prior_weights = {
+        "depth_prior": args.depth_prior_weight,
+        "planarity": args.planarity_weight,
+        "manhattan": args.manhattan_weight,
+        "normal_consistency": args.normal_consistency_weight,
+    }
+    prior_decays = []  # (step, weights after the decay)
     time_metrics = {
         "start_time": time.time(),
         "structural_priors_start_time": None,
@@ -482,9 +567,13 @@ def train(args) -> Dict:
     last_processed = time.time()
 
     def queue_read(i: int, metrics: Dict):
-        """Step ``i``'s loss and PSNR on their way to the host, and the
-        event of their copy (None on the CPU)."""
-        vals = torch.stack([metrics["loss"], metrics["psnr"]]).to(
+        """Step ``i``'s loss and PSNR (and the priors' diagnostics on steps
+        with the priors) on their way to the host, and the event of their
+        copy (None on the CPU)."""
+        keys = ["loss", "psnr"]
+        if "structural_manhattan" in metrics:
+            keys += [f"structural_{k}" for k in PRIOR_DIAG]
+        vals = torch.stack([metrics[k].to(torch.float32) for k in keys]).to(
             "cpu", non_blocking=True)
         done = None
         if device.type == "cuda":
@@ -499,7 +588,7 @@ def train(args) -> Dict:
         i, vals, done, lr = pending
         if done is not None:
             done.synchronize()
-        loss, psnr = vals.tolist()
+        loss, psnr, *diag = vals.tolist()
         now = time.time()
         if not np.isfinite(loss):
             saved = ("no checkpoint (no --expname)" if logdir is None else
@@ -509,6 +598,15 @@ def train(args) -> Dict:
                 f"non-finite loss {loss} at iteration {i}; {saved}. "
                 "Re-run with --debug_nans to locate the op.")
         metrics_logger.log_iteration(i, now - time0, loss, psnr, lr)
+        if (diag and i % args.i_print == 0
+                and i >= args.structural_loss_start_iter):
+            m = dict(zip(PRIOR_DIAG, diag))
+            print(f"[PRIOR] manhattan: {m['manhattan']:.4g} "
+                  f"planarity: {m['planarity']:.4g} "
+                  f"consistency: {m['normal_consistency']:.4g} "
+                  f"floor/wall px: {int(m['semantic_floor_count'])}/"
+                  f"{int(m['semantic_wall_count'])} "
+                  f"wall-angle: {m['wall_cluster_angle_deg']:.1f} deg")
         losses.append(loss)
         psnrs.append(psnr)
         dt = now - last_processed
@@ -534,6 +632,9 @@ def train(args) -> Dict:
                 time_metrics["convergence_time"] = ct / 60.0
                 print(f"📊 CONVERGENCE DETECTED at iteration {i} "
                       f"({ct/60:.1f} min)")
+        if decay_prior_weights(args, i, psnr_list, last_test_psnr,
+                               prior_weights):
+            prior_decays.append((i, dict(prior_weights)))
         return loss, psnr
 
     profiler = None
@@ -551,8 +652,10 @@ def train(args) -> Dict:
                 profiler.start()
             b = sample(i)
             batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
-                     for k in ("rays_o", "rays_d", "target")}
-            state, metrics = train_step(state, batch, cfg, gen)
+                     for k in ("rays_o", "rays_d", "target", "spatial_coords")
+                     if k in b}
+            state, metrics = train_step(state, batch, cfg, gen,
+                                        prior_weights=prior_weights)
             if args.debug_nans:
                 _check_finite(i, metrics, state)
             if profiler is not None and (i == start + PROFILE_LAST
@@ -566,6 +669,26 @@ def train(args) -> Dict:
                 print(f"[profile] steps {start + PROFILE_FIRST}-{i} traced "
                       f"to {trace}")
                 profiler = None
+
+            if (args.use_structural_priors
+                    and i == args.structural_loss_start_iter):
+                # The activation banner (JAX trainer.py:677-687).
+                time_metrics["structural_priors_start_time"] = time.time()
+                t_act = (time_metrics["structural_priors_start_time"]
+                         - time_metrics["start_time"])
+                print("\n" + "=" * 80)
+                print(f"🏗️  ACTIVATING STRUCTURAL PRIORS AT ITERATION {i}")
+                print(f"   weights={prior_weights}  ramp="
+                      f"{args.structural_loss_ramp_iters} iters  "
+                      f"time-to-activation={t_act/60:.1f} min")
+                print("=" * 80 + "\n")
+            if (args.use_structural_priors
+                    and i < args.structural_loss_start_iter
+                    and i % args.i_print == 0
+                    and i > args.structural_loss_start_iter - 500):
+                remaining = args.structural_loss_start_iter - i
+                print(f"  📊 Structural priors activate in {remaining} "
+                      "iterations...")
 
             # Step i-1's metrics while step i runs (JAX trainer.py:705-722).
             if pending is not None:
@@ -591,7 +714,7 @@ def train(args) -> Dict:
                 t_eval = time.perf_counter()
                 rgbs, disps, _ = render_path(
                     scene.render_poses, scene.hwf, scene.K, test_config,
-                    state["params"], scene.near, scene.far,
+                    eval_params(state), scene.near, scene.far,
                     occ_state=state["occ"], save_figures=False)
                 print("Done, saving", rgbs.shape, disps.shape)
                 moviebase = os.path.join(logdir, "{}_spiral_{:06d}_".format(
@@ -610,12 +733,13 @@ def train(args) -> Dict:
                 print("test poses shape", scene.poses[scene.i_test].shape)
                 rgbs, _, view_psnrs = render_path(
                     scene.poses[scene.i_test], scene.hwf, scene.K,
-                    test_config, state["params"], scene.near, scene.far,
+                    test_config, eval_params(state), scene.near, scene.far,
                     gt_imgs=scene.images[scene.i_test], savedir=testsavedir,
                     occ_state=state["occ"])
                 print("Saved test set")
                 t_metrics = time.perf_counter()
                 avg = sum(view_psnrs) / len(view_psnrs)
+                last_test_psnr = avg
                 evals = [evaluator.evaluate_image(r, g)
                          for r, g in zip(rgbs, scene.images[scene.i_test])]
                 lpips_vals = [e["lpips"] for e in evals if "lpips" in e]
@@ -647,7 +771,8 @@ def train(args) -> Dict:
                 time_list.append(t)
                 if logdir is not None:
                     _write_training_pickles(args, logdir, loss_list,
-                                            psnr_list, time_list, time_metrics)
+                                            psnr_list, time_list, time_metrics,
+                                            prior_weights)
                 if i % 1000 == 0:
                     elapsed = (time.time() - time_metrics["start_time"]) / 60.0
                     ips = np.mean(time_metrics["iterations_per_second"][-100:])
@@ -681,13 +806,15 @@ def train(args) -> Dict:
     return {**time_metrics, "losses": losses, "psnrs": psnrs,
             "seconds": seconds, "eval_seconds": eval_seconds,
             "load_seconds": load_seconds, "testsets": testsets,
+            "prior_weights": prior_weights, "prior_decays": prior_decays,
             "state": state, "logdir": logdir}
 
 
 def _write_training_pickles(args, logdir, loss_list, psnr_list, time_list,
-                            time_metrics) -> None:
+                            time_metrics, prior_weights) -> None:
     """``training_metrics.pkl`` and ``loss_vs_time.pkl`` with the JAX
-    trainer's contents (:812-839; the structural-prior weights as parsed)."""
+    trainer's contents (:812-839; the structural-prior weights in use, after
+    any overfitting decay)."""
     training_data = {
         "losses": loss_list,
         "psnr": psnr_list,
@@ -695,10 +822,10 @@ def _write_training_pickles(args, logdir, loss_list, psnr_list, time_list,
         "time_metrics": time_metrics,
         "structural_priors_enabled": args.use_structural_priors,
         "config": {
-            "depth_prior_weight": args.depth_prior_weight,
-            "planarity_weight": args.planarity_weight,
-            "manhattan_weight": args.manhattan_weight,
-            "normal_consistency_weight": args.normal_consistency_weight,
+            "depth_prior_weight": prior_weights["depth_prior"],
+            "planarity_weight": prior_weights["planarity"],
+            "manhattan_weight": prior_weights["manhattan"],
+            "normal_consistency_weight": prior_weights["normal_consistency"],
             "structural_loss_start_iter": args.structural_loss_start_iter,
             "predict_normals": args.predict_normals,
         },

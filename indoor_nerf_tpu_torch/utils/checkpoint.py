@@ -8,7 +8,8 @@ the newest is loaded unless ``--no_reload``, ``--ft_path`` pins one file, and
 The port's own payload is the whole train state as one flat dict of CPU
 tensors and plain ints, keyed by dotted leaf paths (``params.table``,
 ``params.coarse.sigma_net.0.w``, ``opt.mu.table``, ``opt.step``,
-``occ.density``, ``step``, ``best_loss``, ...), written with ``torch.save``
+``occ.density``, ``ema.table`` (the params EMA of ``--ema_decay``),
+``step``, ``best_loss``, ...), written with ``torch.save``
 and read with ``weights_only=True``: no pickled classes. ``restore_checkpoint``
 also reads a checkpoint written by the JAX package (flax msgpack), which it
 tells apart by the file's first bytes (``bridge.load_jax_checkpoint``).
@@ -37,6 +38,8 @@ def _tensor_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out.update({f"opt.{key}.{k}": v for k, v in state["opt"][key].items()})
     if state.get("occ") is not None:
         out["occ.density"] = state["occ"]["density"]
+    if state.get("ema") is not None:
+        out.update({f"ema.{k}": v for k, v in named_leaves(state["ema"]).items()})
     out.update({k: state[k] for k in _SCALARS})
     return out
 
@@ -96,11 +99,17 @@ def _restore_own(payload: Dict[str, Any], template: Dict[str, Any],
         raise ValueError(f"{path}: not a checkpoint of this package (format "
                          f"{payload.get('format')!r}, expected {FORMAT!r})")
     leaves = _tensor_leaves(template)
-    required = [k for k in leaves if k.startswith("params.")]
+    ema = [k for k in leaves if k.startswith("ema.")]
+    # A file without the EMA seeds it from the restored params (the JAX
+    # rule, utils/checkpoint.py:75-93); a part of one is refused.
+    seed_ema = bool(ema) and not any(k in payload for k in ema)
+    required = [k for k in leaves if k.startswith("params.")
+                or (k.startswith("ema.") and not seed_ema)]
     missing = [k for k in required if k not in payload]
     if missing:
         raise ValueError(f"{path}: no leaf {missing[0]!r}")
-    extra = [k for k in payload if k.startswith("params.") and k not in leaves]
+    extra = [k for k in payload if k.startswith(("params.", "ema."))
+             and k not in leaves]
     if extra:
         raise ValueError(f"{path}: leaf {extra[0]!r} has no place in the "
                          "configuration's state; it would be dropped")
@@ -118,6 +127,9 @@ def _restore_own(payload: Dict[str, Any], template: Dict[str, Any],
                 template[name] = src.to(t.device)
             else:
                 t.copy_(src)
+        if seed_ema:
+            for name in ema:
+                leaves[name].copy_(leaves["params." + name[len("ema."):]])
     if "opt.step" in payload:
         template["opt"]["step"] = int(payload["opt.step"])
     if "step" in payload:
@@ -131,7 +143,9 @@ def restore_checkpoint(path: str, state_template: Dict[str, Any],
     overwritten in place and it is returned); every leaf's shape and dtype
     must match the template's, else a ``ValueError`` names the leaf. A
     missing optional top-level key (the moments, the grid, the counters)
-    keeps the template's value. ``device`` defaults to the template's.
+    keeps the template's value; a missing params EMA starts at the restored
+    params, and an EMA the template has no place for is refused. ``device``
+    defaults to the template's.
 
     A file written by the JAX package's ``save_checkpoint`` is imported
     through ``bridge.load_jax_checkpoint`` and ``bridge.state_from_numpy``

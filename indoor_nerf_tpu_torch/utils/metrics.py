@@ -10,7 +10,7 @@ The card's machine has neither matplotlib nor pandas: the logger then
 writes everything else and says once, when it is made, which files it
 leaves out and why (the JAX logger raises ImportError at the first save).
 
-The quantizer series (A-CAQ, ROADMAP.md Queue 1 item 5) are kept empty in
+The quantizer series (A-CAQ, ROADMAP.md Queue 1 item 5b) are kept empty in
 the pickles as the JAX logger keeps them for an unquantized run;
 ``calculate_model_complexity``, ``log_acaq_update``, the quantizer CSV and
 ``quantization_analysis.png`` come with that item.

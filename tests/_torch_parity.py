@@ -70,9 +70,12 @@ def both_states(jcfg, seed=0, occ_rng=None):
 
 
 def jax_train_state_numpy(jstate):
-    """A JAX train state's leaves that the port carries, as numpy."""
+    """A JAX train state's leaves that the port carries, as numpy (the
+    params EMA where the state keeps one)."""
     keys = ("params", "opt", "occ", "step", "best_loss", "loss_ema",
             "loss_ema_slow")
+    if jstate.get("ema") is not None:
+        keys += ("ema",)
     return jax.tree_util.tree_map(np.asarray, {k: jstate[k] for k in keys})
 
 
@@ -82,17 +85,19 @@ def both_train_states(jcfg, seed=0):
     return jstate, state_from_numpy(jax_train_state_numpy(jstate))
 
 
-def jax_step_draws(key, jcfg, n_rays, step):
+def jax_step_draws(key, jcfg, n_rays, step, with_coords=False):
     """The draws the JAX ``train_step(key)`` makes at ``step``, replayed
     for the port's ``draws=``: the key splits of train/step.py:187,
     render/renderer.py:89, ops/sampling.py (the stratified jitter, the
     fine pass's inverse-CDF draws), ops/volume.py:56 (the sigma noise of
-    each pass), ops/tv.py:42-51 (the hash grid's cube origins) and
+    each pass), ops/tv.py:42-51 (the hash grid's cube origins),
+    losses/priors.py (``jax_prior_draws``, once the priors are active;
+    ``with_coords`` where the batch has ``spatial_coords``) and
     ops/occupancy.py:102,142."""
     rc = jcfg.render
     oc = rc.occupancy
     fc = rc.field
-    k_render, k_tv, _, k_occ = jax.random.split(key, 4)
+    k_render, k_tv, k_priors, k_occ = jax.random.split(key, 4)
     k_strat, k_pdf, k_noise0, k_noise1 = jax.random.split(k_render, 4)
     draws = {}
     if oc is not None:
@@ -133,7 +138,36 @@ def jax_step_draws(key, jcfg, n_rays, step):
         draws["occ_cells"] = np.asarray(jax.random.randint(
             k_cell, (m,), 0, oc.n_cells, jnp.int32)).astype(np.int64)
         draws["occ_jitter"] = np.asarray(jax.random.uniform(k_jit, (m, 3)))
-    return {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+    out = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+    if (jcfg.use_structural_priors and fc.predict_normals
+            and step >= jcfg.structural_loss_start_iter):
+        out["priors"] = {k: torch.from_numpy(np.array(v)) for k, v in
+                         jax_prior_draws(k_priors, n_rays, with_coords,
+                                         jcfg.priors).items()}
+    return out
+
+
+def jax_prior_draws(k_priors, n, with_coords, config):
+    """The draws the JAX ``combine_structural_losses(k_priors)`` makes for
+    an ``n``-ray batch (losses/priors.py:89,215-218,256,269), as
+    ``draw_priors`` returns them."""
+    k_frame, k_planar, k_consist = jax.random.split(k_priors, 3)
+    draws = {"centers": np.asarray(jax.random.normal(k_frame, (3, 3)))}
+    if n < 10:
+        return draws
+    for name, k, m in zip(("floor", "wall", "other"),
+                          jax.random.split(k_planar, 3),
+                          (config.n_pairs_floor, config.n_pairs_wall,
+                           config.n_pairs_other)):
+        draws[f"planar_{name}"] = np.asarray(
+            jax.random.randint(k, (2, m), 0, n)).astype(np.int64)
+    if with_coords:
+        m, hi = min(config.n_pairs_consistency, n // 2), n
+    else:
+        m, hi = min(100, n - 1), n - 1
+    draws["consist_idx"] = np.asarray(
+        jax.random.randint(k_consist, (m,), 0, hi)).astype(np.int64)
+    return draws
 
 
 def jax_tv_origins(k_tv, grid):

@@ -243,14 +243,86 @@ def test_jax_checkpoint_renders_the_same_image(tmp_path):
 
 @pytest.mark.parametrize("key", ["ema", "quant"])
 def test_jax_checkpoint_with_trained_extensions_is_refused(tmp_path, key):
-    """A trained EMA of the params, or A-CAQ state, is never dropped
-    silently: the import names the item that brings it."""
-    extra = {key: {"table": jnp.ones((4, 4), jnp.float32)}}
-    path, _, _ = jax_checkpoint(tmp_path, steps=0, **extra)
-    with pytest.raises(NotImplementedError, match=f"'{key}'.*Queue 1 item 5"):
-        bridge.load_jax_checkpoint(path)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """Trained A-CAQ state is never dropped silently: the import names the
+    item that brings it. A trained params EMA is imported: into a state
+    built with ``--ema_decay`` it equals the JAX state's EMA bit for bit,
+    and a state without one refuses it rather than drop it."""
+    if key == "quant":
+        extra = {key: {"table": jnp.ones((4, 4), jnp.float32)}}
+        path, _, _ = jax_checkpoint(tmp_path, steps=0, **extra)
+        with pytest.raises(NotImplementedError, match="'quant'.*Queue 1 item 5b"):
+            bridge.load_jax_checkpoint(path)
+        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
+            ckpt.restore_checkpoint(path, fresh_state()[0])
+        return
+    from _torch_parity import jax_batch_sampler, jax_step_fn
+    from indoor_nerf_tpu.train.step import init_train_state as j_init
+
+    flags = TINY_FLAGSHIP + ["--ema_decay", "0.9"]
+    jcfg, tcfg, scene = configs(flags)
+    jstate = j_init(jax.random.PRNGKey(0), jcfg)
+    sampler, step_fn = jax_batch_sampler(scene, 64), jax_step_fn(jcfg)
+    key_ = jax.random.PRNGKey(1)
+    for _ in range(7):  # RAdam moves the params (and so the EMA) at 6 and 7
+        key_, sub = jax.random.split(key_)
+        b = sampler.next()
+        jstate, _ = step_fn(jstate, {k: jnp.asarray(b[k]) for k in
+                                     ("rays_o", "rays_d", "target")}, sub)
+    path = jckpt.save_checkpoint(str(tmp_path / "jax"), 7, jstate)
+    want = jax.tree_util.tree_map(np.asarray, jstate["ema"])
+    assert not np.array_equal(want["table"], np.asarray(jstate["params"]["table"]))
+    template = init_train_state(torch.Generator().manual_seed(5), tcfg)
+    got = bridge.state_to_numpy(ckpt.restore_checkpoint(path, template))["ema"]
+    for (kp, w), g in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                          jax.tree_util.tree_leaves(got)):
+        np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(kp))
+    with pytest.raises(ValueError, match="'ema.table' has no place"):
         ckpt.restore_checkpoint(path, fresh_state()[0])
+
+
+def test_jax_normals_checkpoint_round_trips_and_renders(tmp_path):
+    """A field with normal nets (``--predict_normals``) and a params EMA,
+    written by the JAX package: every leaf imports bit for bit (the
+    ``normal_net`` layers with their biases), goes back to the same numpy
+    tree, and the port renders the image JAX renders (the normals are
+    computed and not served, as in JAX), at the tolerance of
+    ``test_jax_checkpoint_renders_the_same_image``."""
+    from indoor_nerf_tpu.train.step import init_train_state as j_init
+
+    flags = TINY_FLAGSHIP + ["--predict_normals", "--ema_decay", "0.5"]
+    jcfg, tcfg, scene = configs(flags)
+    jstate = j_init(jax.random.PRNGKey(3), jcfg)
+    rng = np.random.default_rng(0)
+    table = 5.0 * rng.standard_normal(jstate["params"]["table"].shape)
+    jstate["params"] = {**jstate["params"],
+                        "table": jnp.asarray(table, jnp.float32)}
+    jstate["ema"] = jax.tree_util.tree_map(lambda a: a * 0.5, jstate["params"])
+    path = jckpt.save_checkpoint(str(tmp_path / "jax"), 4, jstate)
+    restored = ckpt.restore_checkpoint(
+        path, init_train_state(torch.Generator().manual_seed(5), tcfg))
+    assert restored["params"]["coarse"].predict_normals
+    got = bridge.state_to_numpy(restored)
+    for key in ("params", "ema"):
+        want = jax.tree_util.tree_map(np.asarray, jstate[key])
+        assert len(want["coarse"]["normal_net"]) == 2
+        for (kp, w), g in zip(jax.tree_util.tree_flatten_with_path(want)[0],
+                              jax.tree_util.tree_leaves(got[key])):
+            np.testing.assert_array_equal(g, w, err_msg=key + jax.tree_util.keystr(kp))
+    back = bridge.state_to_numpy(bridge.state_from_numpy(got))
+    for a, b in zip(jax.tree_util.tree_leaves(got), jax.tree_util.tree_leaves(back)):
+        np.testing.assert_array_equal(a, b)
+    H = W = 16
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    c2w = scene.poses[scene.i_test[0]][:3, :4]
+    want = j_render_image(jstate["params"], H, W, K, c2w, scene.near,
+                          scene.far, jcfg.render, tile_rays=128,
+                          occ_state=jstate["occ"])
+    out = render_image(restored["params"], H, W, K, c2w, scene.near, scene.far,
+                       tcfg.render, tile_rays=128, occ_state=restored["occ"])
+    assert want["acc_map"].max() > 0.5
+    for k in ("rgb_map", "acc_map"):
+        np.testing.assert_allclose(out[k], want[k], rtol=0, atol=1e-3, err_msg=k)
 
 
 def test_flax_lists_come_back_in_index_order():
@@ -341,8 +413,8 @@ def test_train_without_expname_writes_nothing_and_says_so(tmp_path, capsys,
 def test_train_saves_before_raising_on_a_non_finite_loss(tmp_path, monkeypatch):
     real = trainer.train_step
 
-    def poisoned(state, batch, cfg, gen):
-        state, metrics = real(state, batch, cfg, gen)
+    def poisoned(state, batch, cfg, gen, **kw):
+        state, metrics = real(state, batch, cfg, gen, **kw)
         if state["step"] == 4:
             metrics["loss"] = torch.tensor(float("nan"))
         return state, metrics

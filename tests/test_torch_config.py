@@ -2,6 +2,7 @@
 device of the port's entry points."""
 
 import argparse
+import dataclasses
 import glob
 import os
 
@@ -162,10 +163,9 @@ def test_one_batch_is_the_trainers_first_batch():
     assert not torch.equal(other["rays_o"], batch["rays_o"])
 
 
-# Every configs/*_tpu.txt file the port trains (all but the one with
-# structural priors, Queue 1 item 5), and every file without _tpu (the
-# parity path: the hash grid and the hierarchical fine pass), again all but
-# the structural-prior one.
+# The two files with the structural priors, the other configs/*_tpu.txt
+# files (the block-hash grid) and the other files without _tpu (the parity
+# path: the hash grid and the hierarchical fine pass).
 PRIORS_CONFIGS = ("norcliffe_common_room_tpu.txt", "norcliffe_common_room.txt")
 TPU_CONFIGS = [p for p in CONFIGS if p.endswith("_tpu.txt")
                and os.path.basename(p) not in PRIORS_CONFIGS]
@@ -191,8 +191,8 @@ def test_config_file_builds_the_jax_train_config(path, scene_dirs):
     """Every config file with ``--datadir`` on a tiny scene of its dataset
     type: the port's ``build_train_config`` builds what the JAX one builds,
     field for field (the hash grid's HashGridConfig, the block grid's
-    geometry, the PE and NeRFBig widths), for the 40 files the port trains;
-    it names the ROADMAP item of the structural priors for the other two."""
+    geometry, the PE and NeRFBig widths, the structural priors and the
+    step's other extensions), for all 42 files."""
     from indoor_nerf_tpu.data.load import load_dataset as j_load_dataset
     from indoor_nerf_tpu.train.trainer import build_train_config as j_build
     from indoor_nerf_tpu_torch.data.load import load_dataset
@@ -202,16 +202,17 @@ def test_config_file_builds_the_jax_train_config(path, scene_dirs):
             "--datadir", scene_dirs[_dataset_type(path)]]
     targs = tconfig.parse_args(argv)
     scene = load_dataset(targs)
-    if os.path.basename(path) in PRIORS_CONFIGS:
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-            build_train_config(targs, scene)
-        return
     jargs = jconfig.parse_args(argv)
     want = j_build(jargs, j_load_dataset(jargs))
     got = build_train_config(targs, scene)
     for f in ("near", "far", "ndc_hwf", "n_rand", "lrate", "lrate_decay",
-              "sparse_loss_weight", "tv_loss_weight", "tv_cutoff_iter"):
+              "sparse_loss_weight", "tv_loss_weight", "tv_cutoff_iter",
+              "use_structural_priors", "structural_loss_start_iter",
+              "structural_loss_ramp_iters", "distortion_loss_weight",
+              "table_decay_weight", "ema_decay"):
         assert getattr(got, f) == getattr(want, f), f
+    assert dataclasses.asdict(got.priors) == dataclasses.asdict(want.priors)
+    assert got.use_structural_priors == (os.path.basename(path) in PRIORS_CONFIGS)
     for f in ("n_samples", "n_importance", "perturb", "lindisp", "white_bkgd",
               "raw_noise_std", "ndc", "n_occ_samples"):
         assert getattr(got.render, f) == getattr(want.render, f), f
@@ -220,9 +221,10 @@ def test_config_file_builds_the_jax_train_config(path, scene_dirs):
               "use_viewdirs", "n_importance", "num_layers", "hidden_dim",
               "geo_feat_dim", "num_layers_color", "hidden_dim_color",
               "netdepth", "netwidth", "netdepth_fine", "netwidth_fine",
-              "compute_dtype", "input_ch", "input_ch_views", "uses_grid"):
+              "compute_dtype", "input_ch", "input_ch_views", "uses_grid",
+              "predict_normals", "freq_anneal_iters", "view_anneal_iters"):
         assert getattr(gf, f) == getattr(wf, f), f
-    if path in PARITY_CONFIGS:
+    if not path.endswith("_tpu.txt"):
         assert gf.i_embed == 1 and wf.block_grid is None and gf.block_grid is None
         for f in ("bbox_min", "bbox_max", "n_levels", "n_features_per_level",
                   "log2_hashmap_size", "base_resolution", "finest_resolution",

@@ -19,6 +19,7 @@ from indoor_nerf_tpu.models.mlp import (
 from indoor_nerf_tpu.ops.encoding import sh_encode as j_sh_encode
 from indoor_nerf_tpu_torch.bridge import params_from_numpy
 from indoor_nerf_tpu_torch.models.field import (
+    field_output_channels,
     init_field_params,
     query_field,
     serving_params,
@@ -81,6 +82,39 @@ def test_init_field_params_matches_jax_shapes():
             [l["w"].shape for l in jp["coarse"][net]]
     bound = float(tp["table"].abs().max())
     assert 0 < bound <= 1e-4
+
+
+@pytest.mark.parametrize("step", [None, 3])
+def test_query_field_with_normals_and_anneals_matches_jax(rng, step):
+    """NeRFSmall with its normal net (7 channels: rgb, sigma, the unit
+    normal, kept outside the bbox where sigma is zeroed) and the level and
+    view anneals of a training query at ``step`` 3 of 8 (an evaluation
+    query, step None, applies neither)."""
+    flags = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
+             "--white_bkgd", "--n_levels", "4", "--finest_res", "32",
+             "--log2_hashmap_size", "12", "--occ_resolution", "16",
+             "--predict_normals", "--freq_anneal_iters", "8",
+             "--view_anneal_iters", "8"]
+    jcfg, tcfg, _ = configs(flags)
+    jstate, tstate = both_states(jcfg)
+    table = rng.standard_normal(jstate["params"]["table"].shape).astype(np.float32)
+    jstate["params"]["table"] = jnp.asarray(table)
+    tstate["params"]["table"] = torch.from_numpy(table)
+    pts = rng.uniform(-1.8, 1.8, size=(40, 8, 3)).astype(np.float32)
+    vd = _unit_dirs(rng, 40)
+    want, _ = j_query_field(
+        jstate["params"], "coarse", jnp.asarray(pts), jnp.asarray(vd),
+        jcfg.render.field, train=step is not None,
+        step=None if step is None else jnp.asarray(step, jnp.int32))
+    with torch.no_grad():
+        got = query_field(tstate["params"], "coarse", torch.from_numpy(pts),
+                          torch.from_numpy(vd), tcfg.render.field, step)
+    assert got.shape == (40, 8, field_output_channels(tcfg.render.field)) \
+        == (40, 8, 7)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-5)
+    norms = np.linalg.norm(got.numpy()[..., 4:], axis=-1)
+    np.testing.assert_allclose(norms, 1.0, rtol=1e-5)
 
 
 def test_query_field_matches_jax(rng):

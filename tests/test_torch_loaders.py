@@ -203,6 +203,36 @@ def test_blender_loader_is_the_jax_one(blender_dir, half_res, testskip):
     assert_same(got, want)
 
 
+def test_room_scene_in_blender_layout(tmp_path):
+    """The Manhattan room of the structural priors written in blender
+    layout: its views are the JAX package's room seen from the cameras'
+    positions over ``ROOM_SCALE`` (the same directions), the JAX loader
+    reads what the port's reads, and every surface a camera sees lies
+    between the loader's fixed near and far (2, 6) along the camera axis."""
+    from indoor_nerf_tpu.data.synthetic import _render_room as j_render_room
+    from indoor_nerf_tpu_torch.data.scene_files import (
+        ROOM_SCALE,
+        make_room_blender_scene,
+        write_blender_scene,
+    )
+
+    scene = make_room_blender_scene(8, 24, 24)
+    depth = scene["depth"]
+    assert 2.0 < float(depth.min()) and float(depth.max()) < 6.0
+    H, W, focal = scene["hwf"]
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    ro, rd = rays.get_rays_np(H, W, K, scene["poses"][3][:3, :4])
+    want = j_render_room(ro.reshape(-1, 3) / ROOM_SCALE, rd.reshape(-1, 3))
+    np.testing.assert_array_equal(scene["images"][3, ..., :3].reshape(-1, 3), want)
+    assert np.all(scene["images"][..., 3] == 1.0)
+    write_blender_scene(str(tmp_path), scene)
+    from indoor_nerf_tpu.data.blender import load_blender_data as j_load
+
+    got = load_blender_data(str(tmp_path), False, 1)
+    assert_same(got, j_load(str(tmp_path), False, 1))
+    assert [len(i) for i in got[4]] == [6, 2, 2]
+
+
 @pytest.mark.parametrize("kw", [{}, {"spherify": True},
                                 {"recenter": False, "bd_factor": None},
                                 {"path_zflat": True}])

@@ -159,9 +159,9 @@ def test_debug_nans_raises_at_the_first_non_finite_output(monkeypatch):
     real = trainer.train_step
     seen = []
 
-    def poisoned(state, batch, cfg, gen):
+    def poisoned(state, batch, cfg, gen, **kw):
         seen.append(torch.is_anomaly_enabled())
-        state, metrics = real(state, batch, cfg, gen)
+        state, metrics = real(state, batch, cfg, gen, **kw)
         if state["step"] == 2:
             with torch.no_grad():
                 named_leaves(state["params"])["coarse.color_net.0.w"][0, 0] = \
@@ -183,8 +183,8 @@ def test_watchdog_saves_before_raising_between_prints(tmp_path, monkeypatch):
     saved is step 4's, under its own step."""
     real = trainer.train_step
 
-    def poisoned(state, batch, cfg, gen):
-        state, metrics = real(state, batch, cfg, gen)
+    def poisoned(state, batch, cfg, gen, **kw):
+        state, metrics = real(state, batch, cfg, gen, **kw)
         if state["step"] == 3:
             metrics["loss"] = torch.tensor(float("nan"))
         return state, metrics

@@ -175,6 +175,32 @@ lego = ["--config", "configs/lego.txt", "--datadir", "blender", "--basedir",
         "--i_testset", "1", "--device", "cpu"]
 result = train(parse_args(lego))
 assert result["state"]["step"] == 1 and len(result["testsets"]) == 1
+# The structural priors and the step's extensions: the room scene in
+# blender layout, configs/norcliffe_common_room_tpu.txt for two steps with
+# the priors from step 0, and a flagship step with every extension on.
+import indoor_nerf_tpu_torch.losses.distortion
+import indoor_nerf_tpu_torch.losses.priors
+from indoor_nerf_tpu_torch.data.scene_files import make_room_blender_scene
+
+write_blender_scene("room", make_room_blender_scene(8, 16, 16))
+room = ["--config", "configs/norcliffe_common_room_tpu.txt", "--datadir",
+        "room", "--basedir", "runs", "--n_levels", "4", "--finest_res", "32",
+        "--log2_hashmap_size", "12", "--occ_resolution", "16",
+        "--occ_candidates", "32", "--occ_samples", "8", "--N_rand", "16",
+        "--precrop_iters", "0", "--n_iters", "2", "--i_print", "1",
+        "--structural_loss_start_iter", "0", "--device", "cpu"]
+result = train(parse_args(room))
+assert result["state"]["step"] == 2 and np.all(np.isfinite(result["losses"]))
+assert result["state"]["params"]["coarse"].predict_normals
+extensions = parse_args([
+    "--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
+    "--white_bkgd", "--n_levels", "4", "--finest_res", "32",
+    "--log2_hashmap_size", "12", "--occ_resolution", "16", "--N_rand", "16",
+    "--n_iters", "1", "--device", "cpu", "--distortion_loss_weight", "0.01",
+    "--table_decay_weight", "0.01", "--ema_decay", "0.9",
+    "--freq_anneal_iters", "4", "--view_anneal_iters", "4"])
+result = train(extensions)
+assert result["state"]["ema"] is not None and np.isfinite(result["losses"][0])
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
                 or m == "flax" and sys.modules[m] is not None)

@@ -283,9 +283,9 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--use_structural_priors"], "item 5"),
-    (["--distortion_loss_weight", "0.1"], "item 5"),
-    (["--ema_decay", "0.99"], "item 5"),
+    (["--use_quantization"], "item 5"),
+    (["--reg_views", "2"], "item 5"),
+    (["--use_appearance"], "item 5"),
     (["--multihost"], "item 8"),
     (["--mesh_shape", "data:1"], "item 8"),
     (["--render_only", "--render_test", "--render_fit_appearance"], "item 5"),
