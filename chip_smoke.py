@@ -144,7 +144,7 @@ printing any result.
       metrics), through the loop's earlier form (losses read at --i_print
       steps only) and through that form reading every step's loss one step
       late as trainer.train does, to tell the read's cost apart,
-      three rounds of earlier, per-step, new, new, per-step, earlier in
+      two rounds of earlier, per-step, new, new, per-step, earlier in
       this process: steps/s of each window, medians; and the two ray
       samplers' host ms per batch.
 
@@ -209,6 +209,34 @@ printing any result.
       and --baked at 256^3 (ms, tent_contract launches, baked against
       online PSNR on a held-out pose).
 
+  (aq1) A-CAQ from files, in (v)'s directory: configs/lego_tpu.txt as (v)
+      runs it, with --use_quantization --use_acaq --acaq_start_iter 300,
+      for 700 steps (the grid quantizer's 500-step warmup passes, the
+      controller runs 40 times), test sets at 300 and 600: tent_contract and
+      table_scatter launch on every step (table_scatter exactly once), the
+      loss falls, the [QUANT] average moves from 8 after step 300, every
+      grid level is calibrated, the held-out PSNR 0.5 dB above the seeded
+      field's; printed beside (v)'s at step 600, with both steps/s;
+  (aq2) one controller step at 700 from (aq1)'s state, card against CPU
+      (loss 1e-5 over the rays whose quantized colour agrees, at most 1%
+      of them apart; soft bits and the grid's and weight's running ranges
+      1e-6 relative, the activations' and infl_ema 1e-5, moments and
+      updates in norm as (sp2)), then through the
+      kernels against their plain versions, held as (g);
+  (aq3) --block_io int8 on the flagship for 200 steps (both kernels
+      launch, the loss falls); on the trained table the int8 pack pass
+      against its plain form and the JAX formula on the CPU (bit for bit),
+      the encode forward at M = 1,048,576 through tent_contract against
+      its plain form on the card and the CPU (1e-5), the int8 and bf16
+      packs and contractions timed; one int8 step of 1024 rays card
+      against CPU; the
+      bench step int8 against bf16 in alternating windows, as (m);
+  (aq4) (aq1)'s checkpoint restored (every leaf equal to the saved
+      state, the quantizers included), resumed for one step through
+      trainer.train, served through serve.build at 800x800 with its
+      quantizers (tent_contract launches, requests timed), against the
+      same params rendered unquantized (PSNR, ms) on a held-out pose.
+
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
 version, the least time the card could take for the same work ("bound_ms":
@@ -217,8 +245,10 @@ TFLOP/s f32, computed from the run's shapes) and, where one PyTorch call
 computes the same function on the same inputs, that call's time
 ("library_ms", else null). tent_contract and table_scatter also carry
 "path_ms" (their time on the path's own stream, with "path_bound_ms") and
-the time of the pack pass ("pack_ms") or of the packed buffer's zero-fill
-and un-pack ("zero_fill_ms", "unpack_ms", parts of "ms"); table_scatter
+the time of the pack pass ("pack_ms"; tent_contract's int8 pack pass of
+--block_io int8 on the trained table of (aq3): "int8_pack_ms") or of the
+packed buffer's zero-fill and un-pack ("zero_fill_ms", "unpack_ms", parts
+of "ms"); table_scatter
 carries "reductions_from_inputs": the scalar atomics that one thread per
 (row, feature) needs on that stream and the vector reductions that the
 kernel's rule needs, both computed from the stream's inputs
@@ -236,7 +266,9 @@ table_scatter's the two training paths; every kernel's the parity path's
 runs of (y1)-(y5), each counted: 0 but for tent_contract's in the baked
 requests of (y5); and the priors' paths: training with the priors (sp1) and
 with the step's other extensions (sp4), tent_contract's test sets, online
-and baked requests of (sp1)'s field, and (sp3)'s parity run (0). The last
+and baked requests of (sp1)'s field, and (sp3)'s parity run (0); A-CAQ's
+and the int8 gather's: quantized training from files (aq1), its test sets
+and its quantized 800x800 request (aq4), int8 training (aq3). The last
 line is {"ok": true, "device": {...}}.
 """
 
@@ -322,8 +354,8 @@ NDC_VIEWS, NDC_FULL_HWF, NDC_STEPS = 16, (1512, 2016, 1630.0), 200
 # run's steps; the bake resolution of its baked server.
 PARITY_STEPS, PARITY_NDC_STEPS, PE_STEPS, PARITY_BAKE_RES = 600, 100, 50, 128
 BAKE_SPREAD_STEPS = 1000  # --bake-spread's second reading
-# (x): three rounds of six alternating windows of 100 steps.
-LOOP_STEPS, LOOP_ROUNDS = 100, 3
+# (x): two rounds of six alternating windows of 100 steps.
+LOOP_STEPS, LOOP_ROUNDS = 100, 2
 # (sp1)-(sp4), the structural priors: the room scene of
 # data/scene_files.py in blender layout (24 views of 400x400, 6 held out);
 # configs/norcliffe_common_room_tpu.txt as shipped for 1000 steps with the
@@ -351,6 +383,16 @@ PRIOR_LOSS_RTOL, PRIOR_LOSS_ATOL, PRIOR_FRAME_TOL = 1e-6, 2.0 ** -20, 1e-5
 PRIOR_STEP_RTOL, PRIOR_STEP_ATOL = 1e-4, 1e-6
 # The card's published peaks (H100 SXM): device memory rate, and the f32
 # rate outside the tensor cores, which is the type all seven kernels use.
+# (aq1)-(aq4), A-CAQ and the int8 gather: configs/lego_tpu.txt as (v) runs
+# it with the quantizers and the controller from step 300, 700 steps (the
+# table quantizer's 500-step warmup passes, the controller runs 40 times),
+# test sets at 300 and 600 (600: beside (v)'s); the flagship with
+# --block_io int8, 200 steps.
+AQ_STEPS, AQ_START, AQ_TESTSET, INT8_STEPS = 700, 300, 300, 200
+AQ_FLAGS = ["--use_quantization", "--use_acaq", "--acaq_start_iter",
+            str(AQ_START)]
+INT8_FLAGS = SERVE_FLAGS + ["--block_io", "int8"]
+TRAIN_RAYS = 4096  # the flagship preset's --N_rand
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 KERNELS = ("tent_contract", "table_scatter", "group_scatter",
@@ -813,11 +855,14 @@ def phase_training(torch, tag, flags, steps, expect, forbid=()):
     return out, launches
 
 
-def step_from(torch, flags, trained, batch_seed=5, draw_seed=3):
+def step_from(torch, flags, trained, batch_seed=5, draw_seed=3,
+              at_step=False):
     """``(cfg, one_step)``: ``one_step(cfg)`` takes one train step under
     ``cfg`` from the params of ``trained`` with zero moments, always on the
     same rays and the same draws (those of ``flags``' config and the two
-    seeds)."""
+    seeds). At step 0, or with ``at_step`` at ``trained``'s step with its
+    quantizers, loss EMAs and inflation EMA (A-CAQ's controller reads
+    them)."""
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.step import draw_step, make_train_state, train_step
     from indoor_nerf_tpu_torch.train.trainer import one_batch
@@ -828,12 +873,17 @@ def step_from(torch, flags, trained, batch_seed=5, draw_seed=3):
     params = {k: v.detach() for k, v in trained["params"].items()
               if not isinstance(v, torch.nn.Module)}
     params["coarse"] = copy.deepcopy(trained["params"]["coarse"])
+    step = int(trained["step"]) if at_step else 0
     draws = draw_step(torch.Generator(device=dev).manual_seed(draw_seed), cfg,
-                      0, cli.N_rand, "spatial_coords" in batch)
+                      step, cli.N_rand, "spatial_coords" in batch)
 
     def one_step(cfg):
         # Zero moments: after this first step mu = 0.1 g and nu = 0.01 g^2.
         state = make_train_state(copy.deepcopy(params), trained["occ"].copy())
+        if at_step:
+            state["step"], state["quant"] = step, copy.deepcopy(trained["quant"])
+            for k in ("loss_ema", "loss_ema_slow", "best_loss", "infl_ema"):
+                state[k] = trained[k].clone()
         return train_step(state, batch, cfg, draws=draws)
 
     return cfg, one_step
@@ -1133,20 +1183,34 @@ def phase_group_scatter(torch) -> dict:
     return flagship
 
 
+def bench_with(**block_grid):
+    """The bench step's config with ``block_grid``'s fields replaced."""
+    from indoor_nerf_tpu_torch import bench
+
+    cfg = bench.bench_config()
+    fc = cfg.render.field
+    return dataclasses.replace(cfg, render=dataclasses.replace(
+        cfg.render, field=dataclasses.replace(fc, block_grid=dataclasses.replace(
+            fc.block_grid, **block_grid))))
+
+
 def phase_group_timing(torch) -> None:
     """(m) The bench step with and without grouping, in alternating windows."""
+    alternating_step_ms(torch, "m", {"ungrouped": bench_with(),
+                                     "grouped": bench_with(ray_groups=GROUPS)})
+
+
+def alternating_step_ms(torch, tag, configs) -> dict:
+    """The bench step under each of two ``configs`` ``{name: cfg}``, in
+    eight alternating windows of TIMED_STEPS steps (a, b, b, a, twice) after
+    a warm-up of as many: ms a step of each window, printed."""
     from indoor_nerf_tpu_torch import bench
     from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
 
     dev = torch.device("cuda:0")
-    flat = bench.bench_config()
-    fc = flat.render.field
-    grouped = dataclasses.replace(flat, render=dataclasses.replace(
-        flat.render, field=dataclasses.replace(fc, block_grid=dataclasses.replace(
-            fc.block_grid, ray_groups=GROUPS))))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in bench.bench_batch().items()}
     runs = {}
-    for name, cfg in (("ungrouped", flat), ("grouped", grouped)):
+    for name, cfg in configs.items():
         state = init_train_state(torch.Generator(device=dev).manual_seed(0),
                                  cfg, dev)
         gen = torch.Generator(device=dev).manual_seed(1)
@@ -1154,8 +1218,9 @@ def phase_group_timing(torch) -> None:
             state, _ = train_step(state, batch, cfg, gen)
         runs[name] = (cfg, state, gen)
     torch.cuda.synchronize(dev)
-    ms = {"ungrouped": [], "grouped": []}
-    for name in ("ungrouped", "grouped", "grouped", "ungrouped") * 2:
+    a, b = configs
+    ms = {a: [], b: []}
+    for name in (a, b, b, a) * 2:
         cfg, state, gen = runs[name]
         t0 = time.perf_counter()
         for _ in range(TIMED_STEPS):
@@ -1164,10 +1229,11 @@ def phase_group_timing(torch) -> None:
         ms[name].append((time.perf_counter() - t0) / TIMED_STEPS * 1e3)
         if not np.isfinite(float(metrics["loss"])):
             raise AssertionError(f"{name} bench step: non-finite loss")
-    print(f"[m] bench step, {TIMED_STEPS} steps per window, alternating: "
+    print(f"[{tag}] bench step, {TIMED_STEPS} steps per window, alternating: "
           + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)} ms/step "
                       f"({bench.N_RAND / (sum(vs) / len(vs)) * 1e3:.0f} rays/s)"
                       for k, vs in ms.items()))
+    return ms
 
 
 def phase_tile_interp(torch) -> dict:
@@ -1873,7 +1939,9 @@ def phase_from_files(torch, workdir) -> dict:
         raise AssertionError("[v] render-only launched no tent_contract")
     held_out_gain("v", last["psnr"], flags, os.path.join(workdir, "v0"), 3.0)
     return {"training_from_files": training, "testset": testset,
-            "render_only": shown_launches}
+            "render_only": shown_launches, "testsets": out["testsets"],
+            "steps_s": FILE_STEPS / (out["seconds"] - out["eval_seconds"]),
+            "scene_dir": scene_dir}
 
 
 def phase_ndc(torch, workdir) -> dict:
@@ -1990,11 +2058,11 @@ def phase_parity_step_check(torch, flags, state) -> None:
     fwd = {}
     with torch.no_grad():
         for label, d in (("cpu", cpu), ("card", dev)):
-            out = render_rays(state_from_numpy(tree, d)["params"],
-                              *(t.to(d) for t in (batch["rays_o"], rays_d,
-                                                  viewdirs, near, far)),
-                              cfg.render, step=step,
-                              draws={k: v.to(d) for k, v in draws.items()})
+            out, _ = render_rays(state_from_numpy(tree, d)["params"],
+                                 *(t.to(d) for t in (batch["rays_o"], rays_d,
+                                                     viewdirs, near, far)),
+                                 cfg.render, step=step,
+                                 draws={k: v.to(d) for k, v in draws.items()})
             fwd[label] = {k: out[k].cpu() for k in ("pts", "z_vals", "rgb_map",
                                                     "rgb0")}
     pts = fwd["cpu"]["pts"].reshape(-1, 3)
@@ -2452,13 +2520,15 @@ def _syncs(torch, fn) -> list:
             if "synchroniz" in str(w.message)]
 
 
-def card_vs_cpu_step(torch, tag, flags, state) -> dict:
+def card_vs_cpu_step(torch, tag, flags, state, hold_loss=True) -> dict:
     """One step of ``flags`` from ``state`` on the card and on the port's
-    CPU path with one batch and one set of draws: the loss 1e-5 relative,
-    every RAdam moment, the params' update and (where kept) the EMA's
-    relative in norm (FORWARD_NORM_TOL: the forwards differ in f32 order;
-    the table's over the entries whose first moment is at least 1e-6 of its
-    largest, as (y2)). Returns the config and both steps' metrics."""
+    CPU path with one batch and one set of draws: the loss 1e-5 relative
+    (unless ``hold_loss`` is False: the caller holds it), every RAdam
+    moment, the params' update and (where kept) the EMA's relative in norm
+    (FORWARD_NORM_TOL: the forwards differ in f32 order; the table's over
+    the entries whose first moment is at least 1e-6 of its largest, as
+    (y2)). Returns the config, both steps' metrics and both states after
+    the step, as numpy (``{"card", "cpu"}``)."""
     from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.step import draw_step, train_step
@@ -2503,10 +2573,11 @@ def card_vs_cpu_step(torch, tag, flags, state) -> dict:
           "relative in norm " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
           + f" (tol 1e-5 for the loss, {FORWARD_NORM_TOL} else)")
     bad = {k: v for k, v in errs.items()
-           if v > (1e-5 if k == "loss" else FORWARD_NORM_TOL)}
+           if v > (1e-5 if k == "loss" else FORWARD_NORM_TOL)
+           and (hold_loss or k != "loss")}
     if bad:
         raise AssertionError(f"[{tag}] card vs CPU: {bad}")
-    return cfg, metrics
+    return cfg, metrics, res
 
 
 def phase_priors_step(torch, flags, state) -> None:
@@ -2530,7 +2601,7 @@ def phase_priors_step(torch, flags, state) -> None:
 
     now = flags + ["--structural_loss_start_iter", "0"]
     phase_step_check(torch, "sp2", now, state)
-    cfg, metrics = card_vs_cpu_step(torch, "sp2", now, {**state, "step": 0})
+    cfg, metrics, _ = card_vs_cpu_step(torch, "sp2", now, {**state, "step": 0})
     for k in ("structural_semantic_floor_count", "structural_semantic_wall_count"):
         if metrics["card"][k] != metrics["cpu"][k]:
             raise AssertionError(f"[sp2] {k} card {metrics['card'][k]} cpu "
@@ -2550,12 +2621,12 @@ def phase_priors_step(torch, flags, state) -> None:
     draws = draw_step(torch.Generator(device=dev).manual_seed(3), cfg, 0, n, True)
     rays_d = batch["rays_d"]
     with torch.no_grad():
-        out = render_rays(state["params"], batch["rays_o"], rays_d,
-                          rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True),
-                          cfg.near * torch.ones_like(rays_d[..., :1]),
-                          cfg.far * torch.ones_like(rays_d[..., :1]),
-                          cfg.render, occ_state=state["occ"], step=0,
-                          draws=draws)
+        out, _ = render_rays(
+            state["params"], batch["rays_o"], rays_d,
+            rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True),
+            cfg.near * torch.ones_like(rays_d[..., :1]),
+            cfg.far * torch.ones_like(rays_d[..., :1]),
+            cfg.render, occ_state=state["occ"], step=0, draws=draws)
     weights = prior_ramp_weights(cfg, 0)
     pc = cfg.priors
     found = {}
@@ -2690,6 +2761,311 @@ def phase_extensions(torch, prior_flags) -> dict:
         raise AssertionError("[sp4] serving launched no tent_contract")
     return {"training_extensions": launches, "serving_priors": serving,
             "baked_serving_priors": baked_launches}
+
+
+def quant_lines(text) -> list:
+    """``(step, average bits)`` of each ``[QUANT]`` line of a trainer run,
+    each following its step's ``[TRAIN]`` line."""
+    out, step = [], None
+    for line in text.splitlines():
+        if line.startswith("[TRAIN] Iter: "):
+            step = int(line.split()[2])
+        elif line.startswith("[QUANT] Average bits: "):
+            out.append((step, float(line.split()[3].rstrip(","))))
+    return out
+
+
+def phase_acaq(torch, workdir, plain) -> dict:
+    """(aq1) configs/lego_tpu.txt as (v) runs it, on (v)'s scene, with
+    --use_quantization --use_acaq --acaq_start_iter AQ_START for AQ_STEPS
+    steps, test sets every AQ_TESTSET: tent_contract and table_scatter
+    launch on every step (table_scatter exactly once), the loss falls, the
+    [QUANT] average moves from 8 after AQ_START, every grid level is
+    calibrated (the warmup passed), the held-out PSNR is 0.5 dB above the
+    seeded field's; printed beside (v)'s (``plain``) at the same step, with
+    both runs' steps/s."""
+    flags = ["--config", os.path.join(ROOT, "configs", "lego_tpu.txt"),
+             "--datadir", plain["scene_dir"], "--basedir",
+             os.path.join(workdir, "aq1"), "--lrate", "0.01"] + AQ_FLAGS
+    out, text, training, testset = train_from_files(torch, "aq1", flags + [
+        "--n_iters", str(AQ_STEPS), "--i_testset", str(AQ_TESTSET),
+        "--i_weights", str(AQ_STEPS), "--i_video", str(10 * AQ_STEPS)])
+    bits = quant_lines(text)
+    steps_s = AQ_STEPS / (out["seconds"] - out["eval_seconds"])
+    quant = out["state"]["quant"]
+    psnrs = {t["step"]: t["psnr"] for t in out["testsets"]}
+    same = {t["step"]: t["psnr"] for t in plain["testsets"]}
+    print(f"[aq1] [QUANT] average bits by step {bits}; soft bits at the end: "
+          f"grid {[round(v, 3) for v in quant['embed']['soft_bits'].tolist()]}"
+          f", activation {[round(v, 3) for v in quant['act']['soft_bits'].tolist()]}"
+          f", weight {float(quant['weight']['soft_bits']):.3f}; infl_ema "
+          f"{float(out['state']['infl_ema']):.5f}")
+    print(f"[aq1] held-out PSNR {[round(v, 3) for v in psnrs.values()]} dB at "
+          f"steps {list(psnrs)}; at step {FILE_STEPS}: quantized "
+          f"{psnrs[FILE_STEPS]:.3f} dB, (v) unquantized {same[FILE_STEPS]:.3f} "
+          f"dB; steps/s quantized {steps_s:.2f}, (v) {plain['steps_s']:.2f}")
+    if training["table_scatter"] != AQ_STEPS or \
+            training["tent_contract"] < AQ_STEPS:
+        raise AssertionError(f"[aq1] not a launch a step: {training}")
+    if not bits or any(b != 8.0 for s, b in bits if s <= AQ_START) \
+            or bits[-1][1] == 8.0:
+        raise AssertionError(f"[aq1] the [QUANT] average: {bits}")
+    if not bool(quant["embed"]["calibrated"].all()):
+        raise AssertionError("[aq1] a grid level stayed uncalibrated")
+    held_out_gain("aq1", out["testsets"][-1]["psnr"], flags,
+                  os.path.join(workdir, "aq10"), 0.5)
+    return {"flags": flags, "state": out["state"], "logdir": out["logdir"],
+            "training": training, "testset": testset["tent_contract"]}
+
+
+def acaq_loss_check(torch, flags, state) -> None:
+    """(aq2)'s loss, card against CPU, on ``card_vs_cpu_step``'s batch and
+    draws: the quantized forward at ``state``'s step on both, each ray's
+    squared error. A rendered colour that differs by more than 1e-5
+    marks a ray where an activation (or a table entry) lies within f32
+    rounding of a rounding boundary of its ~4-bit quantizer, which then
+    rounds apart on the two sides by a whole step (a twelfth of its range);
+    at most 1% of the rays may. Over the others the loss holds at 1e-5
+    relative, as (sp2) holds its step's."""
+    from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
+    from indoor_nerf_tpu_torch.render.renderer import render_rays
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import draw_step
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    cpu = torch.device("cpu")
+    cfg, batch = one_batch(parse_args(flags), cpu, seed=5)
+    tree, step = state_to_numpy(state), int(state["step"])
+    n = batch["rays_o"].shape[0]
+    draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg, step,
+                      n, "spatial_coords" in batch)
+    rgb, err = {}, {}
+    for label, d in (("cpu", cpu), ("card", torch.device("cuda:0"))):
+        s = state_from_numpy(tree, d)
+        rays_d = batch["rays_d"].to(d)
+        with torch.no_grad():
+            out, _ = render_rays(
+                s["params"], batch["rays_o"].to(d), rays_d,
+                rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True),
+                cfg.near * torch.ones_like(rays_d[..., :1]),
+                cfg.far * torch.ones_like(rays_d[..., :1]), cfg.render,
+                occ_state=s["occ"], step=step,
+                draws={k: v.to(d) for k, v in draws.items()},
+                quant_state=s["quant"], train=True)
+        rgb[label] = out["rgb_map"].cpu()
+        err[label] = torch.mean((rgb[label] - batch["target"]) ** 2, dim=-1)
+    apart = (rgb["card"] - rgb["cpu"]).abs().amax(dim=-1) > 1e-5
+    share = float(apart.float().mean())
+    losses = {k: float(v[~apart].mean()) for k, v in err.items()}
+    rel = abs(losses["card"] / losses["cpu"] - 1)
+    print(f"[aq2] the quantized forward, card against CPU: {int(apart.sum())} "
+          f"of {n} rays' colours apart by more than 1e-5 (at most 1%); the "
+          f"image loss over the others {losses['card']:.8f} vs "
+          f"{losses['cpu']:.8f}, {rel:.2e} relative (tol 1e-5); over all "
+          f"{float(err['card'].mean()):.8f} vs {float(err['cpu'].mean()):.8f}")
+    if share > 0.01 or rel > 1e-5:
+        raise AssertionError(f"[aq2] loss card vs CPU: {share} of the rays "
+                             f"apart, {rel} over the others")
+
+
+def phase_acaq_step(torch, flags, state) -> None:
+    """(aq2) one controller step after the warmup (AQ_STEPS) from (aq1)'s
+    state, card against CPU on one batch and draws: the loss 1e-5 over the
+    rays whose quantized forward agrees (``acaq_loss_check``), moments and
+    updates in norm as ``card_vs_cpu_step``, soft bits 1e-6, infl_ema 1e-5
+    relative, the grid's and the weight's running ranges 1e-6 relative, the
+    activations' 1e-5, calibrated equal; then the step through the kernels
+    against their plain versions, held as (g)."""
+    from indoor_nerf_tpu_torch.train.step import acaq_active
+
+    step = int(state["step"])
+    cfg, _, res = card_vs_cpu_step(torch, "aq2", flags, state,
+                                   hold_loss=False)
+    acaq_loss_check(torch, flags, state)
+    if not (acaq_active(cfg, step)
+            and step >= cfg.render.field.quant.warmup_steps):
+        raise AssertionError(f"[aq2] step {step} is no controller step after "
+                             "the warmup")
+    got, want = res["card"], res["cpu"]
+    before = state["quant"]["embed"]["soft_bits"].cpu().numpy()
+    errs = {}
+    for group, leaves in want["quant"].items():
+        for k, w in leaves.items():
+            g = got["quant"][group][k]
+            if w.dtype == np.bool_:
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"[aq2] {group}.{k}: {g} vs {w}")
+                continue
+            errs[f"{group}.{k}"] = float(np.max(np.abs(g - w) / np.maximum(
+                np.abs(w), 1e-30)))
+    errs["infl_ema"] = abs(float(got["infl_ema"]) / float(want["infl_ema"]) - 1)
+    moved = float(np.abs(got["quant"]["embed"]["soft_bits"] - before).min())
+    print(f"[aq2] the controller at step {step}: grid bits moved by >= "
+          f"{moved:.4f}; card against CPU, relative: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + " (tol 1e-6; infl_ema and the activations' ranges 1e-5)")
+    # The activations' running min and max are those of h, sums over the
+    # 32 features that the card's and the CPU's matmuls take in different
+    # orders (2.3e-6 apart measured): 1e-5. The grid's and the weight's are
+    # entries of the table and the weight: 1e-6, as the soft bits.
+    bad = {k: v for k, v in errs.items()
+           if v > (1e-5 if k == "infl_ema" or (k.startswith("act.")
+                                                and k != "act.soft_bits")
+                   else 1e-6)}
+    if bad or not moved > 0.0:
+        raise AssertionError(f"[aq2] card vs CPU {bad}, bits moved {moved}")
+    for pair in encode_step_pairs(encode_steps(torch, flags, state,
+                                               at_step=True)):
+        hold_steps(torch, "aq2", *pair)
+
+
+def phase_int8(torch) -> dict:
+    """(aq3) --block_io int8 on the flagship for INT8_STEPS steps (the
+    kernels launch, the loss falls); on the trained table the int8 pack
+    pass against its plain form (bit for bit) and against the JAX formula
+    computed on the CPU in numpy (bit for bit), the encode forward at the
+    training shape through tent_contract against its plain form on the
+    card and on the CPU (1e-5), both packs timed; one int8 step card
+    against CPU; the bench step int8 against bf16 in alternating windows.
+    Returns the int8 training's launches and the int8 pack's ms."""
+    from indoor_nerf_tpu_torch.ops import blockhash
+    from indoor_nerf_tpu_torch.ops import tent_contract as tc
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    out, launches = phase_training(torch, "aq3", INT8_FLAGS, INT8_STEPS,
+                                   ("tent_contract", "table_scatter"))
+    dev = torch.device("cuda:0")
+    cfg, _ = one_batch(parse_args(INT8_FLAGS), dev)
+    bg = cfg.render.field.block_grid
+    L, R, F = bg.n_levels, bg.rows_per_level, bg.n_features_per_level
+    table = out["state"]["params"]["table"].detach()
+    reset_launch_counts()
+    packed = blockhash.gather_table(table, bg)
+    plain = tc.pack_rows_plain(tc.dequantize_int8_plain(table, L), F,
+                               torch.float32)
+    t = table.cpu().numpy()
+    scale = np.maximum(np.abs(t.reshape(L, -1)).max(axis=1),
+                       np.float32(1e-12)) / np.float32(127.0)
+    s = np.repeat(scale, R)[:, None]
+    jax_formula = np.round(t / s) * s
+    same = (bool(torch.equal(packed, plain)), bool(np.array_equal(
+        tc.unpack_rows(packed).cpu().numpy(), jax_formula)))
+    g = torch.Generator(device=dev).manual_seed(7)
+    lo = torch.tensor(bg.bbox_min, device=dev)
+    hi = torch.tensor(bg.bbox_max, device=dev)
+    x = lo + (hi - lo) * torch.rand((TRAIN_RAYS * 32, 3), generator=g,
+                                    device=dev)
+    flat_row, p, _ = blockhash._tile_coords(x, bg)
+    got = tc.tent_contract(packed, flat_row, p, bg.side, F)
+    want = tc.tent_contract_plain(packed, flat_row, p, bg.side, F)
+    on_cpu = tc.tent_contract_plain(torch.from_numpy(jax_formula),
+                                    flat_row.cpu(), p.cpu(), bg.side, F)
+    errs = (float((got - want).abs().max()),
+            float((got.cpu() - on_cpu).abs().max()))
+    bf16 = dataclasses.replace(bg, gather_dtype="bfloat16")
+    int8_ms = cuda_ms(torch, lambda: blockhash.gather_table(table, bg), 20)
+    bf16_ms = cuda_ms(torch, lambda: blockhash.gather_table(table, bf16), 20)
+    contract_ms = cuda_ms(torch, lambda: tc.tent_contract(
+        packed, flat_row, p, bg.side, F), 20)
+    bf16_packed = blockhash.gather_table(table, bf16)
+    bf16_contract_ms = cuda_ms(torch, lambda: tc.tent_contract(
+        bf16_packed, flat_row, p, bg.side, F), 20)
+    print(f"[aq3] on the trained [{table.shape[0]}, {table.shape[1]}] table: "
+          f"the int8 pack equal to its plain form {same[0]} and to the JAX "
+          f"formula on the CPU {same[1]}; the encode forward at M = "
+          f"{flat_row.shape[0]:,}: kernel against plain max |diff| "
+          f"{errs[0]:.2e}, against the CPU {errs[1]:.2e} (tol {KERNEL_TOL}); "
+          f"pack int8 {int8_ms:.4f} ms, bf16 {bf16_ms:.4f} ms; tent_contract "
+          f"on the f32 int8 pack {contract_ms:.4f} ms, on the bf16 pack "
+          f"{bf16_contract_ms:.4f} ms")
+    if not all(same) or max(errs) > KERNEL_TOL:
+        raise AssertionError(f"[aq3] int8 pack {same}, encode {errs}")
+    # At 1024 rays, to keep the CPU's side of the step short.
+    card_vs_cpu_step(torch, "aq3", INT8_FLAGS + ["--N_rand", "1024"],
+                     out["state"])
+    del out
+    torch.cuda.empty_cache()
+    alternating_step_ms(torch, "aq3", {"bf16": bench_with(),
+                                       "int8": bench_with(gather_dtype="int8")})
+    return launches, int8_ms
+
+
+def phase_acaq_serving(torch, flags, state, logdir) -> int:
+    """(aq4) (aq1)'s checkpoint: restored, every leaf (the quantizers and
+    infl_ema included) equals the state it saved; a second trainer.train
+    call resumes it for one step; serve.build serves it at 800x800 with its
+    quantizers (tent_contract launches; requests timed), and the served
+    view of a held-out pose is held against the same params rendered
+    unquantized (PSNR, timed). Returns the requests' tent_contract
+    launches."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models.field import serving_params
+    from indoor_nerf_tpu_torch.render.renderer import make_image_renderer
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import init_train_state
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config, train
+    from indoor_nerf_tpu_torch.utils import checkpoint
+
+    dev = torch.device("cuda:0")
+    args = parse_args(flags)
+    scene = load_dataset(args)
+    cfg = build_train_config(args, scene)
+    path = os.path.join(logdir, f"{AQ_STEPS:06d}.ckpt")
+    restored = checkpoint.restore_checkpoint(path, init_train_state(
+        torch.Generator(device=dev).manual_seed(1), cfg, dev))
+    saved, back = (checkpoint._tensor_leaves(x) for x in (state, restored))
+    unequal = [k for k in saved if not torch.equal(saved[k], back[k])]
+    if set(saved) != set(back) or unequal or restored["step"] != AQ_STEPS:
+        raise AssertionError(f"[aq4] restored {path}: unequal {unequal}")
+    del restored
+    resumed, text = quietly(train, parse_args(flags + [
+        "--n_iters", str(AQ_STEPS + 1)]))
+    if f"Reloading from {path}" not in text or \
+            resumed["state"]["step"] != AQ_STEPS + 1 or \
+            not np.isfinite(resumed["losses"]).all():
+        raise AssertionError(f"[aq4] the resumed run: {text[-2000:]}")
+    print(f"[aq4] {path} restores {len(saved)} leaves equal to the saved "
+          f"state ({sum('quant.' in k for k in saved)} of the quantizers); "
+          f"resumed for one step: loss {resumed['losses'][0]:.6f}")
+    params, quant = resumed["state"]["params"], resumed["state"]["quant"]
+    occ = resumed["state"]["occ"]
+    del resumed
+    torch.cuda.empty_cache()
+    (render, step, hw), text = quietly(serve.build, argparse.Namespace(
+        width=REQUEST_SIZE, height=REQUEST_SIZE, train_args=["--"] + flags))
+    if step != AQ_STEPS + 1 or "UNTRAINED" in text:
+        raise AssertionError(f"[aq4] served step {step}")
+    pose = scene.poses[scene.i_test[0]]
+    reset_launch_counts()
+    ms, served = request_ms(torch, render, [pose])
+    launches = launch_counts()["tent_contract"]
+    del render
+    W = H = REQUEST_SIZE
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    online = make_image_renderer(cfg.render.test_mode(), H, W)
+    sp = serving_params(params, cfg.render.field)
+
+    def unquantized(c2w):
+        t0 = time.perf_counter()
+        out = online(sp, c2w, K, scene.near, scene.far, occ)
+        maps = {k: v.cpu().numpy() for k, v in out.items()}
+        return maps, time.perf_counter() - t0
+
+    plain_ms, plain = request_ms(torch, unquantized, [pose])
+    quality = psnr(served[0]["rgb_map"], plain[0]["rgb_map"])
+    bits = [round(v, 2) for v in quant["embed"]["soft_bits"].tolist()]
+    print(f"[aq4] served at step {step}, {W}x{H}, grid bits {bits} (rounded "
+          f"in evaluation): quantized request {', '.join(f'{v:.1f}' for v in ms)}"
+          f" ms (tent_contract launches {launches}), the same params "
+          f"unquantized {', '.join(f'{v:.1f}' for v in plain_ms)} ms; "
+          f"quantized against unquantized {quality:.2f} dB on held-out pose "
+          f"{int(scene.i_test[0])}")
+    if launches <= 0 or not np.isfinite(served[0]["rgb_map"]).all():
+        raise AssertionError(f"[aq4] quantized serving: launches {launches}")
+    return launches
 
 
 def loop_seconds(torch, args, read_every_step: bool) -> float:
@@ -2899,6 +3275,14 @@ def main() -> int:
         parity_launches.update(phase_parity_priors(torch, workdir))
         torch.cuda.empty_cache()
         ext = phase_extensions(torch, prior["flags"])
+        torch.cuda.empty_cache()
+        acaq = phase_acaq(torch, workdir, files)
+        phase_acaq_step(torch, acaq["flags"], acaq["state"])
+        acaq_serving = phase_acaq_serving(torch, acaq["flags"], acaq["state"],
+                                          acaq["logdir"])
+        del acaq["state"]
+    torch.cuda.empty_cache()
+    int8_launches, int8_pack_ms = phase_int8(torch)
     torch.cuda.empty_cache()
     phase_loop_timing(torch)
     # "launches" is the count of the path of its slice that runs the
@@ -2910,8 +3294,10 @@ def main() -> int:
     # baked requests; phase (v)'s 600 steps from files, its two test sets
     # and its render-only run, phase (w)'s 200 NDC steps; the parity
     # path's runs of (y1)-(y5), where no kernel launches but pass 1 of the
-    # baked requests' tent_contract). No path runs
-    # lane_select: its launches are phase (o)'s.
+    # baked requests' tent_contract; A-CAQ's 700 steps from files (aq1),
+    # its test sets and an 800x800 request of its field (aq4), the 200
+    # int8 steps (aq3)). No path runs lane_select: its launches are phase
+    # (o)'s.
     paths = {"training": flat_launches, "training_grouped": group_launches,
              "training_strided": stride_launches,
              "training_tile_interp": tile_launches,
@@ -2921,6 +3307,8 @@ def main() -> int:
              # sp3): every count read.
              "training_priors": prior["training"],
              "training_extensions": ext["training_extensions"],
+             "training_acaq": acaq["training"],
+             "training_int8": int8_launches,
              **parity_launches}
 
     def by_path(name):
@@ -2933,6 +3321,7 @@ def main() -> int:
          "source": csrc + "tent_contract.cu",
          "replaces": pallas + "tent_contract.py:167",
          "launches": group_launches["tent_contract"],
+         "int8_pack_ms": int8_pack_ms,
          "launches_by_path": {"serving": serve_launches,
                               **by_path("tent_contract"),
                               "testset": files["testset"]["tent_contract"],
@@ -2942,7 +3331,9 @@ def main() -> int:
                               "testset_priors": prior["testset"],
                               "serving_priors": ext["serving_priors"],
                               "baked_serving_priors":
-                                  ext["baked_serving_priors"]},
+                                  ext["baked_serving_priors"],
+                              "testset_acaq": acaq["testset"],
+                              "serving_acaq": acaq_serving},
          **tent},
         {"name": "table_scatter", "route": "cuda",
          "source": csrc + "table_scatter.cu",

@@ -16,7 +16,10 @@ The JAX state, fetched to numpy, is a nested dict::
      # the training leaves (state_from_numpy / state_to_numpy):
      "opt": {"mu": <params tree>, "nu": <params tree>, "step": int},
      ["ema": <params tree>] (the params EMA of ``--ema_decay``),
-     "step": int, "best_loss": f32, "loss_ema": f32, "loss_ema_slow": f32}
+     ["quant": {"embed": {...}, "act": {...}, "weight": {...}}] (A-CAQ,
+     ``quant_from_numpy``; None or absent for an unquantized field),
+     "step": int, "best_loss": f32, "loss_ema": f32, "loss_ema_slow": f32,
+     ["infl_ema": f32]}
 
 The port keeps the same layouts (weights ``[in, out]``), so the leaves
 move across without a transpose and come back bit for bit. The RAdam
@@ -158,6 +161,29 @@ def params_to_numpy(state: Tree) -> Tree:
 _SCALARS = ("best_loss", "loss_ema", "loss_ema_slow")
 
 
+def quant_from_numpy(tree: Tree, device=None) -> Tree:
+    """A JAX quantizer state (numpy leaves: groups ``embed``, ``act``,
+    ``weight`` of ``soft_bits``, ``range_scale``, ``running_min``,
+    ``running_max``, ``calibrated`` and, asymmetric, ``v_max``) as the
+    port's: the same keys, shapes and values, ``calibrated`` bool, the rest
+    float32."""
+    out = {}
+    for group, leaves in tree.items():
+        out[group] = {}
+        for k, v in leaves.items():
+            a = np.asarray(v)
+            out[group][k] = torch.from_numpy(np.array(
+                a, dtype=np.bool_ if k == "calibrated" else np.float32,
+                copy=True)).to(device)
+    return out
+
+
+def quant_to_numpy(quant: Tree) -> Tree:
+    """The inverse of ``quant_from_numpy``."""
+    return {group: {k: v.detach().cpu().numpy() for k, v in leaves.items()}
+            for group, leaves in quant.items()}
+
+
 def _flatten(tree, prefix="") -> Dict[str, np.ndarray]:
     """A numpy params tree -> {dotted path: leaf} (the port's leaf names)."""
     if isinstance(tree, dict):
@@ -185,9 +211,12 @@ def _unflatten_like(template, flat: Dict[str, np.ndarray], prefix=""):
 
 def state_from_numpy(tree: Tree, device=None) -> Tree:
     """A whole JAX train state (numpy leaves) -> the port's train state,
-    with the params EMA where the tree holds one."""
+    with the params EMA and the quantizers where the tree holds them."""
     base = params_from_numpy(tree, device)
-    state = make_train_state(base["params"], base["occ"])
+    quant = tree.get("quant")
+    state = make_train_state(
+        base["params"], base["occ"],
+        quant=None if quant is None else quant_from_numpy(quant, device))
     if tree.get("ema") is not None:
         ema = _params_tree_from_numpy(tree["ema"], device)
         for t in named_leaves(ema).values():
@@ -201,6 +230,8 @@ def state_from_numpy(tree: Tree, device=None) -> Tree:
     state["step"] = int(tree["step"])
     for key in _SCALARS:
         state[key] = _tensor(tree[key], device)
+    if tree.get("infl_ema") is not None:
+        state["infl_ema"] = _tensor(tree["infl_ema"], device)
     return state
 
 
@@ -218,8 +249,10 @@ def state_to_numpy(state: Tree) -> Tree:
     if state.get("ema") is not None:
         out["ema"] = _params_tree_to_numpy(state["ema"])
     out["step"] = np.int32(state["step"])
-    for key in _SCALARS:
+    for key in _SCALARS + ("infl_ema",):
         out[key] = state[key].detach().cpu().numpy()
+    if state.get("quant") is not None:
+        out["quant"] = quant_to_numpy(state["quant"])
     return out
 
 
@@ -277,25 +310,17 @@ def load_flax_msgpack(path: str) -> Tree:
 
 def load_jax_checkpoint(path: str) -> Tree:
     """A checkpoint written by the JAX package's ``save_checkpoint`` as the
-    numpy tree ``state_from_numpy`` takes, the params EMA (``ema``)
-    included where it holds one.
-
-    The JAX state also holds ``quant`` (A-CAQ) and ``infl_ema`` (A-CAQ's
-    inflation statistic), which the port has not ported. ``None`` and the
-    statistic are dropped; a checkpoint that holds a trained ``quant`` is
-    refused, never read without it."""
+    numpy tree ``state_from_numpy`` takes, with the params EMA (``ema``)
+    and the A-CAQ quantizers (``quant``) where it holds them, and A-CAQ's
+    inflation statistic ``infl_ema``."""
     tree = load_flax_msgpack(path)
     if not isinstance(tree, dict) or "params" not in tree:
         raise ValueError(f"{path}: not a train state (no 'params')")
-    if tree.get("quant") is not None:
-        raise NotImplementedError(
-            f"{path} holds a trained 'quant' state, which comes with "
-            "ROADMAP.md Queue 1 item 5b (A-CAQ and the int8 gather); "
-            "importing the checkpoint without it would drop trained state")
-    keep = ("params", "opt", "occ", "step") + _SCALARS
+    keep = ("params", "opt", "occ", "step", "infl_ema") + _SCALARS
     out = {k: tree[k] for k in keep if k in tree}
-    if tree.get("ema") is not None:
-        out["ema"] = tree["ema"]
+    for key in ("ema", "quant"):
+        if tree.get(key) is not None:
+            out[key] = tree[key]
     return out
 
 

@@ -161,6 +161,60 @@ int launch_pack(const void* master, void* packed, int64_t n_rows, int F,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The int8 gather's pack pass (--block_io int8): packed[row, lane, f] =
+// rint(master[row, f, lane] / s) * s in f32, s = scale[row / rows_per_level],
+// the level's absmax / 127 (the wrapper computes it). It replaces the
+// quantize-gather-dequantize of indoor_nerf_tpu/ops/blockhash.py:344-354:
+// the rows are the same values in every gather, so they are dequantized
+// once per table, in the same pass that packs it. rintf rounds half to
+// even, as jnp.round; the division and product are the IEEE ones (_rn),
+// so the table equals the plain form's bit for bit. Bound by its bytes:
+// one f32 read and one f32 write per element.
+template <int VEC>
+__global__ void __launch_bounds__(kThreads)
+pack_rows_int8_kernel(const float* __restrict__ master,
+                      const float* __restrict__ scale,
+                      float* __restrict__ packed, int64_t total, int F,
+                      int lpf, int64_t rows_per_level) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (t >= total) return;
+  const int64_t row = t / lpf;
+  const int lane = static_cast<int>(t - row * lpf);
+  const float s = __ldg(scale + row / rows_per_level);
+  const float* src = master + row * F * lpf + lane;
+  float* dst = packed + t * F;
+  for (int f0 = 0; f0 < F; f0 += VEC) {
+    float v[VEC];
+#pragma unroll
+    for (int c = 0; c < VEC; ++c)
+      v[c] = __fmul_rn(rintf(__fdiv_rn(__ldg(src + (f0 + c) * lpf), s)), s);
+    store_vec<VEC>(dst + f0, v);
+  }
+}
+
+int launch_pack_int8(const void* master, const void* scale, void* packed,
+                     int64_t n_rows, int F, int lpf, int64_t rows_per_level,
+                     void* stream) {
+  const float* src = static_cast<const float*>(master);
+  const float* sc = static_cast<const float*>(scale);
+  float* dst = static_cast<float*>(packed);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int64_t total = n_rows * lpf;
+  const unsigned int blocks =
+      static_cast<unsigned int>((total + kThreads - 1) / kThreads);
+  if (F % 4 == 0) {
+    pack_rows_int8_kernel<4><<<blocks, kThreads, 0, st>>>(
+        src, sc, dst, total, F, lpf, rows_per_level);
+  } else if (F % 2 == 0) {
+    pack_rows_int8_kernel<2><<<blocks, kThreads, 0, st>>>(
+        src, sc, dst, total, F, lpf, rows_per_level);
+  } else {
+    pack_rows_int8_kernel<1><<<blocks, kThreads, 0, st>>>(
+        src, sc, dst, total, F, lpf, rows_per_level);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -189,6 +243,16 @@ int tent_pack_rows_f32(const void* master, void* packed, long long n_rows,
 int tent_pack_rows_bf16(const void* master, void* packed, long long n_rows,
                         int F, int lpf, void* stream) {
   return launch_pack<uint16_t>(master, packed, n_rows, F, lpf, stream);
+}
+
+// master: f32 [n_rows, F, lpf], scale: f32 [n_rows / rows_per_level] ->
+// packed f32 [n_rows, lpf, F], each element int8-rounded on its level's
+// scale and dequantized.
+int tent_pack_rows_int8(const void* master, const void* scale, void* packed,
+                        long long n_rows, int F, int lpf,
+                        long long rows_per_level, void* stream) {
+  return launch_pack_int8(master, scale, packed, n_rows, F, lpf,
+                          rows_per_level, stream);
 }
 
 const char* tent_contract_error_string(int code) {

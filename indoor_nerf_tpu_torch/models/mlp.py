@@ -10,7 +10,7 @@ pytree paths (``sigma_net[0]["w"]``, ...).
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
@@ -35,12 +35,15 @@ def init_linear(generator: torch.Generator, in_dim: int, out_dim: int,
 
 
 def _linear(p: nn.ParameterDict, x: torch.Tensor,
-            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """``x @ w (+ b)``; with ``compute_dtype`` the inputs and weights are
-    rounded to it and the products accumulate in f32, as the JAX
-    ``preferred_element_type=float32`` dot does. (A bf16 x bf16 product is
-    exact in f32, so rounding first and multiplying in f32 is that dot.)"""
-    w = p["w"]
+            compute_dtype: Optional[torch.dtype] = None,
+            w_override: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``x @ w (+ b)``, with ``w_override`` in place of ``w`` where given
+    (the fake-quantized weight); with ``compute_dtype`` the inputs and
+    weights are rounded to it and the products accumulate in f32, as the
+    JAX ``preferred_element_type=float32`` dot does. (A bf16 x bf16 product
+    is exact in f32, so rounding first and multiplying in f32 is that
+    dot.)"""
+    w = p["w"] if w_override is None else w_override
     if compute_dtype is not None:
         x = x.to(compute_dtype).to(torch.float32)
         w = w.to(compute_dtype).to(torch.float32)
@@ -73,8 +76,11 @@ class NeRFSmall(nn.Module):
 
     def forward(self, input_pts: torch.Tensor,
                 input_views: Optional[torch.Tensor],
-                compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-        return apply_nerf_small(self, input_pts, input_views, compute_dtype)
+                compute_dtype: Optional[torch.dtype] = None,
+                weight_quant: Optional[Callable] = None,
+                act_quants: Optional[Sequence[Callable]] = None) -> torch.Tensor:
+        return apply_nerf_small(self, input_pts, input_views, compute_dtype,
+                                weight_quant, act_quants)
 
 
 def init_nerf_small(generator: torch.Generator, input_ch: int = 32,
@@ -107,15 +113,25 @@ def init_nerf_small(generator: torch.Generator, input_ch: int = 32,
 
 def apply_nerf_small(model: NeRFSmall, input_pts: torch.Tensor,
                      input_views: Optional[torch.Tensor],
-                     compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+                     compute_dtype: Optional[torch.dtype] = None,
+                     weight_quant: Optional[Callable] = None,
+                     act_quants: Optional[Sequence[Callable]] = None
+                     ) -> torch.Tensor:
     """Forward NeRFSmall -> ``[N, 4]`` (rgb logits, sigma), ``[N, 7]`` with
     the unit normal ``n / max(|n|, 1e-12)`` of the normal net, which runs in
-    f32 whatever ``compute_dtype`` says (JAX mlp.py:98-103)."""
+    f32 whatever ``compute_dtype`` says (JAX mlp.py:98-103).
+
+    A-CAQ's fake quantizers, where given (JAX mlp.py:111-140):
+    ``weight_quant`` on the first sigma layer's weight, ``act_quants[l]`` on
+    the activation after the ReLU of hidden sigma layer l."""
     h = input_pts
     for l, layer in enumerate(model.sigma_net):
-        h = _linear(layer, h, compute_dtype)
+        w = weight_quant(layer["w"]) if l == 0 and weight_quant else None
+        h = _linear(layer, h, compute_dtype, w)
         if l != len(model.sigma_net) - 1:
             h = torch.relu(h)
+            if act_quants is not None:
+                h = act_quants[l](h)
 
     sigma, geo_feat = h[..., :1], h[..., 1:]
     h = geo_feat if input_views is None else torch.cat(

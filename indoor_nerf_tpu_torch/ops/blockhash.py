@@ -46,6 +46,7 @@ from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter
 from indoor_nerf_tpu_torch.ops.tent_contract import (
     lanes_per_feature,
     pack_rows,
+    pack_rows_int8,
     tent_contract,
 )
 from indoor_nerf_tpu_torch.ops.tile_interp import tile_interp
@@ -66,9 +67,12 @@ def _stagger(n_levels: int, block: int) -> np.ndarray:
 class BlockHashConfig:
     """Static geometry of the block-hash grid (same fields as the JAX one).
 
-    The port runs ``gather_dtype`` float32 and bfloat16. ``scatter_dtype``
-    is the dtype the backward rounds each cotangent entry to before the f32
-    sum (bfloat16 for the flagship)."""
+    ``gather_dtype``: the rows the forward reads, float32, bfloat16 or
+    int8 (each level's entries rounded to 127 steps of its largest
+    magnitude, ``gather_table``; the backward ignores the rounding, a
+    straight-through estimator). ``scatter_dtype`` is the dtype the
+    backward rounds each cotangent entry to before the f32 sum (bfloat16
+    for the flagship and for int8)."""
 
     bbox_min: Tuple[float, float, float]
     bbox_max: Tuple[float, float, float]
@@ -91,10 +95,8 @@ class BlockHashConfig:
     tile_interp: bool = False
 
     def __post_init__(self):
-        if self.gather_dtype not in ("float32", "bfloat16"):
-            raise NotImplementedError(
-                f"gather_dtype {self.gather_dtype!r}: the int8 gather comes "
-                "with ROADMAP.md Queue 1 item 5b (A-CAQ and the int8 gather)")
+        if self.gather_dtype not in ("float32", "bfloat16", "int8"):
+            raise ValueError(f"gather_dtype {self.gather_dtype!r}")
         if self.scatter_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"scatter_dtype {self.scatter_dtype!r}")
         if self.ray_strides is not None and self.ray_groups is not None:
@@ -115,10 +117,15 @@ class BlockHashConfig:
     @property
     def uses_tile_interp(self) -> bool:
         """Whether the encode takes the tile-interp route: asked for, at
-        ``block_size 4`` and a float32 scatter (JAX ops/blockhash.py:588-595
-        and :413; the int8 gather, which also bypasses it, is not ported)."""
+        ``block_size 4``, a float32 scatter and no int8 gather (JAX
+        ops/blockhash.py:588-595 and :413). The JAX int8 encode is its
+        fused custom VJP whatever the scatter dtype, and with
+        ``USE_TILE_INTERP_KERNEL`` its forward contracts the dequantized
+        rows with the tile-interp kernel; the port contracts them with
+        ``tent_contract``, the same function, and scatters as JAX does."""
         return (self.tile_interp and self.block_size == 4
-                and self.scatter_dtype == "float32")
+                and self.scatter_dtype == "float32"
+                and self.gather_dtype != "int8")
 
     @property
     def rows_per_level(self) -> int:
@@ -322,6 +329,8 @@ def grouped_scatter(g: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
 
 
 def _gather_dtype(config: BlockHashConfig) -> torch.dtype:
+    """The dtype of the packed copy: bf16 for the bf16 gather, else f32 (the
+    int8 gather's dequantized values are not exact in bf16)."""
     return torch.bfloat16 if config.gather_dtype == "bfloat16" else torch.float32
 
 
@@ -331,10 +340,13 @@ def gather_table(table: torch.Tensor, config: BlockHashConfig) -> torch.Tensor:
     ``gather_dtype``.
 
     The f32 master ``[L*R, F*lpf]`` is transposed and cast in one pass (the
-    cast is the JAX ``_gather_rows`` bf16 path, :355-361). The 3-D shape
-    marks a copy that is already packed: it is returned as is, so a server
-    packs once per loaded params while a training step packs once per
-    encode call."""
+    cast is the JAX ``_gather_rows`` bf16 path, :355-361). The int8 gather
+    packs in f32 the master rounded to its levels' int8 grids and
+    dequantized (``pack_rows_int8``), the values the JAX ``_gather_rows``
+    dequantizes after its int8 fetch (:344-354); a packed int8 copy is K10,
+    ROADMAP.md. The 3-D shape marks a copy that is already packed: it is
+    returned as is, so a server packs once per loaded params while a
+    training step packs once per encode call."""
     want = _gather_dtype(config)
     if table.dim() == 3:
         if table.dtype != want:
@@ -344,6 +356,9 @@ def gather_table(table: torch.Tensor, config: BlockHashConfig) -> torch.Tensor:
     if table.dtype != torch.float32:
         raise TypeError(f"table is {table.dtype}; the master table is "
                         f"float32 and the gather reads {want}")
+    if config.gather_dtype == "int8":
+        return pack_rows_int8(table, config.n_features_per_level,
+                              config.n_levels)
     return pack_rows(table, config.n_features_per_level, want)
 
 
@@ -361,8 +376,10 @@ class _Encode(torch.autograd.Function):
     Forward: ``tent_contract`` (rows in ``gather_dtype``, f32 sums).
     Backward: ``table_scatter`` — each cotangent entry rounded to
     ``scatter_dtype`` and summed in f32 into an f32 gradient of the
-    master's shape. No gradient flows to ``flat_row`` or ``p``: the encode
-    gives none w.r.t. the points, as the JAX fused VJP (:562-564)."""
+    master's shape; the int8 rounding of the forward is invisible to it
+    (the straight-through estimator of the JAX int8 encode). No gradient
+    flows to ``flat_row`` or ``p``: the encode gives none w.r.t. the
+    points, as the JAX fused VJP (:562-564)."""
 
     @staticmethod
     def forward(ctx, table, flat_row, p, config):
@@ -400,8 +417,9 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
     ``table`` is the f32 master (its gradient is f32, of the master's
     shape) or its cached packed ``gather_table`` copy (no gradient). The
     gradient w.r.t. ``x`` is None. The JAX package gives the same zero ``dx`` at
-    ``scatter_dtype`` bfloat16, but a nonzero one through XLA autodiff at
-    float32, so a float32 encode refuses an ``x`` that requires grad.
+    ``scatter_dtype`` bfloat16 and with the int8 gather, but a nonzero one
+    through XLA autodiff at float32, so a float32 encode refuses an ``x``
+    that requires grad.
 
     On the tile-interp route (``config.uses_tile_interp``) the encode is a
     row gather under autograd and ``tile_interp`` over the rows: the table
@@ -411,7 +429,8 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
     if config.uses_tile_interp:
         return _encode_tile_interp(x, table, config, levels)
     if torch.is_grad_enabled() and x.requires_grad \
-            and config.scatter_dtype == "float32":
+            and config.scatter_dtype == "float32" \
+            and config.gather_dtype != "int8":
         raise NotImplementedError(
             "the gradient w.r.t. the encoded points: the port's encode gives "
             "none (ROADMAP.md Queue 3), while the JAX float32 encode "

@@ -161,14 +161,22 @@ class _CornerSum(torch.autograd.Function):
         return d_table, None, None
 
 
+def hash_interp(table: torch.Tensor, flat_idx: torch.Tensor,
+                weights: torch.Tensor, config: HashGridConfig) -> torch.Tensor:
+    """The features ``[N, L * F]`` at the corner rows and weights of
+    ``hash_grid_indices``: the gather and the weighted corner sum in one
+    step (``_CornerSum``), differentiable in ``table``."""
+    feats = _CornerSum.apply(table, flat_idx, corner_weights(weights))
+    return feats.reshape(flat_idx.shape[0], config.out_dim)
+
+
 def hash_encode(x: torch.Tensor, table: torch.Tensor, config: HashGridConfig
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Multiresolution hash encoding of ``[N, 3]`` points with the fused
     ``[L * T, F]`` table -> (features ``[N, L * F]``, keep_mask ``[N]``).
     Differentiable in ``table`` (not in ``x``)."""
     flat_idx, weights, keep_mask = hash_grid_indices(x, config)
-    feats = _CornerSum.apply(table, flat_idx, corner_weights(weights))
-    return feats.reshape(x.shape[0], config.out_dim), keep_mask
+    return hash_interp(table, flat_idx, weights, config), keep_mask
 
 
 # Real SH coefficients (ops/encoding.py:178-187).

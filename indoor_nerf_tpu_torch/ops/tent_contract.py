@@ -51,6 +51,7 @@ import threading
 import torch
 
 from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
+from indoor_nerf_tpu_torch.ops.constants import device_constant
 
 _LOCK = threading.Lock()
 _launches = 0
@@ -134,6 +135,63 @@ def pack_rows(table: torch.Tensor, F: int,
           else lib.tent_pack_rows_f32)
     launch_on_stream(fn, lib.tent_contract_error_string, "pack_rows",
                      (("table", table), ("packed", packed)), n_rows, F, lpf)
+    return packed
+
+
+def int8_level_scales(table: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """The int8 gather's per-level scales ``[n_levels]`` f32: each level's
+    largest magnitude (at least 1e-12) over 127, the JAX ``_gather_rows``
+    rule (ops/blockhash.py:349-351). The divisor is a tensor on the
+    table's device: PyTorch's CUDA division by a Python number multiplies
+    by its rounded reciprocal, one ulp away from the quotient."""
+    absmax = torch.amax(torch.abs(table.reshape(n_levels, -1)), dim=1)
+    return torch.clamp_min(absmax, 1e-12) / device_constant(
+        127.0, torch.float32, table.device)
+
+
+def dequantize_int8_plain(table: torch.Tensor, n_levels: int) -> torch.Tensor:
+    """The master ``[L*R, W]`` f32 with every entry rounded to its level's
+    int8 grid and dequantized, ``round(x / s) * s`` in f32 (``torch.round``
+    rounds half to even, as ``jnp.round``): the values the JAX int8 gather
+    dequantizes after the fetch (ops/blockhash.py:352-354)."""
+    R = table.shape[0] // n_levels
+    s = int8_level_scales(table, n_levels).repeat_interleave(R)[:, None]
+    return torch.round(table / s) * s
+
+
+def pack_rows_int8_plain(table: torch.Tensor, F: int,
+                         n_levels: int) -> torch.Tensor:
+    """``pack_rows_int8``'s plain version: dequantize, then pack in f32."""
+    return pack_rows_plain(dequantize_int8_plain(table, n_levels), F,
+                           torch.float32)
+
+
+def pack_rows_int8(table: torch.Tensor, F: int, n_levels: int) -> torch.Tensor:
+    """The pack pass of the int8 gather: ``table [L*R, F*lpf] f32 -> [L*R,
+    lpf, F] f32`` holding ``dequantize_int8_plain(table)``, packed in f32
+    because ``q * scale`` is not exact in bf16. CPU tensors: the plain
+    version. CUDA tensors: the scales (one reduction), then the int8 pack
+    kernel of ``csrc/tent_contract.cu``, which rounds, dequantizes and packs
+    in one pass, bit for bit the plain version."""
+    if table.dtype != torch.float32 or table.dim() != 2 or table.shape[1] % F \
+            or table.shape[0] % n_levels:
+        raise TypeError(f"table must be float32 [L*R, F*lpf] with F={F}, "
+                        f"L={n_levels}, got {table.dtype} {tuple(table.shape)}")
+    if table.device.type == "cpu":
+        return pack_rows_int8_plain(table, F, n_levels)
+    if table.device.type != "cuda":
+        raise ValueError(f"pack_rows_int8 runs on cpu or cuda, not {table.device}")
+    n_rows, lpf = table.shape[0], table.shape[1] // F
+    packed = torch.empty((n_rows, lpf, F), dtype=torch.float32,
+                         device=table.device)
+    if n_rows == 0:
+        return packed
+    scale = int8_level_scales(table, n_levels)
+    lib = _library()
+    launch_on_stream(lib.tent_pack_rows_int8, lib.tent_contract_error_string,
+                     "pack_rows_int8",
+                     (("table", table), ("scale", scale), ("packed", packed)),
+                     n_rows, F, lpf, n_rows // n_levels)
     return packed
 
 
@@ -222,6 +280,10 @@ def _library() -> ctypes.CDLL:
             fn.argtypes = [ctypes.c_void_p] * 2 + [
                 ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
             fn.restype = ctypes.c_int
+        lib.tent_pack_rows_int8.argtypes = [ctypes.c_void_p] * 3 + [
+            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+            ctypes.c_void_p]
+        lib.tent_pack_rows_int8.restype = ctypes.c_int
         lib.tent_contract_error_string.argtypes = [ctypes.c_int]
         lib.tent_contract_error_string.restype = ctypes.c_char_p
         _lib = lib

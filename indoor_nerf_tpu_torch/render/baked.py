@@ -272,7 +272,8 @@ def bake_field(params: Dict[str, Any], config: FieldConfig,
     grid or the hash grid); a block table is packed once for it
     (``serving_params``), so on the card every chunk is one ``tent_contract``
     launch. ``geo_resolution`` -1 is ``resolution // 2``, 0 the full
-    resolution."""
+    resolution. It takes no quantizer state: a field trained with A-CAQ is
+    baked from its unquantized params, as the JAX bake bakes it."""
     if not config.uses_grid:
         raise ValueError("bake_field needs a NeRFSmall-style grid field")
     if sigma_enc not in ("sqrt", "log1p"):

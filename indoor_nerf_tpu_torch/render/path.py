@@ -53,6 +53,7 @@ def render_path(
     tile_rays: Optional[int] = None,
     save_figures: bool = True,
     image_renderer=None,
+    quant_state=None,
 ) -> Tuple[np.ndarray, np.ndarray, List[float]]:
     """Render every pose; returns (rgbs, depths_normalized, psnrs).
 
@@ -61,7 +62,9 @@ def render_path(
     ``image_renderer`` ``(c2ws [B, 3, 4], K, near, far) -> maps`` takes
     blocks of its own ``pose_block`` and must have been built for this
     (``render_factor``-scaled) H and W. The PSNR of a view is computed
-    against ``gt_imgs`` at ``render_factor 0`` only, as in JAX."""
+    against ``gt_imgs`` at ``render_factor 0`` only, as in JAX. A quantized
+    field renders with ``quant_state`` in evaluation mode (JAX
+    render/path.py:38)."""
     H, W, focal = hwf
     if render_factor != 0:
         H = H // render_factor
@@ -80,7 +83,7 @@ def render_path(
             return image_renderer(c2ws, K, near, far)
     else:
         block = max(1, min(POSE_BLOCK, n_poses))
-        sp = serving_params(params, config.field)
+        sp = serving_params(params, config.field, quant_state)
         dev = params_device(sp)
         tile = tile_rays or default_tile_rays(dev, config)
         K_t = torch.as_tensor(np.asarray(K, np.float32), device=dev)
@@ -88,7 +91,7 @@ def render_path(
         def render_block(c2ws):
             return _render_pose_block(
                 sp, torch.as_tensor(c2ws, device=dev), K_t, float(near),
-                float(far), config, H, W, tile, occ_state)
+                float(far), config, H, W, tile, occ_state, quant_state)
 
     rgbs, depths, psnrs = [], [], []
     t = time.time()

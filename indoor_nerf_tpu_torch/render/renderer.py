@@ -112,12 +112,15 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                 near: torch.Tensor, far: torch.Tensor, config: RenderConfig,
                 occ_state: Optional[OccState] = None,
                 step: Optional[int] = None,
-                draws: Optional[Dict[str, torch.Tensor]] = None
-                ) -> Dict[str, torch.Tensor]:
+                draws: Optional[Dict[str, torch.Tensor]] = None,
+                quant_state: Optional[Dict[str, Any]] = None,
+                train: bool = True
+                ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Any]]]:
     """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
-    ``[N, 1]``). Returns rgb/depth/acc/disp maps, the entropy
-    ``sparsity_loss``, ``weights``, ``z_vals`` (of the last pass: the
-    distortion loss reads both) and ``pts``, and with ``predict_normals``
+    ``[N, 1]``). Returns (outputs, quant_state); the outputs are
+    rgb/depth/acc/disp maps, the entropy ``sparsity_loss``, ``weights``,
+    ``z_vals`` (of the last pass: the distortion loss reads both) and
+    ``pts``, and with ``predict_normals``
     ``normal_map``; the hierarchical path also the coarse pass's ``rgb0``,
     ``depth0``, ``acc0``, ``sparsity_loss0`` (and ``normal0``), and
     ``z_std``, the population std of the fine samples' depths. A training
@@ -126,7 +129,12 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     A ``test_mode()`` config renders deterministically (the fine samples at
     the inverse CDF of a linspace). Otherwise ``draws`` (``draw_render``)
     carries the jitter and sigma noise, as the JAX ``render_rays`` key does
-    with ``train=True``."""
+    with ``train=True``.
+
+    ``quant_state``, ``train`` and ``step`` go to every field query (A-CAQ,
+    JAX renderer.py:66-133): a training render returns the state its
+    queries calibrated, coarse pass first; with ``quant_state`` None every
+    fake quantizer is bypassed."""
     draws = draws or {}
     missing = sorted(set(_draw_shapes(config, rays_o.shape[0])) - set(draws))
     if missing:
@@ -148,7 +156,8 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                                        t_rand=draws.get("t_rand"))
         mlp_name = "coarse"
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-    raw = query_field(params, mlp_name, pts, viewdirs, fc, step)
+    raw, quant_state = query_field(params, mlp_name, pts, viewdirs, fc, step,
+                                   quant_state, train)
     with record_function("composite"):
         out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd,
                           sigma_noise=draws.get("sigma_noise"))
@@ -162,8 +171,9 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                                    u=draws.get("u")).detach()
             z_vals = torch.sort(torch.cat([z_vals, z_samples], -1), -1).values
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
-        raw = query_field(params, "fine" if "fine" in params else "coarse",
-                          pts, viewdirs, fc, step)
+        raw, quant_state = query_field(
+            params, "fine" if "fine" in params else "coarse", pts, viewdirs,
+            fc, step, quant_state, train)
         with record_function("composite"):
             out = raw2outputs(raw, z_vals, rays_d,
                               white_bkgd=config.white_bkgd,
@@ -177,7 +187,7 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
         out["z_std"] = torch.std(z_samples, dim=-1, correction=0)
     out["z_vals"] = z_vals
     out["pts"] = pts
-    return out
+    return out, quant_state
 
 
 def _prepare_rays(rays_o: torch.Tensor, rays_d: torch.Tensor, H: int,
@@ -272,9 +282,12 @@ def default_tile_rays(device: torch.device,
 def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
                        K: torch.Tensor, near: float, far: float,
                        config: RenderConfig, H: int, W: int, tile_rays: int,
-                       occ_state: Optional[OccState] = None
+                       occ_state: Optional[OccState] = None,
+                       quant_state: Optional[Dict[str, Any]] = None
                        ) -> Dict[str, torch.Tensor]:
-    """Render ``c2ws`` ``[B, 3, 4]`` poses; maps carry a leading B axis."""
+    """Render ``c2ws`` ``[B, 3, 4]`` poses; maps carry a leading B axis.
+    A quantized field renders with ``quant_state`` in evaluation mode
+    (rounded bits, the calibrated levels)."""
     B = c2ws.shape[0]
     rays = [get_rays(H, W, K, c2w) for c2w in c2ws]
     rays_o = torch.stack([r[0] for r in rays])
@@ -285,10 +298,11 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
     outs = {k: [] for k in MAP_KEYS}
     for s in range(0, rays_o.shape[0], tile_rays):
         sl = slice(s, s + tile_rays)
-        out = render_rays(
+        out, _ = render_rays(
             params, rays_o[sl], rays_d[sl],
             None if viewdirs is None else viewdirs[sl],
-            near_a[sl], far_a[sl], test_cfg, occ_state=occ_state, step=None)
+            near_a[sl], far_a[sl], test_cfg, occ_state=occ_state, step=None,
+            quant_state=quant_state, train=False)
         for k in MAP_KEYS:
             outs[k].append(out[k])
     flat = {k: torch.cat(v) for k, v in outs.items()}
@@ -302,17 +316,20 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
 
 def make_image_renderer(config: RenderConfig, H: int, W: int,
                         tile_rays: Optional[int] = None):
-    """A full-image renderer ``(params, c2w, K, near, far[, occ_state]) ->
-    maps`` on the device of the params. ``tile_rays=None`` sizes tiles from
-    the card's memory and ``config`` (``default_tile_rays``)."""
+    """A full-image renderer ``(params, c2w, K, near, far[, occ_state,
+    quant_state]) -> maps`` on the device of the params. ``tile_rays=None``
+    sizes tiles from the card's memory and ``config``
+    (``default_tile_rays``). ``params`` are ``serving_params`` (of the
+    same ``quant_state`` for a quantized field)."""
 
-    def render_fn(params, c2w, K, near, far, occ_state=None):
+    def render_fn(params, c2w, K, near, far, occ_state=None, quant_state=None):
         dev = params_device(params)
         tile = tile_rays or default_tile_rays(dev, config)
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=dev)
         K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
         out = _render_pose_block(params, c2w[None], K, float(near),
-                                 float(far), config, H, W, tile, occ_state)
+                                 float(far), config, H, W, tile, occ_state,
+                                 quant_state)
         return {k: v[0] for k, v in out.items()}
 
     return render_fn
@@ -321,9 +338,11 @@ def make_image_renderer(config: RenderConfig, H: int, W: int,
 def render_image(params: Dict[str, Any], H: int, W: int, K: np.ndarray,
                  c2w: np.ndarray, near: float, far: float,
                  config: RenderConfig, tile_rays: Optional[int] = None,
-                 occ_state: Optional[OccState] = None) -> Dict[str, np.ndarray]:
+                 occ_state: Optional[OccState] = None,
+                 quant_state: Optional[Dict[str, Any]] = None
+                 ) -> Dict[str, np.ndarray]:
     """Convenience single-image render to numpy; see make_image_renderer."""
-    params = serving_params(params, config.field)
+    params = serving_params(params, config.field, quant_state)
     out = make_image_renderer(config, H, W, tile_rays)(
-        params, c2w, K, near, far, occ_state)
+        params, c2w, K, near, far, occ_state, quant_state)
     return {k: v.cpu().numpy() for k, v in out.items()}

@@ -13,6 +13,11 @@ field trained with normals (``--predict_normals``, which
 ``--use_structural_priors`` switches on) serves as the JAX server serves it:
 the normals are computed and not served, and the bake leaves the normal net
 out. The server renders the params, not their EMA, as the JAX server does.
+A quantized field (``--use_quantization`` among the training flags) is
+served online with the checkpoint's quantizers in evaluation mode (rounded
+bits, the levels the training calibrated), as the JAX server renders it
+(scripts/serve.py:128); ``--baked`` bakes the unquantized params, as the
+JAX bake does.
 Renders on the CUDA card (the block-hash encode then runs the hand-written
 ``tent_contract`` kernel; the hash grid and PE of the parity path are plain
 PyTorch) unless the training flags hold ``--device cpu``;
@@ -126,9 +131,13 @@ def build(args):
               f"{logdir_of(cli)}; seeded initial state, seed {cli.seed})")
     # Serving holds the params fixed, so the packed gather copy of the table
     # is made once here, from the RESTORED table (valid while these params
-    # are served unchanged).
-    params = serving_params(state["params"], field_cfg)
-    occ = state["occ"]
+    # are served unchanged), fake-quantized first for a quantized field.
+    quant, occ = state["quant"], state["occ"]
+    if getattr(args, "baked", False):
+        # The bake reads the unquantized params, as the JAX bake does.
+        params = serving_params(state["params"], field_cfg)
+    else:
+        params = serving_params(state["params"], field_cfg, quant)
     del state  # the RAdam moments and the f32 master are not served
 
     H = int(args.height or scene.hwf[0])
@@ -152,7 +161,7 @@ def build(args):
         online = make_image_renderer(cfg.render.test_mode(), H, W, tile)
 
         def render_maps(c2w):
-            return online(params, c2w, K, scene.near, scene.far, occ)
+            return online(params, c2w, K, scene.near, scene.far, occ, quant)
 
     lock = threading.Lock()  # one render at a time on the card
 

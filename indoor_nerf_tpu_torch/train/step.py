@@ -1,5 +1,5 @@
 """The training step: render -> loss -> backward -> RAdam -> grid refresh
-(train/step.py of the JAX package, without A-CAQ, the reg patches and the
+(train/step.py of the JAX package, without the reg patches and the
 appearance latents).
 
     state, metrics = train_step(state, batch, config, generator)
@@ -21,9 +21,15 @@ The training extensions of the step: the structural priors
 fine-level table decay and the params EMA (``state["ema"]``). The field's
 level and view anneals act inside the render (``models/field.py``).
 
-Off this path, with the ROADMAP.md Queue 1 item that brings each: A-CAQ
-(item 5b), the reg patches and appearance latents (item 5c). The CLI
-refuses their flags (``train/trainer.py``).
+A quantized field (``--use_quantization``) keeps its quantizer state in
+``state["quant"]``: the render's queries calibrate it, and with
+``use_acaq`` the bitwidth controller moves its bits every
+``acaq_interval`` steps from ``acaq_start_iter`` on (the host knows the
+step, so the JAX ``lax.cond`` is a branch here), in MDL mode from a second,
+quantizer-free forward on the same rays and draws and ``state["infl_ema"]``.
+
+Off this path: the reg patches and appearance latents (ROADMAP.md Queue 1
+item 5c). The CLI refuses their flags (``train/trainer.py``).
 """
 
 from __future__ import annotations
@@ -38,6 +44,11 @@ import torch
 from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.losses.distortion import distortion_loss
+from indoor_nerf_tpu_torch.losses.quantization import (
+    QuantState,
+    acaq_controller_update,
+    init_quant_state,
+)
 from indoor_nerf_tpu_torch.losses.priors import (
     PriorConfig,
     combine_structural_losses,
@@ -63,10 +74,6 @@ from indoor_nerf_tpu_torch.train.optim import (
 )
 
 TrainState = Dict[str, Any]
-
-# Decay of the image-loss EMA: the default of the JAX QuantConfig's
-# loss_ema_decay, which the JAX step reads from the field's quant config.
-LOSS_EMA_DECAY = 0.99
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +104,10 @@ class TrainConfig:
     use_structural_priors: bool = False
     structural_loss_start_iter: int = 2000
     structural_loss_ramp_iters: int = 1000
+    # The A-CAQ bitwidth controller (with a quantized field).
+    use_acaq: bool = False
+    acaq_start_iter: int = 1000
+    acaq_interval: int = 10
     priors: PriorConfig = PriorConfig()
 
 
@@ -118,10 +129,12 @@ def ema_copy(params: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def make_train_state(params: Dict[str, Any], occ: Optional[OccState],
-                     ema: bool = False) -> TrainState:
+                     ema: bool = False,
+                     quant: Optional[QuantState] = None) -> TrainState:
     """A train state around ``params`` (every leaf made trainable), zero
-    RAdam moments, the grid ``occ``, fresh counters and, with ``ema``, the
-    params EMA starting at ``params``."""
+    RAdam moments, the grid ``occ``, the quantizer state ``quant`` (None
+    for an unquantized field), fresh counters and, with ``ema``, the params
+    EMA starting at ``params``."""
     leaves = named_leaves(params)
     for t in leaves.values():
         t.requires_grad_(True)
@@ -132,11 +145,28 @@ def make_train_state(params: Dict[str, Any], occ: Optional[OccState],
         "opt": init_radam_state(leaves),
         "occ": occ,
         "ema": ema_copy(params) if ema else None,
+        "quant": quant,
         "step": 0,
         "best_loss": inf.clone(),
         "loss_ema": inf.clone(),
         "loss_ema_slow": inf.clone(),
+        # EMA of A-CAQ's paired inflation ratio (MDL mode), updated on
+        # controller steps only.
+        "infl_ema": inf.clone(),
     }
+
+
+def init_quant(config: TrainConfig, device=None) -> Optional[QuantState]:
+    """A fresh quantizer state for a quantized field, with one grid
+    quantizer per level and one activation quantizer per hidden sigma layer
+    (JAX train/step.py:128-140); None otherwise."""
+    fc = config.render.field
+    if not fc.use_quantization:
+        return None
+    grid = fc.grid if fc.grid is not None else fc.block_grid
+    return init_quant_state(dataclasses.replace(
+        fc.quant, n_embed_levels=grid.n_levels,
+        n_act_quantizers=fc.num_layers - 1), device)
 
 
 def init_train_state(generator: torch.Generator, config: TrainConfig,
@@ -146,7 +176,8 @@ def init_train_state(generator: torch.Generator, config: TrainConfig,
     params = init_field_params(generator, config.render.field, device)
     occ = (init_occupancy(config.render.occupancy, device)
            if config.render.occupancy is not None else None)
-    return make_train_state(params, occ, ema=config.ema_decay > 0.0)
+    return make_train_state(params, occ, ema=config.ema_decay > 0.0,
+                            quant=init_quant(config, device))
 
 
 def eval_params(state: TrainState) -> Dict[str, Any]:
@@ -187,6 +218,42 @@ def prior_ramp_weights(config: TrainConfig, step: int,
 def _refresh_due(config: TrainConfig, step: int) -> bool:
     oc = config.render.occupancy
     return oc is not None and step % oc.update_interval == 0
+
+
+def acaq_active(config: TrainConfig, step: int) -> bool:
+    """Whether step ``step`` runs the A-CAQ controller: a quantized field
+    with ``use_acaq``, from ``acaq_start_iter`` on, every ``acaq_interval``
+    steps (the JAX ``lax.cond``, :486-492)."""
+    return (config.use_acaq and config.render.field.use_quantization
+            and step >= config.acaq_start_iter
+            and step % config.acaq_interval == 0)
+
+
+def _acaq_controller(state: TrainState, img_loss: torch.Tensor,
+                     fp_loss: Optional[torch.Tensor], qc
+                     ) -> Tuple[QuantState, torch.Tensor]:
+    """The controller's signal and one controller update (JAX :413-484),
+    after the loss EMAs. MDL mode (no ``target_metric``): the symmetric
+    deviation ``max(r, 1/r)`` of the paired ratio r = quantized / bypassed
+    loss of this batch, folded into ``infl_ema`` (decay
+    ``fp_ref_ema_decay``; adopted while infinite), the trajectory ratio
+    ``loss_ema / loss_ema_slow``, and ``max(infl_ema, traj, 1)`` against a
+    reference of 1. MGL mode: ``loss_ema`` against the target. Returns
+    (quant state, infl_ema)."""
+    infl_ema = state["infl_ema"]
+    if fp_loss is not None:
+        ratio = img_loss / torch.clamp_min(fp_loss, 1e-30)
+        dev = torch.maximum(ratio, 1.0 / torch.clamp_min(ratio, 1e-30))
+        d_fp = qc.fp_ref_ema_decay
+        infl_ema = torch.where(torch.isinf(infl_ema), dev,
+                               d_fp * infl_ema + (1.0 - d_fp) * dev)
+        traj = state["loss_ema"] / torch.clamp_min(state["loss_ema_slow"],
+                                                   1e-30)
+        current = torch.clamp_min(torch.maximum(infl_ema, traj), 1.0)
+    else:
+        current = state["loss_ema"]
+    quant, _ = acaq_controller_update(state["quant"], current, 1.0, qc)
+    return quant, infl_ema
 
 
 def draw_step(generator: torch.Generator, config: TrainConfig, step: int,
@@ -233,10 +300,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     learning rate of the optimizer's step before its increment (:383), the
     loss EMAs (:392-411), on every ``update_interval``-th step (step 0
     included) the grid refresh, which reads the UPDATED params (:494-509),
-    and the params EMA (:511-517). Returns (state, metrics{loss, img_loss,
-    psnr, lr} and, on steps with the priors, the ``structural_*``
-    diagnostics of ``combine_structural_losses``); ``state`` is updated in
-    place."""
+    and the params EMA (:511-517). With a quantized field the render's
+    queries fake-quantize and calibrate (``state["quant"]``), and on
+    controller steps (``acaq_active``) the A-CAQ controller moves the bits
+    (:413-492). Returns (state, metrics{loss, img_loss, psnr, lr} and, on
+    steps with the priors, the ``structural_*`` diagnostics of
+    ``combine_structural_losses``); ``state`` is updated in place."""
     rc = config.render
     fc = rc.field
     step = state["step"]
@@ -262,8 +331,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     near = config.near * torch.ones_like(rays_d[..., :1])
     far = config.far * torch.ones_like(rays_d[..., :1])
 
-    out = render_rays(params, rays_o, rays_d, viewdirs, near, far, rc,
-                      occ_state=state["occ"], step=step, draws=draws)
+    out, new_quant = render_rays(params, rays_o, rays_d, viewdirs, near, far,
+                                 rc, occ_state=state["occ"], step=step,
+                                 draws=draws, quant_state=state.get("quant"),
+                                 train=True)
     img_loss = torch.mean((out["rgb_map"] - target) ** 2)
     loss = img_loss
     sparsity = torch.sum(out["sparsity_loss"])
@@ -302,13 +373,23 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     leaves = named_leaves(params)
     with record_function("backward"):
         grads = torch.autograd.grad(loss, list(leaves.values()))
+    fp_loss = None
+    if acaq_active(config, step) and fc.quant.target_metric is None:
+        # The MDL anchor: this batch's loss without any quantizer, on the
+        # same rays, draws and (pre-update) params (JAX :420-434).
+        with torch.no_grad(), record_function("acaq_fp_forward"):
+            out_fp, _ = render_rays(params, rays_o, rays_d, viewdirs, near,
+                                    far, rc, occ_state=state["occ"],
+                                    step=step, draws=draws, train=True)
+            fp_loss = torch.mean((out_fp["rgb_map"] - target) ** 2)
+        del out_fp
     lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
     with record_function("optimizer"):
         radam_update(leaves, dict(zip(leaves, grads)), state["opt"], lr,
                      pocketnerf_hyper_fn)
 
     il = img_loss.detach()
-    d = LOSS_EMA_DECAY
+    d = fc.quant.loss_ema_decay
     d_slow = 1.0 - (1.0 - d) / 10.0
     ema = state["loss_ema"]
     state["loss_ema"] = torch.where(torch.isinf(ema), il, d * ema + (1.0 - d) * il)
@@ -316,6 +397,10 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     state["loss_ema_slow"] = torch.where(torch.isinf(slow), il,
                                          d_slow * slow + (1.0 - d_slow) * il)
     state["best_loss"] = torch.minimum(state["best_loss"], state["loss_ema"])
+    state["quant"] = new_quant
+    if acaq_active(config, step):
+        state["quant"], state["infl_ema"] = _acaq_controller(
+            state, il, fp_loss, fc.quant)
 
     if _refresh_due(config, step):
         mlp_name = "fine" if "fine" in params else "coarse"

@@ -1,6 +1,6 @@
 """The training entry point (train/trainer.py of the JAX package: the loop of
-its ``train``, without the multi-device parts, A-CAQ, the reg patches and
-the appearance latents) and the static config assembly that serving shares.
+its ``train``, without the multi-device parts, the reg patches and the
+appearance latents) and the static config assembly that serving shares.
 
     python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego_tpu.txt \
         --datadir DIR
@@ -42,6 +42,17 @@ baked renderer with ``--render_baked``. The expname is mangled with the
 hyper-parameters, so a changed ``--lrate`` or ``--finest_res`` resolves to
 a fresh directory. Without ``--expname`` nothing is written or resumed.
 
+``--use_quantization`` trains the grid fields (``--i_embed 1`` or 3) with
+A-CAQ's fake quantizers (``losses/quantization.py``; ``--quantization_bits``
+to start from) and ``--use_acaq`` with the bitwidth controller from
+``--acaq_start_iter`` on (``--bit_penalty``; MDL mode at
+``--mdl_tolerance``, MGL mode with ``--target_metric``): every
+``--i_print`` steps a ``[QUANT] Average bits`` line, the quantizer series
+in the metrics and, at every ``--i_weights``, the model complexity and
+``quantization_analysis.png``; test sets, videos and ``--render_only``
+render the quantized field. ``--block_io int8`` rounds the block table's
+gathered rows to 8 bits per level (straight-through, a bf16 scatter).
+
 ``--use_structural_priors`` (it switches ``--predict_normals`` on) adds
 the Manhattan, planarity and consistency losses from
 ``--structural_loss_start_iter`` on, ramped over
@@ -69,6 +80,7 @@ from indoor_nerf_tpu_torch import resolve_device
 from indoor_nerf_tpu_torch.data.images import installed
 from indoor_nerf_tpu_torch.data.load import SceneData, load_dataset
 from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler, ImageRaySampler
+from indoor_nerf_tpu_torch.losses.quantization import QuantConfig, flat_bits
 from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.encoding import HashGridConfig
@@ -92,13 +104,10 @@ from indoor_nerf_tpu_torch.utils.checkpoint import (
 from indoor_nerf_tpu_torch.utils.evaluation import ComprehensiveEvaluator
 from indoor_nerf_tpu_torch.utils.metrics import MetricsLogger
 
-_ITEM5B = "Queue 1 item 5b (A-CAQ and the int8 gather)"
 _ITEM5C = "Queue 1 item 5c (reg patches and appearance latents)"
 # Flags whose non-default value changes the model or the step, with the
 # ROADMAP item that brings each.
 _UNPORTED = (
-    ("use_quantization", False, _ITEM5B),
-    ("use_acaq", False, _ITEM5B),
     ("reg_views", 0, _ITEM5C),
     ("use_appearance", False, _ITEM5C),
 )
@@ -229,6 +238,12 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
             f"grid encoders' net (--i_embed 1 or 3; got {args.i_embed}): "
             "the classic NeRF MLP of PE predicts none (the JAX package "
             "fails on the pair with an IndexError when it traces the step)")
+    if args.use_quantization and args.i_embed not in (1, 3):
+        raise ValueError(
+            "--use_quantization quantizes the grid encoders' table and "
+            f"NeRFSmall (--i_embed 1 or 3; got {args.i_embed}): the JAX "
+            "package fails on the pair (its init_train_state reads the "
+            "grid's level count from a config that has no grid)")
 
     n_levels = args.n_levels
     feats_per_level = args.feats_per_level
@@ -268,6 +283,11 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
     if args.use_pallas:
         if block_grid is not None and block_grid.uses_tile_interp:
             print("[pallas] tile_interp kernel enabled (see BENCH_NOTES.md)")
+        elif block_grid is not None and args.block_io == "int8":
+            print("[pallas] --use_pallas with --block_io int8: the JAX int8 "
+                  "encode contracts its dequantized rows with the tile_interp "
+                  "kernel; the port contracts them with tent_contract, the "
+                  "same function, and scatters as JAX does")
         else:
             print("[pallas] --use_pallas ignored: the tile_interp route "
                   "applies to --i_embed 3 at --block_size 4 with --block_io "
@@ -291,6 +311,11 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
         freq_anneal_iters=args.freq_anneal_iters,
         view_anneal_iters=args.view_anneal_iters,
+        use_quantization=args.use_quantization,
+        quant=QuantConfig(init_bits=float(args.quantization_bits),
+                          bit_penalty=args.bit_penalty,
+                          target_metric=args.target_metric,
+                          mdl_tolerance=args.mdl_tolerance),
     )
     occupancy = None
     if args.use_occupancy:
@@ -332,7 +357,16 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         use_structural_priors=args.use_structural_priors,
         structural_loss_start_iter=args.structural_loss_start_iter,
         structural_loss_ramp_iters=args.structural_loss_ramp_iters,
+        use_acaq=args.use_acaq,
+        acaq_start_iter=args.acaq_start_iter,
     )
+
+
+def _quant_bits(flat: np.ndarray, n_embed: int) -> Dict[str, np.ndarray]:
+    """The soft bitwidths as the logger takes them (JAX trainer.py:223),
+    from ``flat_bits`` read on the host: ``embed`` (one per grid level) and
+    ``network`` (the activations', then the weight's)."""
+    return {"embed": flat[:n_embed], "network": flat[n_embed:]}
 
 
 def one_batch(args, device, seed=None):
@@ -411,6 +445,7 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
             Hb //= args.render_factor
             Wb //= args.render_factor
         print(f"[baked] baking at {args.render_baked_res}^3 ...")
+        # The bake reads the unquantized params, as the JAX bake does.
         baked = bake_field(
             serving_params(eval_params(state), cfg.render.field),
             cfg.render.field, resolution=args.render_baked_res,
@@ -424,7 +459,7 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
         scene.render_poses, scene.hwf, scene.K, cfg.render.test_mode(),
         eval_params(state), scene.near, scene.far, gt_imgs=gt, savedir=savedir,
         render_factor=args.render_factor, occ_state=state["occ"],
-        image_renderer=image_renderer)
+        image_renderer=image_renderer, quant_state=state["quant"])
     print("Done rendering", savedir)
     video = (write_video(os.path.join(savedir, "video.mp4"), rgbs)
              if savedir is not None else None)
@@ -568,27 +603,33 @@ def train(args) -> Dict:
 
     def queue_read(i: int, metrics: Dict):
         """Step ``i``'s loss and PSNR (and the priors' diagnostics on steps
-        with the priors) on their way to the host, and the event of their
-        copy (None on the CPU)."""
+        with the priors, and the quantizers' soft bits after the step) on
+        their way to the host, and the event of their copy (None on the
+        CPU). JAX reads the bits when it logs the step, one step later on
+        the steps it does not flush (:705-722)."""
         keys = ["loss", "psnr"]
         if "structural_manhattan" in metrics:
             keys += [f"structural_{k}" for k in PRIOR_DIAG]
-        vals = torch.stack([metrics[k].to(torch.float32) for k in keys]).to(
-            "cpu", non_blocking=True)
+        vals = torch.stack([metrics[k].to(torch.float32) for k in keys])
+        if state["quant"] is not None:
+            vals = torch.cat([vals, flat_bits(state["quant"])])
+        vals = vals.to("cpu", non_blocking=True)
         done = None
         if device.type == "cuda":
             done = torch.cuda.Event()
             done.record()
-        return i, vals, done, metrics["lr"]
+        return i, vals, done, metrics["lr"], len(keys)
 
     def process_metrics(pending) -> Tuple[float, float]:
         """JAX trainer.py:585-668 for a step queued by ``queue_read``.
         Returns its (loss, psnr)."""
-        nonlocal last_processed
-        i, vals, done, lr = pending
+        nonlocal last_processed, last_bits
+        i, vals, done, lr, n_keys = pending
         if done is not None:
             done.synchronize()
-        loss, psnr, *diag = vals.tolist()
+        loss, psnr, *diag = vals[:n_keys].tolist()
+        if state["quant"] is not None:
+            last_bits = _quant_bits(vals[n_keys:].numpy(), n_embed)
         now = time.time()
         if not np.isfinite(loss):
             saved = ("no checkpoint (no --expname)" if logdir is None else
@@ -597,7 +638,8 @@ def train(args) -> Dict:
             raise FloatingPointError(
                 f"non-finite loss {loss} at iteration {i}; {saved}. "
                 "Re-run with --debug_nans to locate the op.")
-        metrics_logger.log_iteration(i, now - time0, loss, psnr, lr)
+        metrics_logger.log_iteration(i, now - time0, loss, psnr, lr,
+                                     quantizer_bits=last_bits)
         if (diag and i % args.i_print == 0
                 and i >= args.structural_loss_start_iter):
             m = dict(zip(PRIOR_DIAG, diag))
@@ -637,6 +679,10 @@ def train(args) -> Dict:
             prior_decays.append((i, dict(prior_weights)))
         return loss, psnr
 
+    # The quantizers' soft bits of the last step read (_quant_bits' dict).
+    last_bits = None
+    n_embed = (0 if state["quant"] is None
+               else state["quant"]["embed"]["soft_bits"].shape[0])
     profiler = None
     eval_seconds = 0.0
     saved_at = start  # the state of a step that took none is its file's
@@ -708,6 +754,10 @@ def train(args) -> Dict:
                 saved_at = i
                 metrics_logger.save_checkpoint(i)
                 metrics_logger.plot_training_curves()
+                if args.use_quantization:
+                    metrics_logger.calculate_model_complexity(
+                        state["params"], last_bits)
+                    metrics_logger.plot_quantization_analysis()
                 eval_seconds += time.perf_counter() - t_eval
 
             if due["video"] and logdir is not None:
@@ -715,7 +765,8 @@ def train(args) -> Dict:
                 rgbs, disps, _ = render_path(
                     scene.render_poses, scene.hwf, scene.K, test_config,
                     eval_params(state), scene.near, scene.far,
-                    occ_state=state["occ"], save_figures=False)
+                    occ_state=state["occ"], save_figures=False,
+                    quant_state=state["quant"])
                 print("Done, saving", rgbs.shape, disps.shape)
                 moviebase = os.path.join(logdir, "{}_spiral_{:06d}_".format(
                     os.path.basename(logdir), i))
@@ -735,7 +786,7 @@ def train(args) -> Dict:
                     scene.poses[scene.i_test], scene.hwf, scene.K,
                     test_config, eval_params(state), scene.near, scene.far,
                     gt_imgs=scene.images[scene.i_test], savedir=testsavedir,
-                    occ_state=state["occ"])
+                    occ_state=state["occ"], quant_state=state["quant"])
                 print("Saved test set")
                 t_metrics = time.perf_counter()
                 avg = sum(view_psnrs) / len(view_psnrs)
@@ -765,6 +816,11 @@ def train(args) -> Dict:
             if due["print"] or i == args.n_iters:
                 print(f"[TRAIN] Iter: {i} Loss: {loss:.6f} PSNR: {psnr:.3f} "
                       f"lr: {metrics['lr']:.3e}")
+                if last_bits is not None:
+                    all_bits = np.concatenate([last_bits["embed"],
+                                               last_bits["network"]])
+                    print(f"[QUANT] Average bits: {np.mean(all_bits):.2f}, "
+                          f"Num quantizers: {all_bits.size}")
             if due["print"]:
                 loss_list.append(loss)
                 psnr_list.append(psnr)
@@ -799,6 +855,8 @@ def train(args) -> Dict:
                   save_checkpoint(logdir, final_step, state))
         metrics_logger.save_checkpoint(final_step)
         metrics_logger.plot_training_curves()
+        if args.use_quantization:
+            metrics_logger.plot_quantization_analysis()
     summary = metrics_logger.generate_summary_table()
     print("\n=== Training Summary ===")
     for row in summary:

@@ -9,7 +9,8 @@ The port's own payload is the whole train state as one flat dict of CPU
 tensors and plain ints, keyed by dotted leaf paths (``params.table``,
 ``params.coarse.sigma_net.0.w``, ``opt.mu.table``, ``opt.step``,
 ``occ.density``, ``ema.table`` (the params EMA of ``--ema_decay``),
-``step``, ``best_loss``, ...), written with ``torch.save``
+``quant.embed.soft_bits`` (the A-CAQ quantizers of a quantized field),
+``step``, ``best_loss``, ``infl_ema``, ...), written with ``torch.save``
 and read with ``weights_only=True``: no pickled classes. ``restore_checkpoint``
 also reads a checkpoint written by the JAX package (flax msgpack), which it
 tells apart by the file's first bytes (``bridge.load_jax_checkpoint``).
@@ -26,7 +27,7 @@ from indoor_nerf_tpu_torch.train.optim import named_leaves
 
 CKPT_SUFFIX = ".ckpt"
 FORMAT = "indoor_nerf_tpu_torch.ckpt.v1"
-_SCALARS = ("best_loss", "loss_ema", "loss_ema_slow")
+_SCALARS = ("best_loss", "loss_ema", "loss_ema_slow", "infl_ema")
 # torch.save writes a zip archive; a flax msgpack state starts with a map.
 _ZIP_MAGIC = b"PK\x03\x04"
 
@@ -40,7 +41,11 @@ def _tensor_leaves(state: Dict[str, Any]) -> Dict[str, torch.Tensor]:
         out["occ.density"] = state["occ"]["density"]
     if state.get("ema") is not None:
         out.update({f"ema.{k}": v for k, v in named_leaves(state["ema"]).items()})
-    out.update({k: state[k] for k in _SCALARS})
+    if state.get("quant") is not None:
+        out.update({f"quant.{group}.{k}": v
+                    for group, leaves in state["quant"].items()
+                    for k, v in leaves.items()})
+    out.update({k: state[k] for k in _SCALARS if k in state})
     return out
 
 
@@ -108,11 +113,16 @@ def _restore_own(payload: Dict[str, Any], template: Dict[str, Any],
     missing = [k for k in required if k not in payload]
     if missing:
         raise ValueError(f"{path}: no leaf {missing[0]!r}")
-    extra = [k for k in payload if k.startswith(("params.", "ema."))
+    # Trained state is never dropped: params, an EMA or quantizers (a file
+    # without quantizers restores into a quantized state's fresh ones, as a
+    # JAX checkpoint written before they existed would).
+    extra = [k for k in payload if k.startswith(("params.", "ema.", "quant."))
              and k not in leaves]
     if extra:
         raise ValueError(f"{path}: leaf {extra[0]!r} has no place in the "
-                         "configuration's state; it would be dropped")
+                         "configuration's state; it would be dropped"
+                         + (" (train and serve it with --use_quantization)"
+                            if extra[0].startswith("quant.") else ""))
     with torch.no_grad():
         for name, t in leaves.items():
             if name not in payload:
@@ -125,6 +135,9 @@ def _restore_own(payload: Dict[str, Any], template: Dict[str, Any],
                     f"{tuple(t.shape)}")
             if name in _SCALARS:
                 template[name] = src.to(t.device)
+            elif name.startswith("quant."):
+                _, group, key = name.split(".")
+                template["quant"][group][key] = src.to(t.device)
             else:
                 t.copy_(src)
         if seed_ema:

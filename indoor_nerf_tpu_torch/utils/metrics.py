@@ -5,15 +5,17 @@ The same directory (``<logdir>/<exp>/metrics/``) and files for the same
 calls: ``config.json``, ``metrics_iter_N.pkl`` (the same pickled dicts),
 ``main_metrics_N.csv`` and ``summary_table.csv`` (written with the standard
 ``csv`` module, byte for byte the JAX logger's pandas output),
-``training_curves.png`` (matplotlib) and ``summary_table.tex`` (pandas).
-The card's machine has neither matplotlib nor pandas: the logger then
-writes everything else and says once, when it is made, which files it
-leaves out and why (the JAX logger raises ImportError at the first save).
+``training_curves.png`` and ``quantization_analysis.png`` (matplotlib),
+``summary_table.tex`` (pandas), and for a quantized run
+``quant_metrics_N.csv``. The card's machine has neither matplotlib nor
+pandas: the logger then writes everything else and says once, when it is
+made, which files it leaves out and why (the JAX logger raises ImportError
+at the first save).
 
-The quantizer series (A-CAQ, ROADMAP.md Queue 1 item 5b) are kept empty in
-the pickles as the JAX logger keeps them for an unquantized run;
-``calculate_model_complexity``, ``log_acaq_update``, the quantizer CSV and
-``quantization_analysis.png`` come with that item.
+The quantizer series (A-CAQ) fill as the JAX logger fills them: the soft
+bits each logged step carries (``log_iteration``'s ``quantizer_bits``), the
+model size of ``calculate_model_complexity`` and the controller's updates
+(``log_acaq_update``); an unquantized run keeps them empty.
 """
 
 from __future__ import annotations
@@ -23,7 +25,9 @@ import json
 import os
 import pickle
 from collections import defaultdict
-from typing import Dict, List
+from typing import Dict, List, Optional
+
+import numpy as np
 
 from indoor_nerf_tpu_torch.data.images import installed
 
@@ -55,7 +59,8 @@ class MetricsLogger:
         if write:
             os.makedirs(self.metrics_dir, exist_ok=True)
             left_out = [name for name, ok in (
-                ("training_curves.png (needs matplotlib)", self.has_matplotlib),
+                ("training_curves.png and quantization_analysis.png (need "
+                 "matplotlib)", self.has_matplotlib),
                 ("summary_table.tex (needs pandas)", self.has_pandas)) if not ok]
             if left_out:
                 print("[metrics] not installed here, so not written: "
@@ -88,13 +93,41 @@ class MetricsLogger:
         with open(path, "w") as f:
             json.dump(cfg, f, indent=4, default=str)
 
-    def log_iteration(self, iteration, time_elapsed, loss, psnr, lr):
-        """Per-iteration series (reference: metric_logger.py:72-82)."""
+    def log_iteration(self, iteration, time_elapsed, loss, psnr, lr,
+                      quantizer_bits: Optional[Dict[str, np.ndarray]] = None):
+        """Per-iteration series (reference: metric_logger.py:72-82);
+        ``quantizer_bits`` ``{"embed": [L], "network": [n_act + 1]}`` soft
+        bits (``train/trainer.py::_quant_bits``) for a quantized run."""
         self.metrics["iteration"].append(iteration)
         self.metrics["time"].append(time_elapsed)
         self.metrics["loss"].append(float(loss))
         self.metrics["psnr"].append(float(psnr))
         self.metrics["learning_rate"].append(float(lr))
+        if quantizer_bits:
+            self._log_quant(quantizer_bits)
+
+    def _log_quant(self, quantizer_bits: Dict[str, np.ndarray]):
+        """(reference: metric_logger.py:84-120; the JAX ``_log_quant``)"""
+        all_bits, embed_bits, mlp_bits = [], [], []
+        for name, arr in quantizer_bits.items():
+            if arr is None:
+                continue
+            vals = np.atleast_1d(np.asarray(arr, np.float64))
+            for idx, b in enumerate(vals):
+                all_bits.append(float(b))
+                (embed_bits if "embed" in name else mlp_bits).append(float(b))
+                self.metrics["component_bitwidths"][f"{name}_{idx}"].append(
+                    float(b))
+        if all_bits:
+            self.metrics["avg_bitwidth"].append(float(np.mean(all_bits)))
+            self.metrics["bitwidth_distribution"].append(list(all_bits))
+            self.quant_metrics["embed_bits"].append(
+                float(np.mean(embed_bits)) if embed_bits else None)
+            self.quant_metrics["mlp_bits"].append(
+                float(np.mean(mlp_bits)) if mlp_bits else None)
+            for k in ("activation_bits", "weight_bits", "quantization_error",
+                      "bit_operations", "model_size"):
+                self.quant_metrics[k].append(None)
 
     def log_test_metrics(self, iteration, psnr, ssim=None, lpips=None,
                          lpips_proxy=None):
@@ -110,8 +143,39 @@ class MetricsLogger:
                 (iteration, float(lpips_proxy))
             )
 
+    def log_acaq_update(self, target_metric, loss_ratio, bit_adjustments):
+        """(reference: metric_logger.py:130-134)"""
+        self.acaq_metrics["target_metric"].append(float(target_metric))
+        self.acaq_metrics["loss_ratio"].append(float(loss_ratio))
+        self.acaq_metrics["bit_adjustments"].append(
+            [float(b) for b in np.atleast_1d(bit_adjustments)])
+
+    def calculate_model_complexity(self, params, quantizer_bits=None):
+        """Bits and compressed size (MB) of the params (reference:
+        metric_logger.py:136-163, the JAX logger's rule): the table at the
+        grid quantizers' mean bits, every other leaf at the network
+        quantizers' mean, 32 where a group is missing. Appends both to the
+        quantizer series; returns (bits, MB)."""
+        from indoor_nerf_tpu_torch.train.optim import named_leaves
+
+        embed_mean = mlp_mean = 32.0
+        if quantizer_bits:
+            if quantizer_bits.get("embed") is not None:
+                embed_mean = float(np.mean(np.asarray(quantizer_bits["embed"])))
+            if quantizer_bits.get("network") is not None:
+                mlp_mean = float(np.mean(np.asarray(quantizer_bits["network"])))
+        total_bits = 0.0
+        for name, leaf in sorted(named_leaves(params).items()):
+            bits = embed_mean if name == "table" else mlp_mean
+            total_bits += bits * int(leaf.numel())
+        model_size_mb = total_bits / (8 * 1024 * 1024)
+        self.quant_metrics["bit_operations"].append(total_bits)
+        self.quant_metrics["model_size"].append(model_size_mb)
+        return total_bits, model_size_mb
+
     def save_checkpoint(self, iteration):
-        """metrics_iter_N.pkl + main_metrics_N.csv (reference:
+        """metrics_iter_N.pkl, main_metrics_N.csv and, once a quantizer
+        series holds a value, quant_metrics_N.csv (reference:
         metric_logger.py:165-205)."""
         if not self.write:
             return
@@ -136,49 +200,133 @@ class MetricsLogger:
             os.path.join(self.metrics_dir, f"main_metrics_{iteration}.csv"),
             MAIN_COLUMNS,
             zip(m["iteration"], m["time"], m["loss"], m["psnr"], avg_bw))
+        q = self.quant_metrics
+        if any(q.values()):
+            n = max(len(v) for v in q.values())
+            cols = [(v + [None] * (n - len(v))) for v in q.values()]
+            _write_csv(
+                os.path.join(self.metrics_dir, f"quant_metrics_{iteration}.csv"),
+                list(q), zip(*cols))
 
-    def plot_training_curves(self, save_path=None):
-        """The JAX logger's 2x2 PNG, where matplotlib is installed: PSNR
-        against time and the loss (log scale); its two bitwidth panels stay
-        blank, as they do there for an unquantized run."""
+    def _draw_panel_grid(self, save_path, panels):
+        """Up to 4 panel specs in a 2x2 PNG, where matplotlib is installed
+        (the JAX logger's ``_draw_panel_grid``): each spec has a ``kind``
+        (line, scatter, hist), ``series`` of (x, y, label), a title and axis
+        labels, and optionally ``logy``, ``ylim``, ``legend`` or
+        ``small_legend``; a panel without series stays blank."""
         if not (self.write and self.has_matplotlib):
             return
-        if save_path is None:
-            save_path = os.path.join(self.metrics_dir, "training_curves.png")
         import matplotlib
         matplotlib.use("Agg")
         import matplotlib.pyplot as plt
 
-        m = self.metrics
         fig, axes = plt.subplots(2, 2, figsize=(12, 10))
-        panels = (("PSNR vs Training Time", "Time (seconds)", "PSNR (dB)",
-                   m["time"], m["psnr"], False),
-                  ("Training Loss", "Iteration", "Loss (MSE)",
-                   m["iteration"], m["loss"], True))
-        for ax in axes.flat[len(panels):]:
-            ax.set_axis_off()
-        for ax, (title, xlabel, ylabel, x, y, logy) in zip(axes.flat, panels):
-            if not y:
+        for ax, spec in zip(axes.flat, panels):
+            if spec is None or not spec.get("series"):
                 ax.set_axis_off()
                 continue
-            (ax.semilogy if logy else ax.plot)(x, y, alpha=0.8)
-            ax.set_title(title)
-            ax.set_xlabel(xlabel)
-            ax.set_ylabel(ylabel)
+            for x, y, label in spec["series"]:
+                if spec["kind"] == "hist":
+                    ax.hist(x, bins=20, edgecolor="black", alpha=0.7)
+                elif spec["kind"] == "scatter":
+                    ax.scatter(x, y, alpha=0.6, label=label)
+                else:
+                    draw = ax.semilogy if spec.get("logy") else ax.plot
+                    draw(x, y, alpha=0.8, label=label)
+            ax.set_title(spec["title"])
+            ax.set_xlabel(spec["xlabel"])
+            ax.set_ylabel(spec["ylabel"])
             ax.grid(True, alpha=0.3)
+            if spec.get("ylim"):
+                ax.set_ylim(*spec["ylim"])
+            if spec.get("small_legend"):
+                ax.legend(bbox_to_anchor=(1.05, 1), loc="upper left",
+                          fontsize=6)
+            elif spec.get("legend"):
+                ax.legend()
         fig.tight_layout()
         fig.savefig(save_path, dpi=150, bbox_inches="tight")
         plt.close(fig)
 
+    def plot_training_curves(self, save_path=None):
+        """training_curves.png: PSNR against time, the loss (log scale), the
+        average bitwidth and each quantizer's bitwidth (the last two blank
+        for an unquantized run), as the JAX logger draws it."""
+        m = self.metrics
+        iters, avg_bw = m["iteration"], m["avg_bitwidth"]
+        components = [(list(range(len(h))), h, name.replace("_", " ").title())
+                      for name, h in m["component_bitwidths"].items() if h]
+        self._draw_panel_grid(
+            save_path or os.path.join(self.metrics_dir, "training_curves.png"),
+            [{"kind": "line", "title": "PSNR vs Training Time",
+              "xlabel": "Time (seconds)", "ylabel": "PSNR (dB)",
+              "series": [(m["time"], m["psnr"], None)] if m["psnr"] else []},
+             {"kind": "line", "logy": True, "title": "Training Loss",
+              "xlabel": "Iteration", "ylabel": "Loss (MSE)",
+              "series": [(iters, m["loss"], None)] if m["loss"] else []},
+             {"kind": "line", "title": "Bitwidth Evolution",
+              "xlabel": "Iteration", "ylabel": "Average Bitwidth",
+              "ylim": (0, max(avg_bw) + 1) if avg_bw else None,
+              "series": ([(iters[:len(avg_bw)], avg_bw, None)]
+                         if avg_bw else [])},
+             {"kind": "line", "title": "Component-wise Bitwidth Evolution",
+              "xlabel": "Iteration", "ylabel": "Bitwidth",
+              "small_legend": True, "series": components}])
+
+    def plot_quantization_analysis(self, save_path=None):
+        """quantization_analysis.png: the last bitwidth histogram, PSNR
+        against average bits, the model size over time and the grid's
+        against the MLP's bits, as the JAX logger draws it."""
+        m, q = self.metrics, self.quant_metrics
+        avg_bw = m["avg_bitwidth"]
+        sizes = [v for v in q["model_size"] if v is not None]
+        eb = [b for b in q["embed_bits"] if b is not None]
+        mb = [b for b in q["mlp_bits"] if b is not None]
+        self._draw_panel_grid(
+            save_path or os.path.join(self.metrics_dir,
+                                      "quantization_analysis.png"),
+            [{"kind": "hist", "title": "Final Bitwidth Distribution",
+              "xlabel": "Bitwidth", "ylabel": "Count",
+              "series": ([(m["bitwidth_distribution"][-1], None, None)]
+                         if m["bitwidth_distribution"] else [])},
+             {"kind": "scatter", "title": "PSNR vs Bitwidth Trade-off",
+              "xlabel": "Average Bitwidth", "ylabel": "PSNR (dB)",
+              "series": ([(avg_bw, m["psnr"][:len(avg_bw)], None)]
+                         if avg_bw and len(m["psnr"]) >= len(avg_bw) else [])},
+             {"kind": "line", "title": "Model Compression Over Time",
+              "xlabel": "Iteration", "ylabel": "Model Size (MB)",
+              "series": ([(list(range(len(sizes))), sizes, None)]
+                         if sizes else [])},
+             {"kind": "line", "title": "Component-wise Compression",
+              "xlabel": "Iteration", "ylabel": "Average Bitwidth",
+              "legend": True,
+              "series": ([(list(range(len(eb))), eb, "Embeddings"),
+                          (list(range(len(mb))), mb, "MLP")]
+                         if eb and mb else [])}])
+
     def generate_summary_table(self) -> List[Dict[str, str]]:
-        """summary_table.csv (and .tex where pandas is installed), the
-        JAX logger's table of an unquantized run: the final training PSNR
-        under Baseline. Returns its rows."""
+        """summary_table.csv (and .tex where pandas is installed), the JAX
+        logger's table: an unquantized run's final training PSNR under
+        Baseline; a quantized run's final PSNR (and its PSNR at the 1001st
+        logged step under "Quantized (8-bit)"), last average bitwidth and
+        last model size under A-CAQ. Returns its rows."""
+        m = self.metrics
         rows = []
-        if self.metrics["psnr"]:
-            rows.append(dict(zip(SUMMARY_COLUMNS, (
-                "Final PSNR (dB)", f"{self.metrics['psnr'][-1]:.2f}", "N/A",
-                "N/A"))))
+        if m["psnr"]:
+            if m["avg_bitwidth"]:
+                cells = ("N/A", f"{m['psnr'][1000]:.2f}"
+                         if len(m["psnr"]) > 1000 else "N/A",
+                         f"{m['psnr'][-1]:.2f}")
+            else:
+                cells = (f"{m['psnr'][-1]:.2f}", "N/A", "N/A")
+            rows.append(("Final PSNR (dB)",) + cells)
+        if m["avg_bitwidth"]:
+            rows.append(("Average Bitwidth", "32.0", "8.0",
+                         f"{m['avg_bitwidth'][-1]:.2f}"))
+        sizes = [v for v in self.quant_metrics["model_size"] if v is not None]
+        if sizes:
+            rows.append(("Model Size (MB)", "N/A", "N/A", f"{sizes[-1]:.2f}"))
+        rows = [dict(zip(SUMMARY_COLUMNS, r)) for r in rows]
         if self.write:
             _write_csv(os.path.join(self.metrics_dir, "summary_table.csv"),
                        SUMMARY_COLUMNS, [list(r.values()) for r in rows])

@@ -23,6 +23,7 @@ from indoor_nerf_tpu_torch.bridge import (
     state_to_numpy,
 )
 from indoor_nerf_tpu_torch.data.load import load_dataset as t_load_dataset
+from indoor_nerf_tpu_torch.data.pipeline import ImageRaySampler
 from indoor_nerf_tpu_torch.train.config import parse_args as t_parse_args
 from indoor_nerf_tpu_torch.train.step import train_step
 from indoor_nerf_tpu_torch.train.trainer import build_train_config as t_build
@@ -38,6 +39,15 @@ TINY_FLAGSHIP = [
 # The port's entry points run on the card unless told otherwise; the CPU
 # tests tell them (the JAX parser does not know the flag).
 CPU = ["--device", "cpu"]
+# The rays of a parity step's batch.
+N_RAYS = 64
+# The hash grid with the hierarchical fine pass (test_torch_parity_path.py's
+# TINY_PARITY).
+TINY_HASH = ["--dataset_type", "synthetic", "--use_viewdirs", "--white_bkgd",
+             "--n_levels", "4", "--finest_res", "32", "--log2_hashmap_size",
+             "12", "--N_samples", "8", "--N_importance", "8",
+             "--raw_noise_std", "1"]
+
 
 
 def configs(flags=TINY_FLAGSHIP):
@@ -71,11 +81,12 @@ def both_states(jcfg, seed=0, occ_rng=None):
 
 def jax_train_state_numpy(jstate):
     """A JAX train state's leaves that the port carries, as numpy (the
-    params EMA where the state keeps one)."""
+    params EMA and the quantizers where the state keeps them)."""
     keys = ("params", "opt", "occ", "step", "best_loss", "loss_ema",
-            "loss_ema_slow")
-    if jstate.get("ema") is not None:
-        keys += ("ema",)
+            "loss_ema_slow", "infl_ema")
+    for key in ("ema", "quant"):
+        if jstate.get(key) is not None:
+            keys += (key,)
     return jax.tree_util.tree_map(np.asarray, {k: jstate[k] for k in keys})
 
 
@@ -241,3 +252,76 @@ def check_train_step_matches_jax(flags=TINY_FLAGSHIP, n_rays=64):
     # RAdam's first step leaves every parameter where it was.
     assert_tree_close(got["params"], jax_train_state_numpy(jstate)["params"],
                       0, "params")
+
+
+def step_batch(scene, with_coords, seed=1):
+    """The first batch of the image sampler (with its pixels' coordinates,
+    as ``--no_batching`` trains) or of the shuffled pool."""
+    if with_coords:
+        H, W, _ = scene.hwf
+        b = ImageRaySampler(scene.images, scene.poses, scene.i_train, H, W,
+                            scene.K, N_RAYS, seed=seed).next(1)
+        return {k: b[k] for k in ("rays_o", "rays_d", "target", "spatial_coords")}
+    b = jax_batch_sampler(scene, N_RAYS, seed=seed).next()
+    return {k: b[k] for k in ("rays_o", "rays_d", "target")}
+
+
+def one_step(flags, step=0, with_coords=False, prior_weights=None, key=5,
+             edit=None):
+    """One step of both packages from one state (its step counter set to
+    ``step``; the table O(1) from a seed, so that the field is opaque and
+    the table's own terms are not lost under the image loss; ``edit``, if
+    given, maps the JAX state to the one both start from) on one batch
+    with the JAX draws. Returns (JAX metrics, port metrics, JAX state
+    before and after as numpy, port state after as numpy, the port step's
+    draws)."""
+    jcfg, tcfg, scene = configs(flags)
+    jstate, _ = both_train_states(jcfg)
+    table = np.random.default_rng(7).standard_normal(
+        jstate["params"]["table"].shape).astype(np.float32)
+    jstate = {**jstate, "step": jnp.asarray(step, jnp.int32),
+              "params": {**jstate["params"], "table": jnp.asarray(table)}}
+    if jstate.get("ema") is not None:
+        jstate["ema"] = jstate["params"]
+    if edit is not None:
+        jstate = edit(jstate)
+    tstate = state_from_numpy(jax_train_state_numpy(jstate))
+    batch = step_batch(scene, with_coords)
+    k = jax.random.PRNGKey(key)
+    before = jax_train_state_numpy(jstate)
+    kw = {}
+    if prior_weights is not None:
+        kw["prior_weights"] = {n: jnp.float32(v) for n, v in prior_weights.items()}
+    jnew, jm = jax_step_fn(jcfg)(
+        jstate, {n: jnp.asarray(v) for n, v in batch.items()}, k, **kw)
+    draws = jax_step_draws(k, jcfg, N_RAYS, step, with_coords)
+    tnew, tm = train_step(tstate,
+                          {n: torch.from_numpy(v) for n, v in batch.items()},
+                          tcfg, draws=draws, prior_weights=prior_weights)
+    return jm, tm, before, jax_train_state_numpy(jnew), \
+        state_to_numpy(tnew), draws
+
+
+def hold_step(jm, tm, want, got, block_table):
+    """The tolerances of the existing step parity tests: loss, image loss
+    and PSNR 1e-5 relative; the MLP moments 1e-4 of each leaf's largest
+    entry; the block table's moments as ``test_train_step_matches_jax``
+    states (bf16-rounded gradient terms: mu 2^-8 and nu 2^-7 of the largest
+    entry, 1e-3 in norm), the hash table's 1e-4 like the MLPs'."""
+    for k in ("loss", "img_loss", "psnr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=k)
+    for key_, tol in (("mu", 2.0 ** -8), ("nu", 2.0 ** -7)):
+        g, w = got["opt"][key_], want["opt"][key_]
+        assert_tree_close({k: v for k, v in g.items() if k != "table"},
+                          {k: v for k, v in w.items() if k != "table"},
+                          1e-4, key_)
+        if not block_table:
+            assert_tree_close(g["table"], w["table"], 1e-4, key_)
+            continue
+        scale = float(np.abs(w["table"]).max())
+        assert scale > 0.0
+        np.testing.assert_allclose(g["table"], w["table"], rtol=0,
+                                   atol=tol * scale)
+        assert np.linalg.norm(g["table"] - w["table"]) <= \
+            1e-3 * np.linalg.norm(w["table"])

@@ -15,6 +15,7 @@ import indoor_nerf_tpu.ops.blockhash as jbh
 from indoor_nerf_tpu.ops.encoding import level_resolutions as j_level_resolutions
 from indoor_nerf_tpu_torch.ops import blockhash as tbh
 from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
+from indoor_nerf_tpu_torch.ops.tent_contract import unpack_rows
 
 torch.set_num_threads(1)
 
@@ -218,6 +219,31 @@ def test_encode_backward_runs_and_gives_no_point_gradient(rng, gather):
     np.testing.assert_array_equal(again.numpy(), feats.detach().numpy())
 
 
-def test_int8_gather_is_refused():
-    with pytest.raises(NotImplementedError, match="int8"):
-        tbh.BlockHashConfig((0,) * 3, (1,) * 3, gather_dtype="int8")
+@pytest.mark.parametrize("block_size", [3, 4])
+def test_int8_gather_is_refused(rng, block_size):
+    """(Named when the port refused the int8 gather.) The int8 gather's
+    pack pass: the packed copy is f32 ``[L*R, lpf, F]`` and holds, bit for
+    bit, the rows the JAX ``_gather_rows`` dequantizes after its int8 fetch
+    (every row of the table gathered once), levels of different magnitude
+    each on their own scale; a packed copy is returned as is, and any other
+    gather dtype is still refused."""
+    jcfg, tcfg = _configs(block_size, gather="int8")
+    table = _table(rng, tcfg) * np.repeat(
+        np.float32([1e-4, 3e-2, 1.0, 40.0]), tcfg.rows_per_level)[:, None]
+    rows = np.arange(table.shape[0], dtype=np.int32)
+    want = np.asarray(jbh._gather_rows(jnp.asarray(table), jnp.asarray(rows),
+                                       jcfg))
+    packed = tbh.gather_table(torch.from_numpy(table), tcfg)
+    assert packed.dtype == torch.float32 and packed.shape == (
+        table.shape[0], tcfg.lanes_per_feature, tcfg.n_features_per_level)
+    got = unpack_rows(packed).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert not np.array_equal(got, table)  # it is quantized
+    for lv in range(tcfg.n_levels):
+        sl = slice(lv * tcfg.rows_per_level, (lv + 1) * tcfg.rows_per_level)
+        step = np.abs(table[sl]).max() / 127.0
+        assert len(np.unique(np.round(got[sl] / step))) <= 255
+        assert np.abs(got[sl] - table[sl]).max() <= 0.5 * step * (1 + 1e-6)
+    assert tbh.gather_table(packed, tcfg) is packed
+    with pytest.raises(ValueError, match="gather_dtype 'int4'"):
+        tbh.BlockHashConfig((0,) * 3, (1,) * 3, gather_dtype="int4")

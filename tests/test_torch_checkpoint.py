@@ -206,7 +206,7 @@ def test_jax_checkpoint_imports_leaf_for_leaf(tmp_path):
     path, jstate, _ = jax_checkpoint(tmp_path)
     tree = bridge.load_jax_checkpoint(path)
     assert set(tree) == {"params", "opt", "occ", "step", "best_loss",
-                         "loss_ema", "loss_ema_slow"}
+                         "loss_ema", "loss_ema_slow", "infl_ema"}
     assert isinstance(tree["params"]["coarse"]["sigma_net"], list)
     restored = ckpt.restore_checkpoint(path, fresh_state(seed=5)[0])
     assert restored["step"] == 3 and restored["opt"]["step"] == 3
@@ -243,17 +243,14 @@ def test_jax_checkpoint_renders_the_same_image(tmp_path):
 
 @pytest.mark.parametrize("key", ["ema", "quant"])
 def test_jax_checkpoint_with_trained_extensions_is_refused(tmp_path, key):
-    """Trained A-CAQ state is never dropped silently: the import names the
-    item that brings it. A trained params EMA is imported: into a state
-    built with ``--ema_decay`` it equals the JAX state's EMA bit for bit,
-    and a state without one refuses it rather than drop it."""
+    """Trained state is imported, never dropped: a trained params EMA into a
+    state built with ``--ema_decay`` equals the JAX state's EMA bit for bit;
+    trained A-CAQ quantizers (``quant``, ``infl_ema``) into a state built
+    with ``--use_quantization`` equal the JAX ones bit for bit, and the
+    port renders the image JAX renders with them. A state without an EMA or
+    without quantizers refuses the file rather than drop them."""
     if key == "quant":
-        extra = {key: {"table": jnp.ones((4, 4), jnp.float32)}}
-        path, _, _ = jax_checkpoint(tmp_path, steps=0, **extra)
-        with pytest.raises(NotImplementedError, match="'quant'.*Queue 1 item 5b"):
-            bridge.load_jax_checkpoint(path)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 5b"):
-            ckpt.restore_checkpoint(path, fresh_state()[0])
+        _check_quantized_jax_checkpoint(tmp_path)
         return
     from _torch_parity import jax_batch_sampler, jax_step_fn
     from indoor_nerf_tpu.train.step import init_train_state as j_init
@@ -277,6 +274,77 @@ def test_jax_checkpoint_with_trained_extensions_is_refused(tmp_path, key):
                           jax.tree_util.tree_leaves(got)):
         np.testing.assert_array_equal(g, w, err_msg=jax.tree_util.keystr(kp))
     with pytest.raises(ValueError, match="'ema.table' has no place"):
+        ckpt.restore_checkpoint(path, fresh_state()[0])
+
+
+def _check_quantized_jax_checkpoint(tmp_path):
+    """The ``quant`` case: two JAX steps past the grid quantizer's warmup
+    (step 600 of 500) calibrate every quantizer of a quantized flagship
+    with an O(1) table; its bits are then set off the integer grid (which
+    the evaluation rounds: 6.4 -> 6, 5.6 -> 6, 7.5 -> 8, 3.2 -> 3; 4.6 -> 5
+    for the activation, 7.4 -> 7 for the weight) and level 2 left
+    uncalibrated (evaluation then reads it unquantized). Rendered at the
+    tolerance of ``test_jax_checkpoint_renders_the_same_image`` (1e-3 on
+    rgb and acc); the quantizers must move the image by more than that."""
+    from _torch_parity import jax_batch_sampler, jax_step_fn
+    from indoor_nerf_tpu.train.step import init_train_state as j_init
+
+    jcfg, tcfg, scene = configs(TINY_FLAGSHIP + ["--use_quantization"])
+    jstate = j_init(jax.random.PRNGKey(0), jcfg)
+    rng = np.random.default_rng(0)
+    table = 5.0 * rng.standard_normal(jstate["params"]["table"].shape)
+    jstate["params"] = {**jstate["params"],
+                        "table": jnp.asarray(table, jnp.float32)}
+    jstate["step"] = jnp.asarray(600, jnp.int32)
+    sampler, step_fn = jax_batch_sampler(scene, 64), jax_step_fn(jcfg)
+    key_ = jax.random.PRNGKey(1)
+    for _ in range(2):
+        key_, sub = jax.random.split(key_)
+        b = sampler.next()
+        jstate, _ = step_fn(jstate, {k: jnp.asarray(b[k]) for k in
+                                     ("rays_o", "rays_d", "target")}, sub)
+    q = jax.tree_util.tree_map(np.asarray, jstate["quant"])
+    assert q["embed"]["calibrated"].all() and q["act"]["calibrated"].all()
+    q["embed"]["soft_bits"] = np.array([6.4, 5.6, 7.5, 3.2], np.float32)
+    q["embed"]["calibrated"] = np.array([True, True, False, True])
+    q["act"]["soft_bits"] = np.array([4.6], np.float32)
+    q["weight"]["soft_bits"] = np.float32(7.4)
+    jstate = {**jstate, "quant": jax.tree_util.tree_map(jnp.asarray, q),
+              "infl_ema": jnp.asarray(1.25, jnp.float32)}
+    path = jckpt.save_checkpoint(str(tmp_path / "jax"), 602, jstate)
+    tree = bridge.load_jax_checkpoint(path)
+    assert "quant" in tree and float(tree["infl_ema"]) == 1.25
+    restored = ckpt.restore_checkpoint(
+        path, init_train_state(torch.Generator().manual_seed(5), tcfg))
+    assert restored["step"] == 602
+    got = bridge.state_to_numpy(restored)
+    assert float(got["infl_ema"]) == 1.25
+    for group in q:
+        assert set(got["quant"][group]) == set(q[group]), group
+        for k, w in q[group].items():
+            g = got["quant"][group][k]
+            assert g.dtype == np.asarray(w).dtype, (group, k)
+            np.testing.assert_array_equal(g, w, err_msg=f"{group}.{k}")
+    H = W = 20
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    c2w = scene.poses[scene.i_test[0]][:3, :4]
+    want = j_render_image(jstate["params"], H, W, K, c2w, scene.near,
+                          scene.far, jcfg.render, quant_state=jstate["quant"],
+                          tile_rays=256, occ_state=jstate["occ"])
+    out = render_image(restored["params"], H, W, K, c2w, scene.near,
+                       scene.far, tcfg.render, tile_rays=256,
+                       occ_state=restored["occ"],
+                       quant_state=restored["quant"])
+    plain = render_image(restored["params"], H, W, K, c2w, scene.near,
+                         scene.far, tcfg.render, tile_rays=256,
+                         occ_state=restored["occ"])
+    assert want["acc_map"].max() > 0.5
+    for k in ("rgb_map", "acc_map"):
+        np.testing.assert_allclose(out[k], want[k], rtol=0, atol=1e-3,
+                                   err_msg=k)
+    assert np.abs(plain["rgb_map"] - want["rgb_map"]).max() > 1e-2
+    with pytest.raises(ValueError, match="'quant.act.calibrated' has no place"):
         ckpt.restore_checkpoint(path, fresh_state()[0])
 
 
@@ -391,6 +459,30 @@ def test_resumed_run_equals_the_uninterrupted_one(tmp_path):
     rest = trainer.train(parse_args(flags + ["--n_iters", "14"]))
     assert rest["losses"] == whole["losses"][8:]
     assert_states_equal(rest["state"], whole["state"])
+
+
+def test_quantized_resumed_run_equals_the_uninterrupted_one(tmp_path, capsys):
+    """The same with A-CAQ (the controller from step 4, so steps 10 of both
+    runs move the bits): the quantizers and infl_ema are saved and resumed,
+    and the resumed run equals the uninterrupted one bit for bit. The run
+    prints the [QUANT] line and writes the quantizer series."""
+    quant = ["--use_quantization", "--use_acaq", "--acaq_start_iter", "4"]
+    whole = trainer.train(parse_args(SMALL + quant + run_dir(tmp_path, "whole")
+                                     + ["--n_iters", "14"]))
+    flags = SMALL + quant + run_dir(tmp_path, "cut")
+    cut = trainer.train(parse_args(flags + ["--n_iters", "8"]))
+    saved = torch.load(os.path.join(cut["logdir"], "000008.ckpt"),
+                       weights_only=True)
+    assert saved["quant.embed.soft_bits"].shape == (4,)
+    assert saved["quant.weight.calibrated"].dtype == torch.bool
+    rest = trainer.train(parse_args(flags + ["--n_iters", "14"]))
+    assert rest["losses"] == whole["losses"][8:]
+    assert_states_equal(rest["state"], whole["state"])
+    bits = whole["state"]["quant"]["embed"]["soft_bits"]
+    assert float(bits.max()) < 8.0 and torch.isfinite(whole["state"]["infl_ema"])
+    assert "[QUANT] Average bits: " in capsys.readouterr().out
+    metrics = os.path.join(whole["logdir"], "metrics")
+    assert os.path.exists(os.path.join(metrics, "quant_metrics_14.csv"))
 
 
 def test_train_resumes_from_a_jax_checkpoint(tmp_path, capsys):

@@ -111,6 +111,57 @@ def test_metrics_logger_writes_the_jax_files(tmp_path):
     assert got["training_curves.png"].startswith(b"\x89PNG")
 
 
+def test_quantized_metrics_logger_writes_the_jax_files(tmp_path):
+    """A quantized run's calls (the soft bits with each logged step, the
+    controller's updates, the model complexity of the flagship's params at
+    each save, the quantization figure): the same pickles, the quantizer
+    CSV and the others byte for byte, and both figures."""
+    import jax
+
+    from _torch_parity import TINY_FLAGSHIP, configs
+    from indoor_nerf_tpu.models.field import init_field_params
+    from indoor_nerf_tpu_torch.bridge import params_from_numpy
+
+    jcfg, _, _ = configs(TINY_FLAGSHIP + ["--use_quantization"])
+    jparams = jax.tree_util.tree_map(np.asarray, init_field_params(
+        jax.random.PRNGKey(0), jcfg.render.field))
+    tparams = params_from_numpy({"params": jparams})["params"]
+    rng = np.random.default_rng(4)
+
+    def log(logger, params):
+        for i in range(1, 9):
+            bits = {"embed": (8 - 0.1 * i + rng.random(4)).astype(np.float32),
+                    "network": (8 + rng.random(2)).astype(np.float32)}
+            logger.log_iteration(i, 0.1 * i, rng.random() / 7,
+                                 10 + 20 * rng.random(), 1e-3,
+                                 quantizer_bits=bits)
+            if i % 4 == 0:
+                logger.log_acaq_update(1.0, rng.random() + 0.5,
+                                       rng.random(6) - 0.5)
+                logger.calculate_model_complexity(params, bits)
+                logger.save_checkpoint(i)
+                logger.plot_quantization_analysis()
+        logger.plot_training_curves()
+        return logger.generate_summary_table()
+
+    rows = log(MetricsLogger(str(tmp_path / "t"), "e", {}), tparams)
+    rng = np.random.default_rng(4)
+    log(JMetricsLogger(str(tmp_path / "j"), "e", {}), jparams)
+    got = _files(tmp_path / "t" / "e" / "metrics")
+    want = _files(tmp_path / "j" / "e" / "metrics")
+    assert [r["Metric"] for r in rows] == [
+        "Final PSNR (dB)", "Average Bitwidth", "Model Size (MB)"]
+    assert sorted(got) == sorted(want)
+    assert "quant_metrics_8.csv" in got
+    for name, data in want.items():
+        if name.endswith(".pkl"):
+            assert pickle.loads(got[name]) == pickle.loads(data), name
+        elif name.endswith((".csv", ".json", ".tex")):
+            assert got[name] == data, name
+    for name in ("training_curves.png", "quantization_analysis.png"):
+        assert got[name].startswith(b"\x89PNG"), name
+
+
 def test_metrics_logger_without_steps_is_the_jax_one(tmp_path):
     for cls, d in ((MetricsLogger, "t"), (JMetricsLogger, "j")):
         logger = cls(str(tmp_path / d), "e", {})

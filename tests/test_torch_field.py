@@ -107,8 +107,9 @@ def test_query_field_with_normals_and_anneals_matches_jax(rng, step):
         jcfg.render.field, train=step is not None,
         step=None if step is None else jnp.asarray(step, jnp.int32))
     with torch.no_grad():
-        got = query_field(tstate["params"], "coarse", torch.from_numpy(pts),
-                          torch.from_numpy(vd), tcfg.render.field, step)
+        got, _ = query_field(tstate["params"], "coarse",
+                             torch.from_numpy(pts), torch.from_numpy(vd),
+                             tcfg.render.field, step)
     assert got.shape == (40, 8, field_output_channels(tcfg.render.field)) \
         == (40, 8, 7)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
@@ -133,8 +134,8 @@ def test_query_field_matches_jax(rng):
                             jnp.asarray(vd), jcfg.render.field, train=False)
     with torch.inference_mode():
         params = serving_params(tstate["params"], tcfg.render.field)
-        got = query_field(params, "coarse", torch.from_numpy(pts),
-                          torch.from_numpy(vd), tcfg.render.field)
+        got, _ = query_field(params, "coarse", torch.from_numpy(pts),
+                             torch.from_numpy(vd), tcfg.render.field)
     assert got.shape == (40, 8, 4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
                                atol=1e-5)

@@ -15,7 +15,11 @@ import torch
 from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.render.renderer import render_image
 from indoor_nerf_tpu_torch.train.config import parse_args
-from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
+from indoor_nerf_tpu_torch.train.step import (
+    acaq_active,
+    init_train_state,
+    train_step,
+)
 from indoor_nerf_tpu_torch.train.trainer import one_batch
 
 # The flagship at test size, with the priors active from step 0, pixel
@@ -34,16 +38,27 @@ HASH = ["--dataset_type", "synthetic", "--use_viewdirs", "--white_bkgd",
         "--N_samples", "8", "--N_importance", "8", "--raw_noise_std", "1",
         "--N_rand", "64", "--use_structural_priors", "--predict_normals",
         "--structural_loss_start_iter", "0"]
+# A-CAQ: a quantized flagship step past the table quantizer's warmup, and
+# a controller step in MDL mode (its quantizer-free forward included) with
+# the int8 gather; each warmed by steps of the same kind.
+QUANTIZED = FLAGS + ["--use_quantization"]
+ACAQ = FLAGS + ["--use_quantization", "--use_acaq", "--acaq_start_iter", "0",
+                "--block_io", "int8"]
+# flags, the step count to start from, the warm steps
+CASES = {"flagship": (FLAGS, 0, 2), "hash_fine": (HASH, 0, 2),
+         "quantized": (QUANTIZED, 600, 2), "acaq_controller": (ACAQ, 600, 10)}
 
 
-def _warm(flags, device):
-    """(cfg, batch, state, generator) after two steps: caches made."""
+def _warm(flags, device, start=0, n_warm=2):
+    """(cfg, batch, state, generator) after ``n_warm`` steps from step
+    ``start``: caches made."""
     torch.set_num_threads(1)
     cfg, batch = one_batch(parse_args(flags + ["--device", device.type]), device)
     state = init_train_state(torch.Generator(device=device).manual_seed(0),
                              cfg, device)
+    state["step"] = start
     gen = torch.Generator(device=device).manual_seed(1)
-    for _ in range(2):
+    for _ in range(n_warm):
         state, _ = train_step(state, batch, cfg, gen)
     return cfg, batch, state, gen
 
@@ -53,15 +68,23 @@ def _raise(*args, **kwargs):
                          "inside the step")
 
 
-@pytest.mark.parametrize("flags", [FLAGS, HASH], ids=["flagship", "hash_fine"])
-def test_a_warm_step_builds_and_reads_no_host_tensor(flags, monkeypatch):
-    cfg, batch, state, gen = _warm(flags, torch.device("cpu"))
-    for name in ("tensor", "as_tensor", "from_numpy"):
-        monkeypatch.setattr(torch, name, _raise)
-    for name in ("item", "tolist", "__float__", "__int__", "__index__"):
-        monkeypatch.setattr(torch.Tensor, name, _raise)
+@pytest.mark.parametrize("name", ["flagship", "hash_fine", "quantized",
+                                  "acaq_controller"])
+def test_a_warm_step_builds_and_reads_no_host_tensor(name, monkeypatch):
+    flags, start, n_warm = CASES[name]
+    cfg, batch, state, gen = _warm(flags, torch.device("cpu"), start, n_warm)
+    for fn in ("tensor", "as_tensor", "from_numpy"):
+        monkeypatch.setattr(torch, fn, _raise)
+    for fn in ("item", "tolist", "__float__", "__int__", "__index__"):
+        monkeypatch.setattr(torch.Tensor, fn, _raise)
+    bits = None if state["quant"] is None else \
+        state["quant"]["embed"]["soft_bits"].clone()
     state, metrics = train_step(state, batch, cfg, gen)
-    assert "structural_manhattan" in metrics and state["step"] == 3
+    assert "structural_manhattan" in metrics
+    assert state["step"] == start + n_warm + 1
+    if name == "acaq_controller":  # the step ran the controller
+        assert acaq_active(cfg, start + n_warm)
+        assert not torch.equal(state["quant"]["embed"]["soft_bits"], bits)
 
 
 def test_constants_are_shared_and_made_outside_inference_mode():
@@ -93,11 +116,14 @@ def test_a_step_after_a_render_on_the_same_constants():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("flags", [FLAGS, HASH], ids=["flagship", "hash_fine"])
-def test_a_warm_step_does_not_synchronise_the_card(flags):
+@pytest.mark.parametrize("name", ["flagship", "hash_fine", "quantized",
+                                  "acaq_controller"])
+def test_a_warm_step_does_not_synchronise_the_card(name):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
-    cfg, batch, state, gen = _warm(flags, torch.device("cuda:0"))
+    flags, start, n_warm = CASES[name]
+    cfg, batch, state, gen = _warm(flags, torch.device("cuda:0"), start,
+                                   n_warm)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

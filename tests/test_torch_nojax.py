@@ -201,6 +201,20 @@ extensions = parse_args([
     "--freq_anneal_iters", "4", "--view_anneal_iters", "4"])
 result = train(extensions)
 assert result["state"]["ema"] is not None and np.isfinite(result["losses"][0])
+# A-CAQ and the int8 gather: a quantized run with the controller and the
+# int8 gather, saved, resumed and served online with its quantizers.
+import indoor_nerf_tpu_torch.losses.quantization
+quant = run[:-4] + ["--expname", "quant", "--basedir", "runs",
+                    "--use_quantization", "--use_acaq", "--acaq_start_iter",
+                    "0", "--block_io", "int8", "--i_weights", "10"]
+train(parse_args(quant + ["--n_iters", "10"]))
+result = train(parse_args(quant + ["--n_iters", "11"]))
+assert result["state"]["step"] == 11
+assert float(result["state"]["quant"]["embed"]["soft_bits"].max()) < 8.0
+render, step, hw = serve.build(argparse.Namespace(
+    width=8, height=8, train_args=["--"] + quant))
+maps, _ = render(scene.poses[0])
+assert step == 11 and np.all(np.isfinite(maps["rgb_map"]))
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
                 or m == "flax" and sys.modules[m] is not None)

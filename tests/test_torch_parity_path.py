@@ -149,7 +149,8 @@ def test_query_and_sigma_query_match_jax(rng, name):
                                 jnp.asarray(vd), jcfg.render.field, train=False)
         with torch.inference_mode():
             params = serving_params(tstate["params"], tcfg.render.field)
-            got = query_field(params, mlp, T(pts), T(vd), tcfg.render.field)
+            got, _ = query_field(params, mlp, T(pts), T(vd),
+                                 tcfg.render.field)
         assert got.shape == (40, 8, 4)
         _close(got, want, 1e-5, mlp)
         want_s = j_sigma_query(jstate["params"], mlp, jnp.asarray(
@@ -231,8 +232,8 @@ def test_hierarchical_render_rays_matches_jax(rng, name, mode):
                  if k in ("t_rand", "u", "sigma_noise", "sigma_noise1")}
         assert len(draws) == 4
     with torch.no_grad():
-        got = render_rays(tstate["params"], T(o), T(d), T(vd), T(near), T(far),
-                          trc, draws=draws)
+        got, _ = render_rays(tstate["params"], T(o), T(d), T(vd), T(near),
+                             T(far), trc, draws=draws)
     want = {k: np.asarray(v) for k, v in want.items()}
     got = {k: v.numpy() for k, v in got.items()}
     z_diff = np.abs(got["z_vals"] - want["z_vals"]) > 1e-5 * 6.0

@@ -84,8 +84,9 @@ def test_build_train_config_matches_jax():
 def test_unported_flags_name_the_roadmap_item():
     """The parser's defaults (the hash grid, ``--i_embed 1``) and PE
     (``--i_embed 0``) build the JAX config field for field since the
-    parity path came (Queue 1 item 4); the training extensions are still
-    refused by their item."""
+    parity path came (Queue 1 item 4), and A-CAQ's flags its quantizer
+    config (item 5b); the training extensions still to come are refused by
+    their item."""
     for flags in (["--dataset_type", "synthetic"],
                   ["--dataset_type", "synthetic", "--i_embed", "0",
                    "--i_embed_views", "0", "--N_importance", "64"]):
@@ -99,8 +100,22 @@ def test_unported_flags_name_the_roadmap_item():
             assert tf.grid is None
         else:
             assert dataclasses.asdict(tf.grid) == dataclasses.asdict(jf.grid)
+    jcfg, tcfg, _ = configs(TINY_FLAGSHIP + [
+        "--use_quantization", "--use_acaq", "--quantization_bits", "6",
+        "--bit_penalty", "0.01", "--target_metric", "0.02",
+        "--acaq_start_iter", "40", "--block_io", "int8"])
+    jf, tf = jcfg.render.field, tcfg.render.field
+    assert tf.use_quantization and jf.use_quantization
+    assert dataclasses.asdict(tf.quant) == dataclasses.asdict(jf.quant)
+    assert (tcfg.use_acaq, tcfg.acaq_start_iter, tcfg.acaq_interval) == (
+        jcfg.use_acaq, jcfg.acaq_start_iter, jcfg.acaq_interval)
+    assert dataclasses.asdict(tf.block_grid) == {
+        **dataclasses.asdict(jf.block_grid), "tile_interp": False}
     with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        configs(TINY_FLAGSHIP + ["--use_quantization"])
+        configs(TINY_FLAGSHIP + ["--use_appearance"])
+    with pytest.raises(ValueError, match="JAX package fails on the pair"):
+        configs(["--dataset_type", "synthetic", "--i_embed", "0",
+                 "--use_quantization"])
 
 
 def test_occupancy_with_importance_is_refused():

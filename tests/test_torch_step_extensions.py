@@ -19,18 +19,21 @@ import torch
 import indoor_nerf_tpu.ops.blockhash as jbh
 from _torch_parity import (
     CPU,
+    N_RAYS,
     TINY_FLAGSHIP,
+    TINY_HASH,
     assert_tree_close,
     both_train_states,
     configs,
+    hold_step,
     jax_batch_sampler,
     jax_step_draws,
     jax_step_fn,
     jax_train_state_numpy,
+    one_step,
 )
 from indoor_nerf_tpu.models.field import level_anneal_weights as j_level_weights
 from indoor_nerf_tpu_torch import bridge
-from indoor_nerf_tpu_torch.data.pipeline import ImageRaySampler
 from indoor_nerf_tpu_torch.losses.distortion import distortion_loss
 from indoor_nerf_tpu_torch.models.field import level_anneal_weights
 from indoor_nerf_tpu_torch.train import trainer
@@ -44,13 +47,6 @@ from indoor_nerf_tpu_torch.train.step import (
 
 torch.set_num_threads(1)
 T = torch.from_numpy
-N_RAYS = 64
-# The hash grid with the hierarchical fine pass (test_torch_parity_path.py's
-# TINY_PARITY).
-TINY_HASH = ["--dataset_type", "synthetic", "--use_viewdirs", "--white_bkgd",
-             "--n_levels", "4", "--finest_res", "32", "--log2_hashmap_size",
-             "12", "--N_samples", "8", "--N_importance", "8",
-             "--raw_noise_std", "1"]
 # The priors from step 3 over a ramp of 4: a step at 5 weighs them 0.55.
 PRIORS = ["--use_structural_priors", "--predict_normals",
           "--structural_loss_start_iter", "3",
@@ -64,74 +60,6 @@ NORCLIFFE_WEIGHTS = {"depth_prior": 0.0, "planarity": 0.001,
 def f32_scatter(monkeypatch):
     """The JAX fused backward through its f32-accumulating Pallas kernel."""
     monkeypatch.setattr(jbh, "_FORCE_PALLAS_SCATTER_INTERPRET", True)
-
-
-def _batch(scene, with_coords, seed=1):
-    """The first batch of the image sampler (with its pixels' coordinates,
-    as ``--no_batching`` trains) or of the shuffled pool."""
-    if with_coords:
-        H, W, _ = scene.hwf
-        b = ImageRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                            scene.K, N_RAYS, seed=seed).next(1)
-        return {k: b[k] for k in ("rays_o", "rays_d", "target", "spatial_coords")}
-    b = jax_batch_sampler(scene, N_RAYS, seed=seed).next()
-    return {k: b[k] for k in ("rays_o", "rays_d", "target")}
-
-
-def one_step(flags, step=0, with_coords=False, prior_weights=None, key=5):
-    """One step of both packages from one state (its step counter set to
-    ``step``; the table O(1) from a seed, so that the field is opaque and
-    the table's own terms are not lost under the image loss) on one batch
-    with the JAX draws. Returns (JAX metrics, port metrics, JAX state
-    before and after as numpy, port state after as numpy, the port step's
-    draws)."""
-    jcfg, tcfg, scene = configs(flags)
-    jstate, _ = both_train_states(jcfg)
-    table = np.random.default_rng(7).standard_normal(
-        jstate["params"]["table"].shape).astype(np.float32)
-    jstate = {**jstate, "step": jnp.asarray(step, jnp.int32),
-              "params": {**jstate["params"], "table": jnp.asarray(table)}}
-    if jstate.get("ema") is not None:
-        jstate["ema"] = jstate["params"]
-    tstate = bridge.state_from_numpy(jax_train_state_numpy(jstate))
-    batch = _batch(scene, with_coords)
-    k = jax.random.PRNGKey(key)
-    before = jax_train_state_numpy(jstate)
-    kw = {}
-    if prior_weights is not None:
-        kw["prior_weights"] = {n: jnp.float32(v) for n, v in prior_weights.items()}
-    jnew, jm = jax_step_fn(jcfg)(
-        jstate, {n: jnp.asarray(v) for n, v in batch.items()}, k, **kw)
-    draws = jax_step_draws(k, jcfg, N_RAYS, step, with_coords)
-    tnew, tm = train_step(tstate, {n: T(v) for n, v in batch.items()}, tcfg,
-                          draws=draws, prior_weights=prior_weights)
-    return jm, tm, before, jax_train_state_numpy(jnew), \
-        bridge.state_to_numpy(tnew), draws
-
-
-def hold_step(jm, tm, want, got, block_table):
-    """The tolerances of the existing step parity tests: loss, image loss
-    and PSNR 1e-5 relative; the MLP moments 1e-4 of each leaf's largest
-    entry; the block table's moments as ``test_train_step_matches_jax``
-    states (bf16-rounded gradient terms: mu 2^-8 and nu 2^-7 of the largest
-    entry, 1e-3 in norm), the hash table's 1e-4 like the MLPs'."""
-    for k in ("loss", "img_loss", "psnr"):
-        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
-                                   err_msg=k)
-    for key_, tol in (("mu", 2.0 ** -8), ("nu", 2.0 ** -7)):
-        g, w = got["opt"][key_], want["opt"][key_]
-        assert_tree_close({k: v for k, v in g.items() if k != "table"},
-                          {k: v for k, v in w.items() if k != "table"},
-                          1e-4, key_)
-        if not block_table:
-            assert_tree_close(g["table"], w["table"], 1e-4, key_)
-            continue
-        scale = float(np.abs(w["table"]).max())
-        assert scale > 0.0
-        np.testing.assert_allclose(g["table"], w["table"], rtol=0,
-                                   atol=tol * scale)
-        assert np.linalg.norm(g["table"] - w["table"]) <= \
-            1e-3 * np.linalg.norm(w["table"])
 
 
 PRIOR_CASES = {

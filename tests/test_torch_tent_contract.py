@@ -185,6 +185,69 @@ def test_cuda_pack_kernel_matches_plain(side, F, dtype):
     assert torch.equal(got, tc.pack_rows_plain(master, F, dtype))
 
 
+def _int8_master(F, lpf, n_levels=4, rows_per_level=257):
+    """A master table whose levels differ in magnitude by 10^6, with exact
+    halves of each level's int8 step among its entries (round half to
+    even decides them)."""
+    g = torch.Generator().manual_seed(1)
+    t = torch.randn((n_levels * rows_per_level, F * lpf), generator=g)
+    t *= torch.tensor([1e-4, 1e-2, 1.0, 1e2]).repeat_interleave(
+        rows_per_level)[:, None]
+    scale = tc.int8_level_scales(t, n_levels)
+    t[1::7, 3] = (torch.arange(1, t[1::7].shape[0] + 1) % 5 + 0.5) * \
+        scale.repeat_interleave(rows_per_level)[1::7]
+    return t
+
+
+def test_int8_pack_plain_rounds_half_to_even():
+    """The plain int8 pack: each level on its own scale, halves to even,
+    every entry within half a step, packed f32 as ``pack_rows_plain``
+    packs the dequantized master."""
+    F, lpf = 2, 128
+    t = _int8_master(F, lpf)
+    scale = tc.int8_level_scales(t, 4).repeat_interleave(257)[:, None]
+    deq = tc.dequantize_int8_plain(t, 4)
+    r = t / scale
+    half = r - torch.floor(r) == 0.5
+    assert int(half.sum()) > 100
+    assert bool((torch.round(r[half]) % 2 == 0).all())
+    assert torch.equal(deq, torch.round(r) * scale)
+    assert float(torch.round(r).abs().max()) <= 127
+    assert float(((deq - t).abs() / scale).max()) <= 0.5 * (1 + 1e-6)
+    packed = tc.pack_rows_int8(t, F, 4)
+    assert torch.equal(packed, tc.pack_rows_plain(deq, F, torch.float32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("side,F", [(4, 4), (5, 2), (4, 3)])
+def test_cuda_int8_pack_kernel_matches_plain(side, F):
+    """The int8 gather's pack pass on the card, bit for bit its plain form
+    (IEEE division and product, rounding half to even on both sides)."""
+    _need_card()
+    lpf = tc.lanes_per_feature(side)
+    master = _int8_master(F, lpf)
+    got = tc.pack_rows_int8(master.cuda(), F, 4)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (4 * 257, lpf, F)
+    assert torch.equal(got.cpu(), tc.pack_rows_int8_plain(master, F, 4))
+
+
+@pytest.mark.cuda
+def test_cuda_int8_pack_at_the_flagship_table():
+    """The flagship's [65536, 256] table (8 levels, F 4, lpf 64): the card's
+    int8 pack bit for bit the plain form on the card."""
+    _need_card()
+    master = torch.randn((65536, 256), device="cuda",
+                         generator=torch.Generator("cuda").manual_seed(2))
+    master *= torch.logspace(-4, 1, 8, device="cuda").repeat_interleave(
+        8192)[:, None]
+    got = tc.pack_rows_int8(master, 4, 8)
+    want = tc.pack_rows_plain(tc.dequantize_int8_plain(master, 8), 4,
+                              torch.float32)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
 @pytest.mark.cuda
 def test_cuda_out_of_range_row_gives_nan_and_spares_the_rest():
     _need_card()

@@ -283,7 +283,7 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--use_quantization"], "item 5"),
+    (["--reg_views", "1", "--reg_mode", "planar"], "item 5"),
     (["--reg_views", "2"], "item 5"),
     (["--use_appearance"], "item 5"),
     (["--multihost"], "item 8"),
