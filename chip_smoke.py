@@ -236,6 +236,41 @@ printing any result.
       trainer.train, served through serve.build at 800x800 with its
       quantizers (tent_contract launches, requests timed), against the
       same params rendered unquantized (PSNR, ms) on a held-out pose.
+      (aq1) also prints the render's tile model (bytes_per_ray, with the
+      quantizer's activations) against the run's peak device memory.
+
+  (rp1) the reg patches from files, in (v)'s directory: configs/lego_tpu.txt
+      as (v) runs it with --reg_views 4 --reg_mode planar --reg_start_iter
+      100 for 300 steps, a test set at 300: the [reg] line, the loss falls,
+      tent_contract launches twice a step (the image rays' render and the
+      patches') plus once a grid refresh, table_scatter exactly twice a
+      step, the held-out PSNR 3 dB above the seeded field's, beside (v)'s
+      at 300; then the steps of (v)'s configuration and this one in
+      alternating windows of 50 steps (steps/s);
+  (rp2) one patch step at 300 from (rp1)'s state: card against CPU (the
+      rays apart by more than 1e-5 in colour, depth or acc, or with a
+      sample moved a bin, counted; over the other image rays the image loss
+      within 1e-5 relative; the smoothness op on the same maps within 1e-6;
+      moments and updates in norm as (sp2)), then through the kernels
+      against their plain versions, held as (g);
+  (ap1) the appearance latents: (sp1)'s room written with exposure gains
+      U(0.75, 1.25) on every view (the held-out views their own), trained
+      through configs/norcliffe_common_room_tpu.txt as (sp1) with
+      --use_appearance --testskip 2 for 400 steps, a test set at 400: the
+      kernels launch, the loss falls; steps/s before and with the priors
+      beside (sp1)'s, the held-out PSNR with the zero latent, the latents'
+      norms (non-zero on the training images' rows, zero on the others);
+  (ap2) --render_only --render_test --render_fit_appearance on (ap1)'s
+      checkpoint: per held-out view the right-half PSNR with the zero and
+      the fitted latent, the fit's ms and launches and those of its two
+      full renders (table_scatter 0), fit_appearance.json's keys; one
+      view's latent fitted on the card and on the CPU (1e-3 in norm, the
+      final MSE 1e-5), and the first step's gradient on both;
+  (ap3) (ap1)'s checkpoint served at 800x800 online, equal bit for bit to
+      the params without the appearance leaf rendered at the server's
+      tile, and --baked at 256^3, its snapshot's tables within one bf16
+      step of a bake without the leaf; requests timed, baked against
+      online in PSNR.
 
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
@@ -268,8 +303,11 @@ requests of (y5); and the priors' paths: training with the priors (sp1) and
 with the step's other extensions (sp4), tent_contract's test sets, online
 and baked requests of (sp1)'s field, and (sp3)'s parity run (0); A-CAQ's
 and the int8 gather's: quantized training from files (aq1), its test sets
-and its quantized 800x800 request (aq4), int8 training (aq3). The last
-line is {"ok": true, "device": {...}}.
+and its quantized 800x800 request (aq4), int8 training (aq3); the reg
+patches' and the appearance latents': training with patches (rp1) and with
+latents (ap1), their test sets, the half-image fits with their renders
+(ap2; table_scatter 0), (ap1)'s field served online and baked (ap3). The
+last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -392,6 +430,48 @@ AQ_STEPS, AQ_START, AQ_TESTSET, INT8_STEPS = 700, 300, 300, 200
 AQ_FLAGS = ["--use_quantization", "--use_acaq", "--acaq_start_iter",
             str(AQ_START)]
 INT8_FLAGS = SERVE_FLAGS + ["--block_io", "int8"]
+# (rp1)-(rp2), the reg patches: (v)'s configs/lego_tpu.txt run on (v)'s
+# scene with 4 patches of 8^2 rays a step in planar mode from step 100, 300
+# steps and a test set at 300 (beside (v)'s); its steps/s and (v)'s in
+# alternating windows of 50 steps.
+RP_FLAGS = ["--reg_views", "4", "--reg_mode", "planar", "--reg_start_iter",
+            "100"]
+RP_STEPS, RP_WINDOW = 300, 50
+# (rp2), card against CPU. The smoothness, a sum of squared second
+# differences of the patch rays' disparities, agreed as one scalar to
+# 1.6e-6 to 8.8e-6 in five runs on an H100 and to 2.14e-4 in a sixth (the
+# loss, its weighted sum with the image term, to 2.35e-5 in a seventh).
+# In an eighth the largest disparity gap sat on an opaque ray (acc 1)
+# whose depth differed by 2.45e-4 of far - near; in a ninth and a tenth
+# the image loss differed by 1.89e-5 and 1.43e-5, with no sample moved
+# by more than 1e-5 of far. (v)'s trained field is sharp: a sample that
+# the occupancy path's inverse-CDF draw (a cumsum in another order on each
+# side) places a little apart, or a bin away as (y2) finds for the fine
+# pass, changes its ray's colour and depth by more than rounding. So each
+# render's rays apart are counted (under a quarter, as (y2)): an image
+# ray's colour, a patch ray's depth (of far - near) or acc more than
+# RP_MAP_ATOL apart, or a sample moved a bin. Over the other image rays
+# the image loss is held at 1e-5 relative; the smoothness of the card's
+# maps against the CPU's op on the same maps within RP_REG_RTOL; the
+# scalars card against CPU are printed.
+RP_MAP_ATOL, RP_REG_RTOL = 1e-5, 1e-6
+# (ap1)-(ap3), the appearance latents: (sp1)'s room with exposure gains
+# U(0.75, 1.25) on every view (the held-out ones their own), trained as
+# (sp1) with --use_appearance for 400 steps; the half-image fit of its
+# held-out views (one latent on the card and the CPU: 100 Adam steps of
+# f32 sums in other orders, held in norm, and the final MSE).
+AP_JITTER, AP_STEPS, AP_TESTSKIP = 0.25, 400, 2  # 3 of the 6 held out
+# The card-against-CPU fit takes the protocol's 2,048 rays of the view's
+# left half, as the timed fits do (~60 s on the CPU). The first step's
+# gradient agreed to 1.45e-7 in norm, the latent after 100 Adam steps to
+# 2.85e-4 and the final MSE to 3.1e-7 (one run on an H100; at 256 rays,
+# with the moments divided by Python numbers, the latents had agreed to
+# 4.4e-7 to 6.5e-5 in five). Adam divides each step by the root of the
+# gradient's second moment, so near the optimum, where a coordinate's
+# gradient is as small as its f32 error, the two sides step apart along
+# directions the loss barely sees: the latent is held at 1e-3 in norm
+# (3x the reading, rounded up), the MSE it reaches at 1e-5.
+FIT_Z_RTOL, FIT_MSE_RTOL = 1e-3, 1e-5
 TRAIN_RAYS = 4096  # the flagship preset's --N_rand
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
@@ -875,7 +955,8 @@ def step_from(torch, flags, trained, batch_seed=5, draw_seed=3,
     params["coarse"] = copy.deepcopy(trained["params"]["coarse"])
     step = int(trained["step"]) if at_step else 0
     draws = draw_step(torch.Generator(device=dev).manual_seed(draw_seed), cfg,
-                      step, cli.N_rand, "spatial_coords" in batch)
+                      step, cli.N_rand, "spatial_coords" in batch,
+                      n_reg_rays(batch))
 
     def one_step(cfg):
         # Zero moments: after this first step mu = 0.1 g and nu = 0.01 g^2.
@@ -887,6 +968,11 @@ def step_from(torch, flags, trained, batch_seed=5, draw_seed=3,
         return train_step(state, batch, cfg, draws=draws)
 
     return cfg, one_step
+
+
+def n_reg_rays(batch) -> int:
+    """The patch rays of a batch of a --reg_views run (0 without)."""
+    return batch["reg_rays_o"].shape[0] if "reg_rays_o" in batch else 0
 
 
 def encode_steps(torch, flags, trained, **seeds) -> dict:
@@ -1941,7 +2027,7 @@ def phase_from_files(torch, workdir) -> dict:
     return {"training_from_files": training, "testset": testset,
             "render_only": shown_launches, "testsets": out["testsets"],
             "steps_s": FILE_STEPS / (out["seconds"] - out["eval_seconds"]),
-            "scene_dir": scene_dir}
+            "scene_dir": scene_dir, "flags": flags}
 
 
 def phase_ndc(torch, workdir) -> dict:
@@ -2498,7 +2584,7 @@ def phase_priors(torch, workdir) -> dict:
     held_out_gain("sp1", out["testsets"][-1]["psnr"], flags,
                   os.path.join(workdir, "sp10"), 1.0)
     return {"flags": flags, "state": out["state"], "training": training,
-            "testset": testset["tent_contract"]}
+            "testset": testset["tent_contract"], "rates": (before, after)}
 
 
 def _syncs(torch, fn) -> list:
@@ -2539,7 +2625,8 @@ def card_vs_cpu_step(torch, tag, flags, state, hold_loss=True) -> dict:
     tree = state_to_numpy(state)
     step = int(tree["step"])
     draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg, step,
-                      batch["rays_o"].shape[0], "spatial_coords" in batch)
+                      batch["rays_o"].shape[0], "spatial_coords" in batch,
+                      n_reg_rays(batch))
 
     def on(d, x):
         return ({k: on(d, v) for k, v in x.items()} if isinstance(x, dict)
@@ -2787,9 +2874,12 @@ def phase_acaq(torch, workdir, plain) -> dict:
     flags = ["--config", os.path.join(ROOT, "configs", "lego_tpu.txt"),
              "--datadir", plain["scene_dir"], "--basedir",
              os.path.join(workdir, "aq1"), "--lrate", "0.01"] + AQ_FLAGS
+    held = torch.cuda.memory_allocated()  # by the phases before this one
     out, text, training, testset = train_from_files(torch, "aq1", flags + [
         "--n_iters", str(AQ_STEPS), "--i_testset", str(AQ_TESTSET),
         "--i_weights", str(AQ_STEPS), "--i_video", str(10 * AQ_STEPS)])
+    tile_model(torch, "aq1", flags, torch.cuda.max_memory_allocated() - held,
+               out["state"])
     bits = quant_lines(text)
     steps_s = AQ_STEPS / (out["seconds"] - out["eval_seconds"])
     quant = out["state"]["quant"]
@@ -2816,6 +2906,38 @@ def phase_acaq(torch, workdir, plain) -> dict:
                   os.path.join(workdir, "aq10"), 0.5)
     return {"flags": flags, "state": out["state"], "logdir": out["logdir"],
             "training": training, "testset": testset["tent_contract"]}
+
+
+def tile_model(torch, tag, flags, peak, state) -> None:
+    """The render's tile model (render/renderer.py::bytes_per_ray, ROADMAP
+    Queue 3 F5) of ``flags``' test sets against ``peak``, the peak device
+    memory of their run above what was allocated before it: the train
+    state's bytes plus one tile of ``default_tile_rays`` rays at
+    ``bytes_per_ray`` (the quantized field's and, beside it, the same
+    field's unquantized)."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.render.renderer import (
+        bytes_per_ray,
+        default_tile_rays,
+    )
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+    from indoor_nerf_tpu_torch.utils.checkpoint import _tensor_leaves
+
+    args = parse_args(flags)
+    rc = build_train_config(args, load_dataset(args)).render
+    plain = dataclasses.replace(rc, field=dataclasses.replace(
+        rc.field, use_quantization=False))
+    tile = default_tile_rays(torch.device("cuda:0"), rc)
+    state_bytes = nbytes(*_tensor_leaves(state).values())
+    model = state_bytes + tile * bytes_per_ray(rc)
+    print(f"[{tag}] the render's tile model: {bytes_per_ray(rc)} bytes a ray "
+          f"({bytes_per_ray(plain)} unquantized), tiles of {tile} rays "
+          f"({default_tile_rays(torch.device('cuda:0'), plain)} unquantized): "
+          f"{tile * bytes_per_ray(rc) / 2**30:.2f} GiB + the train state's "
+          f"{state_bytes / 2**30:.2f} GiB = {model / 2**30:.2f} GiB against "
+          f"the run's peak device memory above what it found allocated "
+          f"{peak / 2**30:.2f} GiB")
 
 
 def acaq_loss_check(torch, flags, state) -> None:
@@ -3068,6 +3190,406 @@ def phase_acaq_serving(torch, flags, state, logdir) -> int:
     return launches
 
 
+def alternating_file_steps(torch, tag, runs: dict) -> dict:
+    """Steps/s of the train steps of two CLI configurations ``runs``
+    ``{name: argv}`` on one scene (each from its seeded state, its batches
+    from ``trainer.make_sampler``, copied to the card as ``trainer.train``
+    copies them), in windows of RP_WINDOW steps, a, b, b, a twice in this
+    process, after a warm-up window each; printed, and returned by name."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
+    from indoor_nerf_tpu_torch.train.trainer import (
+        build_train_config,
+        make_sampler,
+    )
+
+    dev = torch.device("cuda:0")
+    scene, runners = None, {}
+    for name, argv in runs.items():
+        args = parse_args(argv)
+        scene = scene or load_dataset(args)  # one scene for both
+        cfg = build_train_config(args, scene)
+        state = init_train_state(
+            torch.Generator(device=dev).manual_seed(args.seed), cfg, dev)
+        runners[name] = {"cfg": cfg, "state": state, "i": 0,
+                         "gen": torch.Generator(device=dev).manual_seed(
+                             args.seed + 1),
+                         "sample": make_sampler(args, scene, cfg, args.seed)[0]}
+
+    def window(r) -> float:
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(RP_WINDOW):
+            r["i"] += 1
+            batch = {k: torch.from_numpy(v).to(dev, non_blocking=True)
+                     for k, v in r["sample"](r["i"]).items()}
+            r["state"], metrics = train_step(r["state"], batch, r["cfg"],
+                                             r["gen"])
+        torch.cuda.synchronize(dev)
+        if not np.isfinite(float(metrics["loss"])):
+            raise AssertionError(f"[{tag}] non-finite loss")
+        return RP_WINDOW / (time.perf_counter() - t0)
+
+    for r in runners.values():
+        window(r)  # warm-up
+    a, b = runs
+    rates = {a: [], b: []}
+    for name in (a, b, b, a) * 2:
+        rates[name].append(window(runners[name]))
+    print(f"[{tag}] steps/s in alternating windows of {RP_WINDOW} steps "
+          + "; ".join(f"{k} {', '.join(f'{v:.2f}' for v in vs)} (median "
+                      f"{float(np.median(vs)):.2f})" for k, vs in rates.items())
+          + f": {tag} {float(np.median(rates[b]) / np.median(rates[a])):.3f} "
+          f"of {a}")
+    return rates
+
+
+def phase_reg_patches(torch, workdir, plain) -> dict:
+    """(rp1) (v)'s configs/lego_tpu.txt run on (v)'s scene with RP_FLAGS
+    (4 patches of 8^2 rays a step, planar, from step 100) for RP_STEPS
+    steps, a test set at RP_STEPS: the [reg] line, the loss falls, two
+    tent_contract launches a step (the image rays' and the patches' render)
+    plus one a grid refresh, two table_scatter launches a step, the
+    held-out PSNR 3 dB above the seeded field's, beside (v)'s at the same
+    step; then the steps/s of (v)'s and this configuration alternating."""
+    from indoor_nerf_tpu_torch.train.config import parse_args
+
+    flags = ["--config", os.path.join(ROOT, "configs", "lego_tpu.txt"),
+             "--datadir", plain["scene_dir"], "--basedir",
+             os.path.join(workdir, "rp1"), "--lrate", "0.01"] + RP_FLAGS
+    out, text, training, testset = train_from_files(torch, "rp1", flags + [
+        "--n_iters", str(RP_STEPS), "--i_testset", str(RP_STEPS),
+        "--i_weights", str(RP_STEPS), "--i_video", str(10 * RP_STEPS)])
+    reg = [l for l in text.splitlines() if l.startswith("[reg]")]
+    refreshes = len(range(0, RP_STEPS, parse_args(flags).occ_update_interval))
+    psnr = out["testsets"][-1]["psnr"]
+    same = {t["step"]: t["psnr"] for t in plain["testsets"]}[RP_STEPS]
+    print(f"[rp1] {reg}; training launches tent_contract "
+          f"{training['tent_contract']} (2 a step + {refreshes} grid "
+          f"refreshes), table_scatter {training['table_scatter']} (2 a step) "
+          f"in {RP_STEPS} steps; held-out PSNR at step {RP_STEPS} {psnr:.3f} "
+          f"dB, (v)'s without patches {same:.3f} dB")
+    if not reg:
+        raise AssertionError("[rp1] no [reg] line")
+    if training["table_scatter"] != 2 * RP_STEPS or \
+            training["tent_contract"] != 2 * RP_STEPS + refreshes:
+        raise AssertionError(f"[rp1] not two launches a step: {training}")
+    held_out_gain("rp1", psnr, flags, os.path.join(workdir, "rp10"), 3.0)
+    alternating_file_steps(torch, "rp1", {"v": plain["flags"], "rp1": flags})
+    return {"flags": flags, "state": out["state"], "training": training,
+            "testset": testset["tent_contract"]}
+
+
+def phase_reg_step(torch, flags, state) -> None:
+    """(rp2) one patch step at (rp1)'s last step (past --reg_start_iter):
+    card against CPU on one batch with its patches and one set of draws
+    (``card_vs_cpu_step``), each of its two renders as the step makes it:
+    the rays apart (samples moved a bin, or, image rays, a colour, patch
+    rays, a depth or an acc, more than RP_MAP_ATOL apart) counted, under a
+    quarter of each render's (as (y2)); the image loss over the other
+    image rays within 1e-5 relative; the smoothness of the card's maps,
+    the card's against the CPU's op, within RP_REG_RTOL. Then through the
+    kernels against their plain versions, held as (g)."""
+    from indoor_nerf_tpu_torch.ops.tv import patch_depth_regularizer
+    from indoor_nerf_tpu_torch.render.renderer import render_rays
+    from indoor_nerf_tpu_torch.train import step as train_step_module
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    args = parse_args(flags)
+    n_reg = args.reg_views * args.reg_patch_size ** 2
+    renders = {"image": [], "patch": []}  # per render: CPU first, then card
+
+    def render_spy(params, rays_o, *a, **kw):
+        out = render_rays(params, rays_o, *a, **kw)
+        renders["patch" if rays_o.shape[0] == n_reg else "image"].append(
+            {k: out[0][k].detach().cpu()
+             for k in ("z_vals", "rgb_map", "depth_map", "acc_map")})
+        return out
+
+    step = int(state["step"])
+    with mock.patch.object(train_step_module, "render_rays", render_spy):
+        cfg, metrics, _ = card_vs_cpu_step(torch, "rp2", flags, state,
+                                           hold_loss=False)
+    if step < cfg.reg_start_iter:
+        raise AssertionError(f"[rp2] step {step} before the patches' gate")
+    (img_cpu, img_card), (_, p_card) = renders["image"], renders["patch"]
+    span = cfg.far - cfg.near
+
+    def gap(k, pair):
+        """|card - CPU| of output ``k`` of a render's ``(cpu, card)``."""
+        cpu, card = pair
+        return (card[k] - cpu[k]).abs()
+
+    moved = {k: (gap("z_vals", renders[k]) > 1e-5 * cfg.far).any(-1)
+             for k in renders}
+    apart = {"image": moved["image"] | (gap("rgb_map", renders["image"])
+                                        .amax(-1) > RP_MAP_ATOL),
+             "patch": moved["patch"]
+             | (gap("depth_map", renders["patch"]) > RP_MAP_ATOL * span)
+             | (gap("acc_map", renders["patch"]) > RP_MAP_ATOL)}
+    target = one_batch(args, torch.device("cpu"), seed=5)[1]["target"]
+    kept = ~apart["image"]
+    ray_loss = {k: ((r["rgb_map"][kept] - target[kept]) ** 2).mean(-1).sum()
+                for k, r in (("cpu", img_cpu), ("card", img_card))}
+    card = metrics["card"]["reg_depth_tv"]
+    on_cpu = float(patch_depth_regularizer(
+        p_card["depth_map"], p_card["acc_map"], cfg.reg_patch_size, cfg.near,
+        cfg.far, cfg.reg_mode))
+    errs = {"image loss": abs(float(ray_loss["card"] / ray_loss["cpu"]) - 1),
+            "smoothness, same maps": abs(card / on_cpu - 1)}
+    print(f"[rp2] the patch step at {step}, card against CPU: rays apart "
+          f"(tol {RP_MAP_ATOL}), under a quarter: image "
+          f"{int(apart['image'].sum())} of {len(kept)} ({int(moved['image'].sum())} "
+          f"with samples moved a bin; colours up to "
+          f"{float(gap('rgb_map', renders['image']).max()):.2e}), patch "
+          f"{int(apart['patch'].sum())} of {n_reg} "
+          f"({int(moved['patch'].sum())} moved; depth up to "
+          f"{float(gap('depth_map', renders['patch']).max()) / span:.2e} of "
+          f"far - near, acc {float(gap('acc_map', renders['patch']).max()):.2e}); "
+          f"the image loss over the others {errs['image loss']:.2e} relative "
+          f"(tol 1e-5); the smoothness of the card's maps {card:.8e}, the "
+          f"CPU's op on them {on_cpu:.8e}, "
+          f"{errs['smoothness, same maps']:.2e} relative (tol {RP_REG_RTOL}); "
+          f"read as scalars: the image loss "
+          f"{metrics['card']['img_loss'] / metrics['cpu']['img_loss'] - 1:.2e}, "
+          f"the smoothness {card / metrics['cpu']['reg_depth_tv'] - 1:.2e}, "
+          f"the loss {metrics['card']['loss'] / metrics['cpu']['loss'] - 1:.2e}")
+    if (errs["image loss"] > 1e-5 or errs["smoothness, same maps"] > RP_REG_RTOL
+            or any(int(m.sum()) * 4 >= len(m) for m in apart.values())):
+        raise AssertionError(f"[rp2] card vs CPU {errs}, apart "
+                             f"{[int(m.sum()) for m in apart.values()]}")
+    for pair in encode_step_pairs(encode_steps(torch, flags, state,
+                                               at_step=True)):
+        hold_steps(torch, "rp2", *pair)
+
+
+def phase_appearance(torch, workdir, prior) -> dict:
+    """(ap1) the room of (sp1) with exposure gains U(1 - AP_JITTER,
+    1 + AP_JITTER) on every view (the held-out views their own), trained
+    through configs/norcliffe_common_room_tpu.txt as (sp1) with
+    --use_appearance for AP_STEPS steps, a test set at AP_STEPS: the
+    kernels launch, the loss falls; steps/s before and with the priors
+    beside (sp1)'s, the held-out PSNR with the zero latent, and the
+    latents' norms: non-zero on the training images' rows, zero on the
+    others."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.data.scene_files import (
+        make_room_blender_scene,
+        write_blender_scene,
+    )
+    from indoor_nerf_tpu_torch.train.config import parse_args
+
+    t0 = time.perf_counter()
+    scene = make_room_blender_scene(ROOM_VIEWS, ROOM_SIZE, ROOM_SIZE,
+                                    exposure_jitter=AP_JITTER,
+                                    jitter_test=True)
+    write_blender_scene(os.path.join(workdir, "room_jitter"), scene)
+    train_ids, held = scene["i_split"][:2]
+    gains = scene["exposure_gains"]
+    print(f"[ap1] wrote the room with exposure gains in {time.perf_counter() - t0:.2f} s: "
+          f"training views {np.round(gains[train_ids], 3).tolist()}, held out "
+          f"{np.round(gains[held], 3).tolist()}")
+    flags = ["--config", os.path.join(ROOT, "configs",
+                                      "norcliffe_common_room_tpu.txt"),
+             "--datadir", os.path.join(workdir, "room_jitter"), "--basedir",
+             os.path.join(workdir, "ap1"), "--use_appearance",
+             "--testskip", str(AP_TESTSKIP),
+             "--structural_loss_start_iter", str(PRIOR_START),
+             "--structural_loss_ramp_iters", str(PRIOR_RAMP)]
+    out, _, training, testset = train_from_files(torch, "ap1", flags + [
+        "--n_iters", str(AP_STEPS), "--i_testset", str(AP_STEPS),
+        "--i_weights", str(AP_STEPS), "--i_print", str(PRIOR_PRINT)])
+    before, after = step_rates(out, [(PRIOR_START // 3 + 1, PRIOR_START - 1),
+                                     (PRIOR_START + 1, AP_STEPS - 1)])
+    loaded = load_dataset(parse_args(flags))
+    norms = torch.linalg.norm(out["state"]["params"]["appearance"].detach(),
+                              dim=-1).cpu().numpy()
+    others = np.setdiff1d(np.arange(len(norms)), loaded.i_train)
+    print(f"[ap1] steps/s (median, 1024 rays) before the priors {before:.2f}, "
+          f"with them {after:.2f}; (sp1)'s {prior['rates'][0]:.2f}, "
+          f"{prior['rates'][1]:.2f}; held-out PSNR with the zero latent "
+          f"{out['testsets'][-1]['psnr']:.3f} dB at step {AP_STEPS}; latent "
+          f"norms of the {len(loaded.i_train)} training images "
+          f"{np.round(norms[loaded.i_train], 4).tolist()}, of the other "
+          f"{len(others)} rows at most {float(norms[others].max()):.1e}")
+    if not (norms[loaded.i_train].min() > 0 and norms[others].max() == 0):
+        raise AssertionError(f"[ap1] latent norms {norms}")
+    return {"flags": flags, "state": out["state"], "training": training,
+            "testset": testset["tent_contract"]}
+
+
+def phase_fit(torch, ap) -> dict:
+    """(ap2) --render_only --render_test --render_fit_appearance on (ap1)'s
+    checkpoint through run_nerf: per held-out view the right-half PSNR
+    with the zero and the fitted latent, the fit's ms (synchronized) and
+    the launches of the fit and of the view's two full renders
+    (tent_contract only: table_scatter must launch 0 times);
+    fit_appearance.json with JAX's keys. Then one view's latent fitted on
+    the card and on the CPU: within FIT_Z_RTOL in norm, the final MSE
+    within FIT_MSE_RTOL; beside them the gradient of the fit's first step
+    (at the zero latent) on both, in norm. Returns the fits' launches."""
+    from indoor_nerf_tpu_torch import run_nerf
+    from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models.field import params_device
+    from indoor_nerf_tpu_torch.render import appearance
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    views = []
+    real_fit, real_eval = (appearance.fit_view_latent,
+                           appearance.eval_view_with_fitted_latent)
+
+    def window(fn, *a, **kw):
+        """fn's result, ms and launches."""
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        res = fn(*a, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = launch_counts()
+        return res, ms, {k: after[k] - before[k] for k in after}
+
+    def fit(*a, **kw):
+        res, ms, launches = window(real_fit, *a, **kw)
+        views.append({"fit_ms": ms, "fit": launches})
+        return res
+
+    def evaluate(*a, **kw):
+        res, ms, launches = window(real_eval, *a, **kw)
+        views[-1].update(view_ms=ms, view=launches)
+        return res
+
+    reset_launch_counts()
+    with mock.patch.object(appearance, "fit_view_latent", fit), \
+            mock.patch.object(appearance, "eval_view_with_fitted_latent",
+                              evaluate):
+        out, _ = quietly(run_nerf.main, ap["flags"] + [
+            "--render_only", "--render_test", "--render_fit_appearance"])
+    total = launch_counts()
+    with open(os.path.join(out["savedir"], "fit_appearance.json")) as f:
+        saved = json.load(f)
+    for v, row in zip(views, saved["views"]):
+        print(f"[ap2] held-out view: right-half PSNR zero "
+              f"{row['psnr_right_zero']:.3f} -> fitted "
+              f"{row['psnr_right_fitted']:.3f} dB (left-half MSE "
+              f"{row['fit_mse_left']:.3e}); the fit {v['fit_ms']:.1f} ms, "
+              f"tent_contract {v['fit']['tent_contract']}; with the two "
+              f"renders {v['view_ms']:.1f} ms, tent_contract "
+              f"{v['view']['tent_contract']}")
+    fit_launches = {k: sum(v["view"][k] for v in views) for k in total}
+    print(f"[ap2] fit_appearance.json: keys {sorted(saved)}, mean zero "
+          f"{saved['mean_zero']:.3f}, fitted {saved['mean_fitted']:.3f} dB; "
+          f"the fits' launches {fit_launches}; the run's {total} (the "
+          f"render-only test set's "
+          f"{total['tent_contract'] - fit_launches['tent_contract']})")
+    if set(saved) != {"views", "mean_zero", "mean_fitted"} or \
+            len(views) != len(saved["views"]) or not views:
+        raise AssertionError(f"[ap2] {saved}")
+    if any(n for k, n in total.items() if k != "tent_contract") or \
+            any(v["fit"]["tent_contract"] <= 0 for v in views):
+        raise AssertionError(f"[ap2] launches {total}")
+
+    args = parse_args(ap["flags"])
+    scene = load_dataset(args)
+    cfg = build_train_config(args, scene)
+    i = int(scene.i_test[0])
+    fits = {}
+    for label, state in (("card", ap["state"]), ("cpu", state_from_numpy(
+            state_to_numpy(ap["state"]), "cpu"))):
+        view = (state["params"], scene.poses[i], scene.K, scene.near,
+                scene.far, scene.images[i], cfg.render, state["occ"])
+        z0 = torch.zeros(cfg.render.field.input_ch_views,
+                         device=params_device(state["params"]),
+                         requires_grad=True)
+        (g0,) = torch.autograd.grad(appearance.left_half_loss(*view)(z0),
+                                    [z0])
+        z, mse = appearance.fit_view_latent(*view)
+        fits[label] = (z.cpu().numpy(), mse, g0.cpu().numpy())
+    (zc, mc, gc), (zp, mp, gp) = fits["card"], fits["cpu"]
+    z_err = float(np.linalg.norm(zc - zp) / np.linalg.norm(zp))
+    g_err = float(np.linalg.norm(gc - gp) / np.linalg.norm(gp))
+    mse_err = abs(mc / mp - 1)
+    print(f"[ap2] view {i}'s latent fitted on the card and on the CPU: the "
+          f"first step's gradient relative in norm {g_err:.2e}; |z| "
+          f"{np.linalg.norm(zp):.4f}, relative in norm {z_err:.2e} (tol "
+          f"{FIT_Z_RTOL}); final MSE {mc:.8e} vs {mp:.8e}, {mse_err:.2e} "
+          f"(tol {FIT_MSE_RTOL})")
+    if z_err > FIT_Z_RTOL or mse_err > FIT_MSE_RTOL:
+        raise AssertionError(f"[ap2] card vs CPU fit: z {z_err}, mse {mse_err}")
+    return fit_launches
+
+
+def phase_appearance_serving(torch, ap, workdir) -> dict:
+    """(ap3) (ap1)'s checkpoint served at REQUEST_SIZE through serve.build,
+    online and --baked at BAKE_RES with --snapshot: the online request
+    equal bit for bit to the same params without the appearance leaf
+    rendered at the server's tile, the snapshot's tables within one bf16
+    step (2^-7 of the largest entry) of a bake of those params, and its
+    request against the online one in PSNR. Returns the requests'
+    tent_contract launches."""
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models.field import serving_params
+    from indoor_nerf_tpu_torch.render.baked import bake_field, load_baked
+    from indoor_nerf_tpu_torch.render.renderer import make_image_renderer
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    dev = torch.device("cuda:0")
+    args = parse_args(ap["flags"])
+    scene = load_dataset(args)
+    rc = build_train_config(args, scene).render
+    fc = rc.field
+    state = ap["state"]
+    params = {k: v for k, v in state["params"].items() if k != "appearance"}
+    pose = scene.poses[scene.i_test[0]]
+    W = H = REQUEST_SIZE
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    (render, step, _), text = quietly(serve.build, argparse.Namespace(
+        width=W, height=H, train_args=["--"] + ap["flags"]))
+    tile = int(text.split("in tiles of ")[1].split()[0])
+    reset_launch_counts()
+    ms, served = request_ms(torch, render, [pose])
+    online = launch_counts()["tent_contract"]
+    del render
+    want = make_image_renderer(rc.test_mode(), H, W, tile)(
+        serving_params(params, fc), pose, K, scene.near, scene.far,
+        state["occ"])
+    same = np.array_equal(served[0]["rgb_map"], want["rgb_map"].cpu().numpy())
+    snap = os.path.join(workdir, "ap3.baked")
+    (baked_render, _, _), _ = quietly(serve.build, argparse.Namespace(
+        width=W, height=H, baked=True, baked_res=BAKE_RES, snapshot=snap,
+        train_args=["--"] + ap["flags"]))
+    reset_launch_counts()
+    baked_ms, baked = request_ms(torch, baked_render, [pose])
+    baked_launches = launch_counts()["tent_contract"]
+    del baked_render
+    got = load_baked(snap, dev)
+    ref = bake_field(serving_params(params, fc), fc, resolution=BAKE_RES,
+                     train_cameras=serve.train_cameras(scene))
+    errs = {k: float((got[k].float() - ref[k].float()).abs().max()
+                     / ref[k].float().abs().max())
+            for k in ("sigma_table", "voxel_geo")}
+    quality = psnr(baked[0]["rgb_map"], served[0]["rgb_map"])
+    print(f"[ap3] (ap1)'s field (step {step}) served at {W}x{H}: online "
+          f"{', '.join(f'{v:.1f}' for v in ms)} ms (tent_contract launches "
+          f"{online}), bit for bit the params without the appearance leaf: "
+          f"{same}; --baked at {BAKE_RES}^3 {', '.join(f'{v:.1f}' for v in baked_ms)}"
+          f" ms (tent_contract launches {baked_launches}), its tables against "
+          f"a bake without the leaf, of the largest entry: {errs} (tol "
+          f"{2.0 ** -7}); baked against online {quality:.2f} dB")
+    if step != AP_STEPS or not same or max(errs.values()) > 2.0 ** -7:
+        raise AssertionError(f"[ap3] step {step}, online equal {same}, "
+                             f"baked {errs}")
+    return {"serving_appearance": online,
+            "baked_serving_appearance": baked_launches}
+
+
 def loop_seconds(torch, args, read_every_step: bool) -> float:
     """The trainer's bare step loop, for timing against trainer.train in
     one process: each step's loss and PSNR stay on the card and only an
@@ -3281,6 +3803,21 @@ def main() -> int:
         acaq_serving = phase_acaq_serving(torch, acaq["flags"], acaq["state"],
                                           acaq["logdir"])
         del acaq["state"]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        reg = phase_reg_patches(torch, workdir, files)
+        phase_reg_step(torch, reg["flags"], reg["state"])
+        del reg["state"]
+        torch.cuda.empty_cache()
+        t1 = time.perf_counter()
+        app = phase_appearance(torch, workdir, prior)
+        t2 = time.perf_counter()
+        fit_launches = phase_fit(torch, app)
+        t3 = time.perf_counter()
+        app_serving = phase_appearance_serving(torch, app, workdir)
+        del app["state"]
+        print(f"[ap3] seconds: rp1-rp2 {t1 - t0:.1f}, ap1 {t2 - t1:.1f}, ap2 "
+              f"{t3 - t2:.1f}, ap3 {time.perf_counter() - t3:.1f}")
     torch.cuda.empty_cache()
     int8_launches, int8_pack_ms = phase_int8(torch)
     torch.cuda.empty_cache()
@@ -3296,8 +3833,10 @@ def main() -> int:
     # path's runs of (y1)-(y5), where no kernel launches but pass 1 of the
     # baked requests' tent_contract; A-CAQ's 700 steps from files (aq1),
     # its test sets and an 800x800 request of its field (aq4), the 200
-    # int8 steps (aq3)). No path runs lane_select: its launches are phase
-    # (o)'s.
+    # int8 steps (aq3); the 300 steps with patches (rp1) and the 400 with
+    # appearance latents (ap1), their test sets, the fits (ap2), the
+    # latents' field served (ap3)). No path runs lane_select: its launches
+    # are phase (o)'s.
     paths = {"training": flat_launches, "training_grouped": group_launches,
              "training_strided": stride_launches,
              "training_tile_interp": tile_launches,
@@ -3309,6 +3848,11 @@ def main() -> int:
              "training_extensions": ext["training_extensions"],
              "training_acaq": acaq["training"],
              "training_int8": int8_launches,
+             # The reg patches' and the appearance latents' (rp1, ap1) and
+             # the half-image fits with their renders (ap2).
+             "training_reg": reg["training"],
+             "training_appearance": app["training"],
+             "fit_appearance": fit_launches,
              **parity_launches}
 
     def by_path(name):
@@ -3333,7 +3877,10 @@ def main() -> int:
                               "baked_serving_priors":
                                   ext["baked_serving_priors"],
                               "testset_acaq": acaq["testset"],
-                              "serving_acaq": acaq_serving},
+                              "serving_acaq": acaq_serving,
+                              "testset_reg": reg["testset"],
+                              "testset_appearance": app["testset"],
+                              **app_serving},
          **tent},
         {"name": "table_scatter", "route": "cuda",
          "source": csrc + "table_scatter.cu",

@@ -11,7 +11,8 @@ The JAX state, fetched to numpy, is a nested dict::
                            "feature_linear", "alpha_linear",
                            "views_linears": [...], "rgb_linear"
                            | "output_linear"} (NeRFBig),
-                ["fine": {...}]},
+                ["fine": {...}],
+                ["appearance": [n_appearance, input_ch_views]]},
      "occ": {"density": [res^3]} or None,
      # the training leaves (state_from_numpy / state_to_numpy):
      "opt": {"mu": <params tree>, "nu": <params tree>, "step": int},
@@ -118,10 +119,16 @@ def _mlp_to_numpy(mlp) -> Tree:
     return out
 
 
+# The params' plain array leaves: the grid's table and the appearance
+# latents of --use_appearance.
+_ARRAYS = ("table", "appearance")
+
+
 def _params_tree_from_numpy(tree: Tree, device) -> Tree:
     params = {}
-    if "table" in tree:
-        params["table"] = _tensor(tree["table"], device)
+    for name in _ARRAYS:
+        if name in tree:
+            params[name] = _tensor(tree[name], device)
     for name in _MLPS:
         if name in tree:
             params[name] = _mlp_from_numpy(tree[name], device)
@@ -130,8 +137,9 @@ def _params_tree_from_numpy(tree: Tree, device) -> Tree:
 
 def _params_tree_to_numpy(params: Tree) -> Tree:
     out = {}
-    if "table" in params:
-        out["table"] = params["table"].detach().cpu().numpy()
+    for name in _ARRAYS:
+        if name in params:
+            out[name] = params[name].detach().cpu().numpy()
     for name in _MLPS:
         if name in params:
             out[name] = _mlp_to_numpy(params[name])

@@ -34,6 +34,7 @@ import numpy as np
 from indoor_nerf_tpu_torch.data.synthetic import (
     _render_analytic,
     _render_room,
+    jitter_exposure,
     make_synthetic_scene,
 )
 from indoor_nerf_tpu_torch.ops.rays import get_rays_np
@@ -180,7 +181,8 @@ ROOM_SCALE = 1.9
 
 
 def make_room_blender_scene(n_views: int, H: int, W: int,
-                            threads: int = 8) -> Dict:
+                            threads: int = 8, exposure_jitter: float = 0.0,
+                            jitter_test: bool = False) -> Dict:
     """The Manhattan room (walls at x, y = +-1.5, floor 0, ceiling 1.5, two
     boxes on the floor; ``data/synthetic.py``) scaled by ``ROOM_SCALE``
     (walls at +-2.85, ceiling 2.85), seen from ``n_views`` cameras at
@@ -192,7 +194,10 @@ def make_room_blender_scene(n_views: int, H: int, W: int,
     1: every ray hits a surface), ``poses`` ``[N, 4, 4]``, ``hwf``,
     ``depth`` ``[N, H, W]`` (each pixel's depth along the camera axis, in
     the scaled room: the loader's ``z_vals``) and ``i_split``: every fourth
-    view, starting at the third, held out for val and test."""
+    view, starting at the third, held out for val and test. With
+    ``exposure_jitter`` j > 0 the training views (with ``jitter_test``
+    every view) carry exposure gains from U(1 - j, 1 + j) drawn from seed 0
+    (``jitter_exposure``); ``exposure_gains`` holds each view's."""
     s = ROOM_SCALE
     focal = 1.1 * W
     K = _pinhole(H, W, focal)
@@ -219,7 +224,11 @@ def make_room_blender_scene(n_views: int, H: int, W: int,
     views = _parallel(render, c2ws, threads)
     idx = np.arange(n_views)
     held = idx[2::4]
-    return {"images": np.stack([v[0] for v in views]),
+    train = np.setdiff1d(idx, held)
+    images = np.stack([v[0] for v in views])
+    gains = jitter_exposure(images, idx if jitter_test else train,
+                            exposure_jitter, np.random.default_rng(0))
+    return {"images": images,
             "depth": np.stack([v[1] for v in views]),
             "poses": c2ws, "hwf": [H, W, focal],
-            "i_split": (np.setdiff1d(idx, held), held, held)}
+            "i_split": (train, held, held), "exposure_gains": gains}

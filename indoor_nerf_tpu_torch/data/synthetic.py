@@ -198,6 +198,24 @@ def _render_room(rays_o: np.ndarray, rays_d: np.ndarray,
     return (rgb, best_t) if with_t else rgb
 
 
+def jitter_exposure(images: np.ndarray, jittered: np.ndarray,
+                    exposure_jitter: float, rng: np.random.Generator
+                    ) -> np.ndarray:
+    """Per-view exposure gains: the RGB of each view ``jittered`` of
+    ``images`` ``[N, H, W, C]`` scaled in place by a gain drawn from
+    U(1 - j, 1 + j) with ``rng`` and clipped to [0, 1] (nothing is drawn
+    at ``exposure_jitter`` 0). Returns the ``[N]`` gains, 1 on the other
+    views."""
+    gains = np.ones(len(images), np.float32)
+    if exposure_jitter > 0.0:
+        gains[jittered] = rng.uniform(
+            1.0 - exposure_jitter, 1.0 + exposure_jitter, size=len(jittered)
+        ).astype(np.float32)
+        images[..., :3] = np.clip(
+            images[..., :3] * gains[:, None, None, None], 0.0, 1.0)
+    return gains
+
+
 def make_room_scene(
     n_views: int = 12, H: int = 64, W: int = 64, seed: int = 0,
     n_train: Optional[int] = None, exposure_jitter: float = 0.0,
@@ -254,14 +272,9 @@ def make_room_scene(
         n_train = max(1, int(0.8 * n_views))
     idx = np.arange(n_views)
     images = np.stack(images)
-    gains = np.ones(n_views, np.float32)
-    if exposure_jitter > 0.0:
-        n_jit = n_views if jitter_test else n_train
-        gains[:n_jit] = rng.uniform(
-            1.0 - exposure_jitter, 1.0 + exposure_jitter, size=n_jit
-        ).astype(np.float32)
-        images[:n_jit] = np.clip(
-            images[:n_jit] * gains[:n_jit, None, None, None], 0.0, 1.0)
+    gains = jitter_exposure(
+        images, np.arange(n_views if jitter_test else n_train),
+        exposure_jitter, rng)
     return {
         "exposure_gains": gains,
         "images": images,

@@ -1,6 +1,5 @@
 """The radiance field: encoders + MLP + out-of-bbox masking
-(models/field.py of the JAX package) without appearance latents or tensor
-parallelism.
+(models/field.py of the JAX package) without tensor parallelism.
 
 Three encoders, as ``i_embed`` says: 3, the block-hash grid (flat or
 ray-structured); 1, the multiresolution hash grid; 0 (any other value, as
@@ -14,6 +13,13 @@ Two schedules act on training queries only (``step`` given; evaluation
 passes none): ``freq_anneal_iters`` fades the grid levels in one after
 another (FreeNeRF's schedule on grid levels, ``level_anneal_weights``) and
 ``view_anneal_iters`` ramps the encoded view directions from zero.
+
+With ``n_appearance > 0`` (``--use_appearance``) the params hold a zero
+``[n_appearance, input_ch_views]`` table ``"appearance"`` of per-image
+latents (NeRF-W's appearance embedding, in view-feature space); a query's
+``view_bias`` rows are added to the encoded view directions after the view
+anneal. Evaluation passes none (the zero latent) or one fitted latent
+(``render/appearance.py``).
 
 With ``use_quantization`` (A-CAQ, ``losses/quantization.py``) the grid
 encoders' queries take the quantizer state: the grid's table is
@@ -105,6 +111,10 @@ class FieldConfig:
     # freq_anneal_iters steps, the view encoding over view_anneal_iters.
     freq_anneal_iters: int = 0
     view_anneal_iters: int = 0
+    # Per-image appearance latents (0 = off): the rows of a zero
+    # [n_appearance, input_ch_views] table, added to the encoded view
+    # directions of each image's training rays.
+    n_appearance: int = 0
 
     @property
     def input_ch(self) -> int:
@@ -174,6 +184,9 @@ def init_field_params(generator: torch.Generator, config: FieldConfig,
                 input_ch=config.input_ch, input_ch_views=config.input_ch_views,
                 output_ch=5 if config.n_importance > 0 else 4,
                 use_viewdirs=config.use_viewdirs, device=device)
+    if config.n_appearance > 0 and config.use_viewdirs:
+        params["appearance"] = torch.zeros(
+            config.n_appearance, config.input_ch_views, device=device)
     return params
 
 
@@ -498,7 +511,8 @@ def _mlp_quantizers(params: Params, mlp_name: str, config: FieldConfig,
 def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
                 viewdirs: Optional[torch.Tensor], config: FieldConfig,
                 step: Optional[int] = None,
-                quant_state: Optional[QuantState] = None, train: bool = True
+                quant_state: Optional[QuantState] = None, train: bool = True,
+                view_bias: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Optional[QuantState]]:
     """Query the field on an ``[R, S, 3]`` sample grid -> (raw ``[R, S,
     C]``, quant_state) (C = 4, 7 with ``predict_normals``; 5 for a PE net
@@ -507,8 +521,10 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
     With ``ray_groups`` or ``ray_strides`` set on the block grid the encode
     is the ray-structured one (JAX field.py:519-546); else the flat one.
     ``viewdirs`` ``[R, 3]`` unit directions are encoded once per ray and
-    broadcast over the samples. A training query (``step`` given) applies
-    the level and view anneals. Sigma is zeroed outside the bbox; the
+    broadcast over the samples; ``view_bias`` ``[R, D]`` (appearance
+    latents) is added to them after the view anneal (JAX field.py:557-567).
+    A training query (``step`` given) applies the level and view anneals.
+    Sigma is zeroed outside the bbox; the
     normal channels are kept as they are.
 
     A quantized grid field with a ``quant_state`` fake-quantizes the table,
@@ -538,6 +554,8 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
                           config.multires_views)  # [R, D]
         if config.view_anneal_iters > 0 and step is not None:
             vf = vf * _ramp(step, config.view_anneal_iters)
+        if view_bias is not None:
+            vf = vf + view_bias
         view_feats = vf[:, None, :].expand(r, s, vf.shape[-1]).reshape(r * s, -1)
 
     with record_function("mlp"):

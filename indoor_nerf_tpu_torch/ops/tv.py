@@ -4,6 +4,9 @@ A random cube of grid vertices per level is hashed and its squared
 adjacent differences summed. The cube sizes are static per level; the cube
 origins are the step's draws (``draw_tv_origins``), which the parity tests
 fill with the JAX ``randint`` of each level's key.
+
+``patch_depth_regularizer`` is the ``--reg_views`` loss on the depth of
+rendered ray patches, plain tensor ops under autograd.
 """
 
 from __future__ import annotations
@@ -59,3 +62,28 @@ def total_variation_loss(table: torch.Tensor, config: HashGridConfig,
         tv_z = torch.sum((emb[:, :, 1:, :] - emb[:, :, :-1, :]) ** 2)
         total = total + (tv_x + tv_y + tv_z) / cube
     return total
+
+
+def patch_depth_regularizer(depth: torch.Tensor, acc: torch.Tensor,
+                            patch: int, near: float, far: float,
+                            mode: str = "tv") -> torch.Tensor:
+    """Depth smoothness over the ``--reg_views`` patches (JAX ops/tv.py:78):
+    ``depth`` and ``acc`` are the flat ``[P * patch**2]`` maps of a render
+    of ``UnobservedPatchSampler`` rays.
+
+    ``"tv"``: the mean squared first differences of depth / (far - near)
+    along each patch axis (RegNeRF). ``"planar"``: the mean squared second
+    differences of the disparity ``(far - near) * acc / max(depth, 1e-6)``,
+    which is affine in the pixel coordinates on a plane, so a plane costs
+    zero at any slant, and an empty ray (acc 0) has disparity 0."""
+    d = depth.reshape(-1, patch, patch)
+    if mode == "planar":
+        a = acc.reshape(-1, patch, patch)
+        nd = (far - near) * a / torch.clamp_min(d, 1e-6)
+        return (torch.mean(torch.square(nd[:, 2:, :] - 2.0 * nd[:, 1:-1, :]
+                                        + nd[:, :-2, :]))
+                + torch.mean(torch.square(nd[:, :, 2:] - 2.0 * nd[:, :, 1:-1]
+                                          + nd[:, :, :-2])))
+    nd = d / (far - near)
+    return (torch.mean(torch.square(nd[:, 1:, :] - nd[:, :-1, :]))
+            + torch.mean(torch.square(nd[:, :, 1:] - nd[:, :, :-1])))

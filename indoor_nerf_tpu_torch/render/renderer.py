@@ -114,7 +114,8 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                 step: Optional[int] = None,
                 draws: Optional[Dict[str, torch.Tensor]] = None,
                 quant_state: Optional[Dict[str, Any]] = None,
-                train: bool = True
+                train: bool = True,
+                view_bias: Optional[torch.Tensor] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Any]]]:
     """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
     ``[N, 1]``). Returns (outputs, quant_state); the outputs are
@@ -134,7 +135,8 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     ``quant_state``, ``train`` and ``step`` go to every field query (A-CAQ,
     JAX renderer.py:66-133): a training render returns the state its
     queries calibrated, coarse pass first; with ``quant_state`` None every
-    fake quantizer is bypassed."""
+    fake quantizer is bypassed. ``view_bias`` ``[N, D]`` (appearance
+    latents) goes to the queries of both passes."""
     draws = draws or {}
     missing = sorted(set(_draw_shapes(config, rays_o.shape[0])) - set(draws))
     if missing:
@@ -157,7 +159,7 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
         mlp_name = "coarse"
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw, quant_state = query_field(params, mlp_name, pts, viewdirs, fc, step,
-                                   quant_state, train)
+                                   quant_state, train, view_bias)
     with record_function("composite"):
         out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd,
                           sigma_noise=draws.get("sigma_noise"))
@@ -173,7 +175,7 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
         pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
         raw, quant_state = query_field(
             params, "fine" if "fine" in params else "coarse", pts, viewdirs,
-            fc, step, quant_state, train)
+            fc, step, quant_state, train, view_bias)
         with record_function("composite"):
             out = raw2outputs(raw, z_vals, rays_d,
                               white_bkgd=config.white_bkgd,
@@ -237,6 +239,25 @@ def _sample_bytes(fc: FieldConfig) -> int:
     return enc + mlp + SAMPLE_BYTES
 
 
+# The activation quantizer of a quantized field (A-CAQ, evaluation mode)
+# holds f32 copies of a hidden layer's [samples, hidden_dim] activations
+# beside them (h / scale + zero point, its rounding and clamp, the
+# dequantized result: losses/quantization.py::learned_fake_quant) and the
+# MLP's own: chip_smoke.py's (aq1) measured a quantized flagship test set at
+# 77.6 KB a ray on an H100 (9.89 GiB above the memory held before it, in
+# tiles of 131,072 rays), 45.6 KB over the unquantized render's 32 KB, or
+# 5.6 copies of 32 samples x 64 f32 (PERF.md §6). Six copies bound it.
+ACT_QUANT_COPIES = 6
+
+
+def _act_quant_bytes(fc: FieldConfig) -> int:
+    """Device bytes per sample of the activation quantizer's copies
+    (``ACT_QUANT_COPIES``) in a quantized grid field; 0 otherwise."""
+    if not (fc.use_quantization and fc.uses_grid):
+        return 0
+    return ACT_QUANT_COPIES * 4 * fc.hidden_dim
+
+
 def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
     """Device bytes one ray of a test-mode render holds at its peak.
 
@@ -248,22 +269,27 @@ def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
 
     The hash grid and PE: the samples of the largest pass (the fine pass's
     ``n_samples + n_importance``) at ``_sample_bytes`` (0.76 MB at
-    configs/lego.txt's 192 samples x 16 levels)."""
+    configs/lego.txt's 192 samples x 16 levels).
+
+    A quantized grid field adds its activation quantizer's copies,
+    ``_act_quant_bytes`` a sample (48 KiB a ray at the flagship's 32
+    samples x 64)."""
     if config is None:
         return BYTES_PER_RAY
     fc = config.field
     if fc.i_embed != 3:
         n = (config.n_occ_samples if config.occupancy is not None
              else config.n_samples + config.n_importance)
-        return n * _sample_bytes(fc)
-    if not fc.block_grid.uses_tile_interp:
-        return BYTES_PER_RAY
+        return n * (_sample_bytes(fc) + _act_quant_bytes(fc))
     bg = fc.block_grid
     n_samples = (config.n_samples if config.occupancy is None
                  else config.n_occ_samples)
+    quant = n_samples * _act_quant_bytes(fc)
+    if not bg.uses_tile_interp:
+        return BYTES_PER_RAY + quant
     row_bytes = bg.n_features_per_level * bg.lanes_per_feature * (
         4 + (2 if bg.gather_dtype == "bfloat16" else 0))
-    return BYTES_PER_RAY + n_samples * bg.n_levels * row_bytes
+    return BYTES_PER_RAY + quant + n_samples * bg.n_levels * row_bytes
 
 
 def default_tile_rays(device: torch.device,
@@ -283,11 +309,14 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
                        K: torch.Tensor, near: float, far: float,
                        config: RenderConfig, H: int, W: int, tile_rays: int,
                        occ_state: Optional[OccState] = None,
-                       quant_state: Optional[Dict[str, Any]] = None
+                       quant_state: Optional[Dict[str, Any]] = None,
+                       view_bias: Optional[torch.Tensor] = None
                        ) -> Dict[str, torch.Tensor]:
     """Render ``c2ws`` ``[B, 3, 4]`` poses; maps carry a leading B axis.
     A quantized field renders with ``quant_state`` in evaluation mode
-    (rounded bits, the calibrated levels)."""
+    (rounded bits, the calibrated levels). ``view_bias`` ``[D]`` is one
+    appearance latent for every ray (JAX renderer.py:316-319); without it
+    the field renders with the zero latent."""
     B = c2ws.shape[0]
     rays = [get_rays(H, W, K, c2w) for c2w in c2ws]
     rays_o = torch.stack([r[0] for r in rays])
@@ -298,11 +327,14 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
     outs = {k: [] for k in MAP_KEYS}
     for s in range(0, rays_o.shape[0], tile_rays):
         sl = slice(s, s + tile_rays)
+        n = rays_o[sl].shape[0]
         out, _ = render_rays(
             params, rays_o[sl], rays_d[sl],
             None if viewdirs is None else viewdirs[sl],
             near_a[sl], far_a[sl], test_cfg, occ_state=occ_state, step=None,
-            quant_state=quant_state, train=False)
+            quant_state=quant_state, train=False,
+            view_bias=(None if view_bias is None
+                       else view_bias[None].expand(n, -1)))
         for k in MAP_KEYS:
             outs[k].append(out[k])
     flat = {k: torch.cat(v) for k, v in outs.items()}
@@ -317,19 +349,25 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
 def make_image_renderer(config: RenderConfig, H: int, W: int,
                         tile_rays: Optional[int] = None):
     """A full-image renderer ``(params, c2w, K, near, far[, occ_state,
-    quant_state]) -> maps`` on the device of the params. ``tile_rays=None``
-    sizes tiles from the card's memory and ``config``
+    quant_state, view_bias]) -> maps`` on the device of the params.
+    ``tile_rays=None`` sizes tiles from the card's memory and ``config``
     (``default_tile_rays``). ``params`` are ``serving_params`` (of the
-    same ``quant_state`` for a quantized field)."""
+    same ``quant_state`` for a quantized field); ``view_bias`` is an
+    appearance latent ``[D]`` shared by every ray (a fitted one,
+    ``render/appearance.py``)."""
 
-    def render_fn(params, c2w, K, near, far, occ_state=None, quant_state=None):
+    def render_fn(params, c2w, K, near, far, occ_state=None, quant_state=None,
+                  view_bias=None):
         dev = params_device(params)
         tile = tile_rays or default_tile_rays(dev, config)
         c2w = torch.as_tensor(np.asarray(c2w, np.float32)[:3, :4], device=dev)
         K = torch.as_tensor(np.asarray(K, np.float32), device=dev)
+        if view_bias is not None:
+            view_bias = torch.as_tensor(view_bias, dtype=torch.float32,
+                                        device=dev)
         out = _render_pose_block(params, c2w[None], K, float(near),
                                  float(far), config, H, W, tile, occ_state,
-                                 quant_state)
+                                 quant_state, view_bias)
         return {k: v[0] for k, v in out.items()}
 
     return render_fn

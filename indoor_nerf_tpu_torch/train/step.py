@@ -1,6 +1,5 @@
 """The training step: render -> loss -> backward -> RAdam -> grid refresh
-(train/step.py of the JAX package, without the reg patches and the
-appearance latents).
+(train/step.py of the JAX package).
 
     state, metrics = train_step(state, batch, config, generator)
 
@@ -28,8 +27,16 @@ A quantized field (``--use_quantization``) keeps its quantizer state in
 step, so the JAX ``lax.cond`` is a branch here), in MDL mode from a second,
 quantizer-free forward on the same rays and draws and ``state["infl_ema"]``.
 
-Off this path: the reg patches and appearance latents (ROADMAP.md Queue 1
-item 5c). The CLI refuses their flags (``train/trainer.py``).
+``--reg_views`` adds the batch's patch rays (``reg_rays_o``, ``reg_rays_d``
+of ``data/pipeline.py::UnobservedPatchSampler``): a second training render
+through the same field, occupancy grid and quantizer state, with draws of
+its own (``draws["reg"]``, made after every other draw of the step), whose
+depth smoothness (``ops/tv.py::patch_depth_regularizer``) enters the loss
+at ``reg_depth_tv_weight`` from ``reg_start_iter`` on; its quantizer
+calibration is dropped. The render runs on every step, as JAX's does: the
+gate only multiplies its term. ``--use_appearance`` adds the rows of
+``params["appearance"]`` of the batch's ``img_idx`` to its rays' view
+features (``_view_bias``).
 """
 
 from __future__ import annotations
@@ -63,7 +70,11 @@ from indoor_nerf_tpu_torch.ops.occupancy import (
     occupancy_update,
 )
 from indoor_nerf_tpu_torch.ops.rays import ndc_rays
-from indoor_nerf_tpu_torch.ops.tv import draw_tv_origins, total_variation_loss
+from indoor_nerf_tpu_torch.ops.tv import (
+    draw_tv_origins,
+    patch_depth_regularizer,
+    total_variation_loss,
+)
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig, draw_render, render_rays
 from indoor_nerf_tpu_torch.train.optim import (
     exp_decay_lr,
@@ -109,6 +120,13 @@ class TrainConfig:
     acaq_start_iter: int = 1000
     acaq_interval: int = 10
     priors: PriorConfig = PriorConfig()
+    # The --reg_views patches' depth smoothness (0 = off): patches of
+    # reg_patch_size^2 rays, "tv" (first differences of depth) or
+    # "planar" (second differences of disparity), from reg_start_iter on.
+    reg_patch_size: int = 8
+    reg_depth_tv_weight: float = 0.0
+    reg_mode: str = "tv"
+    reg_start_iter: int = 0
 
 
 def default_prior_weights() -> Dict[str, float]:
@@ -256,13 +274,22 @@ def _acaq_controller(state: TrainState, img_loss: torch.Tensor,
     return quant, infl_ema
 
 
+def reg_active(config: TrainConfig, n_reg_rays: int) -> bool:
+    """Whether a step renders ``n_reg_rays`` patch rays: a positive
+    ``reg_depth_tv_weight`` and a batch that carries them."""
+    return config.reg_depth_tv_weight > 0 and n_reg_rays > 0
+
+
 def draw_step(generator: torch.Generator, config: TrainConfig, step: int,
-              n_rays: int, with_coords: bool = False) -> Dict[str, Any]:
+              n_rays: int, with_coords: bool = False,
+              n_reg_rays: int = 0) -> Dict[str, Any]:
     """Every draw step ``step`` takes: the render's (``draw_render``), the TV
     rows (block grid) or cube origins (hash grid) while TV is on, the
     priors' (``draws["priors"]``, ``draw_priors``; ``with_coords`` where the
-    batch carries ``spatial_coords``) once they are active, and the grid
-    refresh's on refresh steps."""
+    batch carries ``spatial_coords``) once they are active, the grid
+    refresh's on refresh steps and, last, the patch render's
+    (``draws["reg"]``, for the ``n_reg_rays`` patch rays of ``reg_active``):
+    a step without patches draws what it drew before they came."""
     draws = draw_render(generator, n_rays, config.render)
     fc = config.render.field
     if _tv_active(config, step):
@@ -276,7 +303,47 @@ def draw_step(generator: torch.Generator, config: TrainConfig, step: int,
     if _refresh_due(config, step):
         cells, jitter = draw_occupancy_update(generator, config.render.occupancy)
         draws["occ_cells"], draws["occ_jitter"] = cells, jitter
+    if reg_active(config, n_reg_rays):
+        draws["reg"] = draw_render(generator, n_reg_rays, config.render)
     return draws
+
+
+def _view_bias(params: Dict[str, Any], fc, img_idx: Optional[torch.Tensor]
+               ) -> Optional[torch.Tensor]:
+    """The appearance latent rows of the batch's images ``[N, D]`` (JAX
+    :218-225), or None without appearance latents. The gradient of the
+    gather is dense over the table, as ``jnp.take``'s is, so RAdam's
+    moments of the rows the batch did not sample decay as in JAX."""
+    if fc.n_appearance > 0 and fc.use_viewdirs and img_idx is not None:
+        return params["appearance"][img_idx.long()]
+    return None
+
+
+def _patch_smoothness(state: TrainState, batch: Dict[str, torch.Tensor],
+                      config: TrainConfig, draws: Dict[str, torch.Tensor]
+                      ) -> torch.Tensor:
+    """The patches' depth smoothness (JAX :294-330): the patch rays
+    rendered in training mode through the step's params, occupancy grid
+    and quantizer state, viewdirs of the world rays, NDC where the render
+    asks for it, and no appearance latent; the calibration the render
+    returns is dropped (the quantizers track the image rays alone)."""
+    rc = config.render
+    reg_o, reg_d = batch["reg_rays_o"], batch["reg_rays_d"]
+    reg_vd = None
+    if rc.field.use_viewdirs:
+        reg_vd = reg_d / torch.linalg.norm(reg_d, dim=-1, keepdim=True)
+    if rc.ndc:
+        Hn, Wn, focal_n = config.ndc_hwf
+        reg_o, reg_d = ndc_rays(Hn, Wn, focal_n, 1.0, reg_o, reg_d)
+    out, _ = render_rays(state["params"], reg_o, reg_d, reg_vd,
+                         config.near * torch.ones_like(reg_d[..., :1]),
+                         config.far * torch.ones_like(reg_d[..., :1]), rc,
+                         occ_state=state["occ"], step=state["step"],
+                         draws=draws, quant_state=state.get("quant"),
+                         train=True)
+    return patch_depth_regularizer(out["depth_map"], out["acc_map"],
+                                   config.reg_patch_size, config.near,
+                                   config.far, config.reg_mode)
 
 
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
@@ -287,14 +354,18 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     """One optimization step over the ``[N]`` rays of ``batch``
     (``rays_o``, ``rays_d``, ``target``, each ``[N, 3]``, and optionally
     ``spatial_coords`` ``[N, 2]``, the pixels' (row, col), which the
-    priors' consistency term pairs by).
+    priors' consistency term pairs by, ``img_idx`` ``[N]``, the rays'
+    images, which the appearance latents read, and ``reg_rays_o``,
+    ``reg_rays_d`` ``[P * patch^2, 3]``, the ``--reg_views`` patch rays).
 
     The loss is MSE + ``sparse_loss_weight`` * the summed ray entropy (with
     a fine pass, of both passes: the coarse pass's MSE and entropy are
     added) + ``tv_loss_weight`` * the grid's TV (``block_tv_loss`` or the
     hash grid's ``total_variation_loss``) while ``step <= tv_cutoff_iter``
     (JAX :235-266), + the distortion (:270-274), + the table decay
-    (:281-292), + the structural priors once active, at
+    (:281-292), + ``reg_depth_tv_weight`` * the patches' depth smoothness
+    from ``reg_start_iter`` on (:294-330), + the structural priors once
+    active, at
     ``prior_ramp_weights`` of the host's base ``prior_weights``
     (``default_prior_weights`` where None; :331-368). Then RAdam at the
     learning rate of the optimizer's step before its increment (:383), the
@@ -303,18 +374,23 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     and the params EMA (:511-517). With a quantized field the render's
     queries fake-quantize and calibrate (``state["quant"]``), and on
     controller steps (``acaq_active``) the A-CAQ controller moves the bits
-    (:413-492). Returns (state, metrics{loss, img_loss, psnr, lr} and, on
-    steps with the priors, the ``structural_*`` diagnostics of
-    ``combine_structural_losses``); ``state`` is updated in place."""
+    (:413-492). Returns (state, metrics{loss, img_loss, psnr, lr}, with a
+    positive ``reg_depth_tv_weight`` the patches' ungated
+    ``reg_depth_tv``, and, on steps with the priors, the ``structural_*``
+    diagnostics of ``combine_structural_losses``); ``state`` is updated in
+    place."""
     rc = config.render
     fc = rc.field
     step = state["step"]
     params = state["params"]
     rays_o, rays_d, target = batch["rays_o"], batch["rays_d"], batch["target"]
     spatial_coords = batch.get("spatial_coords")
+    reg_o = batch.get("reg_rays_o")
+    n_reg = 0 if reg_o is None else reg_o.shape[0]
     if draws is None:
         draws = draw_step(generator, config, step, rays_o.shape[0],
-                          spatial_coords is not None)
+                          spatial_coords is not None, n_reg)
+    view_bias = _view_bias(params, fc, batch.get("img_idx"))
 
     viewdirs = None
     if fc.use_viewdirs:
@@ -334,7 +410,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     out, new_quant = render_rays(params, rays_o, rays_d, viewdirs, near, far,
                                  rc, occ_state=state["occ"], step=step,
                                  draws=draws, quant_state=state.get("quant"),
-                                 train=True)
+                                 train=True, view_bias=view_bias)
     img_loss = torch.mean((out["rgb_map"] - target) ** 2)
     loss = img_loss
     sparsity = torch.sum(out["sparsity_loss"])
@@ -361,6 +437,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         # Level l weighs 2^(l - (L-1)): the finest 1, each coarser half.
         decay = sum(per_level[l] * 2.0 ** (l - (L - 1)) for l in range(L))
         loss = loss + config.table_decay_weight * decay
+    reg_tv = None
+    if reg_active(config, n_reg):
+        with record_function("reg_patches"):
+            reg_tv = _patch_smoothness(state, batch, config, draws["reg"])
+        gate = 1.0 if step >= config.reg_start_iter else 0.0
+        loss = loss + config.reg_depth_tv_weight * gate * reg_tv
     diag = {}
     if priors_active(config, step):
         with record_function("priors"):
@@ -371,8 +453,11 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         loss = loss + structural
 
     leaves = named_leaves(params)
+    # A batch without img_idx does not reach the appearance table: it gets
+    # no gradient, which radam_update counts as zero, as JAX's is.
+    wrt = [k for k in leaves if k != "appearance" or view_bias is not None]
     with record_function("backward"):
-        grads = torch.autograd.grad(loss, list(leaves.values()))
+        grads = torch.autograd.grad(loss, [leaves[k] for k in wrt])
     fp_loss = None
     if acaq_active(config, step) and fc.quant.target_metric is None:
         # The MDL anchor: this batch's loss without any quantizer, on the
@@ -380,12 +465,13 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         with torch.no_grad(), record_function("acaq_fp_forward"):
             out_fp, _ = render_rays(params, rays_o, rays_d, viewdirs, near,
                                     far, rc, occ_state=state["occ"],
-                                    step=step, draws=draws, train=True)
+                                    step=step, draws=draws, train=True,
+                                    view_bias=view_bias)
             fp_loss = torch.mean((out_fp["rgb_map"] - target) ** 2)
         del out_fp
     lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
     with record_function("optimizer"):
-        radam_update(leaves, dict(zip(leaves, grads)), state["opt"], lr,
+        radam_update(leaves, dict(zip(wrt, grads)), state["opt"], lr,
                      pocketnerf_hyper_fn)
 
     il = img_loss.detach()
@@ -423,5 +509,8 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         "psnr": -10.0 * torch.log(il) / math.log(10.0),
         "lr": lr,
     }
+    if config.reg_depth_tv_weight > 0:
+        metrics["reg_depth_tv"] = (il.new_zeros(()) if reg_tv is None
+                                   else reg_tv.detach())
     metrics.update({f"structural_{k}": v.detach() for k, v in diag.items()})
     return state, metrics

@@ -1,6 +1,6 @@
 """The training entry point (train/trainer.py of the JAX package: the loop of
-its ``train``, without the multi-device parts, the reg patches and the
-appearance latents) and the static config assembly that serving shares.
+its ``train``, without the multi-device parts) and the static config
+assembly that serving shares.
 
     python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego_tpu.txt \
         --datadir DIR
@@ -63,10 +63,20 @@ held-out PSNR multiplies the prior weights by 0.7 (not below
 ``--table_decay_weight``, ``--ema_decay`` (held-out renders then use the
 params EMA), ``--freq_anneal_iters`` and ``--view_anneal_iters`` are the
 step's other extensions (``train/step.py``, ``models/field.py``).
+
+``--reg_views N`` adds N patches of ``--reg_patch_size``² rays from novel
+poses (``--reg_pose_mode``) to every batch and their depth smoothness
+(``--reg_mode``, ``--reg_depth_tv_weight``) to the loss from
+``--reg_start_iter`` on; ``--use_appearance`` gives each image of the scene
+a latent added to its rays' view features (held-out renders use none).
+``--render_only --render_test --render_fit_appearance`` scores each
+held-out view by the NeRF-W half-image protocol (``render/appearance.py``)
+into ``fit_appearance.json``, then renders the test set.
 """
 
 from __future__ import annotations
 
+import json
 import os
 import pickle
 import sys
@@ -79,7 +89,11 @@ import torch
 from indoor_nerf_tpu_torch import resolve_device
 from indoor_nerf_tpu_torch.data.images import installed
 from indoor_nerf_tpu_torch.data.load import SceneData, load_dataset
-from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler, ImageRaySampler
+from indoor_nerf_tpu_torch.data.pipeline import (
+    BatchedRaySampler,
+    ImageRaySampler,
+    UnobservedPatchSampler,
+)
 from indoor_nerf_tpu_torch.losses.quantization import QuantConfig, flat_bits
 from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
@@ -93,6 +107,7 @@ from indoor_nerf_tpu_torch.train.step import (
     draw_step,
     eval_params,
     init_train_state,
+    reg_active,
     train_step,
 )
 from indoor_nerf_tpu_torch.train.optim import named_leaves
@@ -104,21 +119,15 @@ from indoor_nerf_tpu_torch.utils.checkpoint import (
 from indoor_nerf_tpu_torch.utils.evaluation import ComprehensiveEvaluator
 from indoor_nerf_tpu_torch.utils.metrics import MetricsLogger
 
-_ITEM5C = "Queue 1 item 5c (reg patches and appearance latents)"
-# Flags whose non-default value changes the model or the step, with the
-# ROADMAP item that brings each.
-_UNPORTED = (
-    ("reg_views", 0, _ITEM5C),
-    ("use_appearance", False, _ITEM5C),
-)
 PRIOR_KEYS = ("planarity", "manhattan", "normal_consistency", "depth_prior")
 # The step's structural-prior diagnostics the [PRIOR] line prints.
 PRIOR_DIAG = ("manhattan", "planarity", "normal_consistency",
               "semantic_floor_count", "semantic_wall_count",
               "wall_cluster_angle_deg")
-# Flags of the training loop only, refused by ``train``.
+# The flags of the multi-device training loop, refused by ``train`` with the
+# ROADMAP item that brings them.
 _ITEM8 = "Queue 1 item 8 (multi-device)"
-_UNPORTED_LOOP = (
+_UNPORTED = (
     ("multihost", False, _ITEM8),
     ("mesh_shape", None, _ITEM8),
 )
@@ -218,7 +227,6 @@ def enable_normals(args) -> None:
 def build_train_config(args, scene: SceneData) -> TrainConfig:
     """Assemble the static config from CLI args + scene geometry (the JAX
     ``build_train_config``, for what the port runs)."""
-    _refuse(args, _UNPORTED)
     if args.use_occupancy and args.N_importance > 0:
         raise ValueError(
             f"--use_occupancy with --N_importance {args.N_importance}: the "
@@ -311,6 +319,10 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         compute_dtype="bfloat16" if args.precision == "bf16" else "float32",
         freq_anneal_iters=args.freq_anneal_iters,
         view_anneal_iters=args.view_anneal_iters,
+        # One latent per image of the scene, train and held-out alike (JAX
+        # trainer.py:161-163); they ride the view encoding.
+        n_appearance=(len(scene.images)
+                      if args.use_appearance and args.use_viewdirs else 0),
         use_quantization=args.use_quantization,
         quant=QuantConfig(init_bits=float(args.quantization_bits),
                           bit_penalty=args.bit_penalty,
@@ -359,6 +371,11 @@ def build_train_config(args, scene: SceneData) -> TrainConfig:
         structural_loss_ramp_iters=args.structural_loss_ramp_iters,
         use_acaq=args.use_acaq,
         acaq_start_iter=args.acaq_start_iter,
+        reg_patch_size=args.reg_patch_size,
+        reg_depth_tv_weight=(args.reg_depth_tv_weight if args.reg_views > 0
+                             else 0.0),
+        reg_mode=args.reg_mode,
+        reg_start_iter=args.reg_start_iter,
     )
 
 
@@ -369,28 +386,64 @@ def _quant_bits(flat: np.ndarray, n_embed: int) -> Dict[str, np.ndarray]:
     return {"embed": flat[:n_embed], "network": flat[n_embed:]}
 
 
+def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int):
+    """``(sample, skip)`` of the run's batches (JAX trainer.py:449-527):
+    ``sample(i)`` is step i's batch of numpy arrays, those the step of
+    ``cfg`` reads: ``rays_o``, ``rays_d``, ``target``, with
+    ``--no_batching`` ``spatial_coords``, with the appearance latents
+    ``img_idx`` and, while the patch smoothness weighs (``reg_active``),
+    the patch rays ``reg_rays_o``/``reg_rays_d``. The rays come from the
+    shuffled pool of every training ray or, with ``--no_batching``, from one
+    image (``--precrop_iters``); the patches from ``UnobservedPatchSampler``
+    (its seed ``seed + 13``), drawn whenever ``--reg_views`` is set, as
+    JAX's. ``skip(i)`` makes step i's draws and, for the image sampler, no
+    rays."""
+    H, W, _ = scene.hwf
+    if args.no_batching:
+        sampler = ImageRaySampler(
+            scene.images, scene.poses, scene.i_train, H, W, scene.K,
+            args.N_rand, precrop_iters=args.precrop_iters,
+            precrop_frac=args.precrop_frac, seed=seed)
+        sample, skip = sampler.next, sampler.skip
+    else:
+        sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train,
+                                    H, W, scene.K, args.N_rand, seed=seed)
+        sample = skip = lambda i: sampler.next()
+    drop = set() if cfg.render.field.n_appearance > 0 else {"img_idx"}
+    if args.reg_views <= 0:
+        return (lambda i: {k: v for k, v in sample(i).items()
+                           if k not in drop}), skip
+    reg = UnobservedPatchSampler(
+        scene.poses[scene.i_train], H, W, scene.K, n_patches=args.reg_views,
+        patch=args.reg_patch_size, seed=seed + 13,
+        pose_mode=args.reg_pose_mode)
+    if not reg_active(cfg, args.reg_views * args.reg_patch_size ** 2):
+        drop |= {"reg_rays_o", "reg_rays_d"}
+
+    def sample_reg(i):
+        b = sample(i)
+        b.update(reg.next())
+        return {k: v for k, v in b.items() if k not in drop}
+
+    def skip_reg(i):
+        skip(i)
+        reg.next()
+
+    return sample_reg, skip_reg
+
+
 def one_batch(args, device, seed=None):
     """``(cfg, batch)`` for single steps of the CLI configuration ``args``:
-    the static config ``train`` builds, and the first batch of the scene's
-    training rays from ``seed`` (``args.seed`` by default) on ``device``;
-    with ``--no_batching`` the image sampler's, with its pixels'
-    ``spatial_coords``."""
+    the static config ``train`` builds, and step 1's batch of
+    ``make_sampler`` from ``seed`` (``args.seed`` by default) on
+    ``device``."""
     enable_normals(args)
     scene = load_dataset(args)
-    H, W, _ = scene.hwf
     cfg = build_train_config(args, scene)
-    seed = args.seed if seed is None else seed
-    if args.no_batching:
-        b = ImageRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                            scene.K, args.N_rand,
-                            precrop_iters=args.precrop_iters,
-                            precrop_frac=args.precrop_frac, seed=seed).next(1)
-    else:
-        b = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                              scene.K, args.N_rand, seed=seed).next()
-    return cfg, {k: torch.from_numpy(b[k]).to(device)
-                 for k in ("rays_o", "rays_d", "target", "spatial_coords")
-                 if k in b}
+    sample, _ = make_sampler(args, scene, cfg,
+                             args.seed if seed is None else seed)
+    return cfg, {k: torch.from_numpy(v).to(device)
+                 for k, v in sample(1).items()}
 
 
 def _write_run_files(args, logdir: str) -> None:
@@ -413,8 +466,10 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
     ``--render_test`` the held-out views against their images, from the
     state resumed, into ``renderonly_{path|test}_{step:06d}/`` with its
     video; through a bake of the field and the baked renderer with
-    ``--render_baked``. Returns the step, the PSNRs, the directory and the
-    video."""
+    ``--render_baked``. With ``--render_test --render_fit_appearance``
+    first the half-image protocol on each held-out view (``_fit_appearance``).
+    Returns the step, the PSNRs, the directory and the video, and the
+    fit's results under ``fit_appearance`` where it ran."""
     start = int(state["step"])
     print("RENDER ONLY")
     if start == 0:
@@ -431,6 +486,9 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
             "test" if args.render_test else "path", start))
         os.makedirs(savedir, exist_ok=True)
     print("test poses shape", scene.render_poses.shape)
+    fit = None
+    if args.render_test and args.render_fit_appearance:
+        fit = _fit_appearance(scene, cfg, state, savedir)
     image_renderer = None
     if args.render_baked:
         from indoor_nerf_tpu_torch.models.field import serving_params
@@ -463,7 +521,47 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
     print("Done rendering", savedir)
     video = (write_video(os.path.join(savedir, "video.mp4"), rgbs)
              if savedir is not None else None)
-    return {"step": start, "psnrs": psnrs, "savedir": savedir, "video": video}
+    out = {"step": start, "psnrs": psnrs, "savedir": savedir, "video": video}
+    if fit is not None:
+        out["fit_appearance"] = fit
+    return out
+
+
+def _fit_appearance(scene: SceneData, cfg: TrainConfig, state: Dict,
+                    savedir: Optional[str]) -> Dict:
+    """The NeRF-W half-image protocol on every held-out view (JAX
+    trainer.py:319-349): a latent fitted on the left half of the view
+    (``render/appearance.py``), the right half scored with the zero and the
+    fitted latent, from the params (not their EMA) without quantizers, as
+    JAX runs it. Prints the ``[fit-appearance]`` lines and writes
+    ``fit_appearance.json`` into ``savedir`` with JAX's keys; returns its
+    dict."""
+    from indoor_nerf_tpu_torch.render.appearance import (
+        eval_view_with_fitted_latent,
+    )
+    from indoor_nerf_tpu_torch.render.renderer import make_image_renderer
+
+    H, W, _ = scene.hwf
+    fit_render = make_image_renderer(cfg.render.test_mode(), int(H), int(W))
+    rows = []
+    for vi, i_test in enumerate(np.asarray(scene.i_test)):
+        res = eval_view_with_fitted_latent(
+            fit_render, state["params"], np.asarray(scene.poses)[i_test],
+            scene.K, scene.near, scene.far, np.asarray(scene.images[i_test]),
+            cfg.render, occ_state=state["occ"])
+        rows.append(res)
+        print(f"[fit-appearance] view {vi}: right-half PSNR zero "
+              f"{res['psnr_right_zero']:.2f} -> fitted "
+              f"{res['psnr_right_fitted']:.2f}")
+    mean_fit = float(np.mean([r["psnr_right_fitted"] for r in rows]))
+    mean_zero = float(np.mean([r["psnr_right_zero"] for r in rows]))
+    print(f"[fit-appearance] mean right-half PSNR: zero {mean_zero:.2f} "
+          f"fitted {mean_fit:.2f}")
+    out = {"views": rows, "mean_zero": mean_zero, "mean_fitted": mean_fit}
+    if savedir is not None:
+        with open(os.path.join(savedir, "fit_appearance.json"), "w") as f:
+            json.dump(out, f, indent=2)
+    return out
 
 
 def _check_finite(i: int, metrics: Dict, state: Dict) -> None:
@@ -515,10 +613,7 @@ def train(args) -> Dict:
     structural priors at the end) and ``prior_decays`` (step and weights of
     each overfitting decay), ``state`` and ``logdir``; with
     ``--render_only``, ``_render_only``'s dict."""
-    _refuse(args, _UNPORTED_LOOP)
-    if args.render_only and args.render_test and args.render_fit_appearance:
-        raise NotImplementedError(
-            f"--render_fit_appearance comes with ROADMAP.md {_ITEM5C}")
+    _refuse(args, _UNPORTED)
     enable_normals(args)
     t_load = time.perf_counter()
     scene = load_dataset(args)
@@ -526,7 +621,6 @@ def train(args) -> Dict:
     print(f"[data] {args.dataset_type} scene of {len(scene.images)} "
           f"{scene.images.shape[1]}x{scene.images.shape[2]} views loaded in "
           f"{load_seconds:.2f} s")
-    H, W, _ = scene.hwf
     cfg = build_train_config(args, scene)
     device = resolve_device(args.device)
     logdir = logdir_of(args)
@@ -547,20 +641,16 @@ def train(args) -> Dict:
 
     # The JAX trainer's per-step keys split from PRNGKey(seed + 1).
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    if args.no_batching:
-        sampler = ImageRaySampler(
-            scene.images, scene.poses, scene.i_train, H, W, scene.K,
-            args.N_rand, precrop_iters=args.precrop_iters,
-            precrop_frac=args.precrop_frac, seed=args.seed)
-        sample, skip = sampler.next, sampler.skip
-    else:
-        sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train,
-                                    H, W, scene.K, args.N_rand, seed=args.seed)
-        sample = skip = lambda i: sampler.next()
+    sample, skip = make_sampler(args, scene, cfg, args.seed)
+    n_reg = args.reg_views * args.reg_patch_size ** 2
+    if args.reg_views > 0:
+        print(f"[reg] unobserved-view depth TV: {args.reg_views} "
+              f"patch(es)/step of {args.reg_patch_size}^2 rays, weight "
+              f"{args.reg_depth_tv_weight}")
     t_replay = time.perf_counter()
     for s in range(start):
         skip(s + 1)
-        draw_step(gen, cfg, s, args.N_rand, args.no_batching)
+        draw_step(gen, cfg, s, args.N_rand, args.no_batching, n_reg)
     if start:
         print(f"replayed the sampler and the draws of {start} steps in "
               f"{time.perf_counter() - t_replay:.2f} s")
@@ -696,10 +786,8 @@ def train(args) -> Dict:
                     + [torch.profiler.ProfilerActivity.CUDA]
                     * (device.type == "cuda")))
                 profiler.start()
-            b = sample(i)
-            batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
-                     for k in ("rays_o", "rays_d", "target", "spatial_coords")
-                     if k in b}
+            batch = {k: torch.from_numpy(v).to(device, non_blocking=True)
+                     for k, v in sample(i).items()}
             state, metrics = train_step(state, batch, cfg, gen,
                                         prior_weights=prior_weights)
             if args.debug_nans:

@@ -7,7 +7,8 @@ the newest is loaded unless ``--no_reload``, ``--ft_path`` pins one file, and
 
 The port's own payload is the whole train state as one flat dict of CPU
 tensors and plain ints, keyed by dotted leaf paths (``params.table``,
-``params.coarse.sigma_net.0.w``, ``opt.mu.table``, ``opt.step``,
+``params.coarse.sigma_net.0.w``, ``params.appearance`` (the latents of
+``--use_appearance``), ``opt.mu.table``, ``opt.step``,
 ``occ.density``, ``ema.table`` (the params EMA of ``--ema_decay``),
 ``quant.embed.soft_bits`` (the A-CAQ quantizers of a quantized field),
 ``step``, ``best_loss``, ``infl_ema``, ...), written with ``torch.save``
@@ -119,10 +120,13 @@ def _restore_own(payload: Dict[str, Any], template: Dict[str, Any],
     extra = [k for k in payload if k.startswith(("params.", "ema.", "quant."))
              and k not in leaves]
     if extra:
+        hint = ""
+        if extra[0].startswith("quant."):
+            hint = " (train and serve it with --use_quantization)"
+        elif extra[0].endswith(".appearance"):
+            hint = " (train and serve it with --use_appearance)"
         raise ValueError(f"{path}: leaf {extra[0]!r} has no place in the "
-                         "configuration's state; it would be dropped"
-                         + (" (train and serve it with --use_quantization)"
-                            if extra[0].startswith("quant.") else ""))
+                         f"configuration's state; it would be dropped{hint}")
     with torch.no_grad():
         for name, t in leaves.items():
             if name not in payload:

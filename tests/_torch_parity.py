@@ -96,19 +96,14 @@ def both_train_states(jcfg, seed=0):
     return jstate, state_from_numpy(jax_train_state_numpy(jstate))
 
 
-def jax_step_draws(key, jcfg, n_rays, step, with_coords=False):
-    """The draws the JAX ``train_step(key)`` makes at ``step``, replayed
-    for the port's ``draws=``: the key splits of train/step.py:187,
-    render/renderer.py:89, ops/sampling.py (the stratified jitter, the
-    fine pass's inverse-CDF draws), ops/volume.py:56 (the sigma noise of
-    each pass), ops/tv.py:42-51 (the hash grid's cube origins),
-    losses/priors.py (``jax_prior_draws``, once the priors are active;
-    ``with_coords`` where the batch has ``spatial_coords``) and
-    ops/occupancy.py:102,142."""
+def jax_render_draws(k_render, jcfg, n_rays):
+    """The draws the JAX ``render_rays(k_render)`` of a training render of
+    ``n_rays`` rays makes: the key splits of render/renderer.py:89,
+    ops/sampling.py (the stratified jitter, the fine pass's inverse-CDF
+    draws), ops/occupancy.py and ops/volume.py:56 (the sigma noise of each
+    pass), as ``draw_render`` returns them (numpy)."""
     rc = jcfg.render
     oc = rc.occupancy
-    fc = rc.field
-    k_render, k_tv, k_priors, k_occ = jax.random.split(key, 4)
     k_strat, k_pdf, k_noise0, k_noise1 = jax.random.split(k_render, 4)
     draws = {}
     if oc is not None:
@@ -134,6 +129,22 @@ def jax_step_draws(key, jcfg, n_rays, step, with_coords=False):
         if oc is None and rc.n_importance > 0:
             draws["sigma_noise1"] = np.asarray(jax.random.normal(
                 k_noise1, (n_rays, S + rc.n_importance))) * std
+    return draws
+
+
+def jax_step_draws(key, jcfg, n_rays, step, with_coords=False, n_reg=0):
+    """The draws the JAX ``train_step(key)`` makes at ``step``, replayed
+    for the port's ``draws=``: the key splits of train/step.py:187, the
+    main render's (``jax_render_draws``), ops/tv.py:42-51 (the hash grid's
+    cube origins), losses/priors.py (``jax_prior_draws``, once the priors
+    are active; ``with_coords`` where the batch has ``spatial_coords``),
+    ops/occupancy.py:102,142 and, for ``n_reg`` patch rays, the patch
+    render's of ``k_reg = fold_in(key, 17)`` (:191) under ``"reg"``."""
+    rc = jcfg.render
+    oc = rc.occupancy
+    fc = rc.field
+    k_render, k_tv, k_priors, k_occ = jax.random.split(key, 4)
+    draws = jax_render_draws(k_render, jcfg, n_rays)
     tv_on = jcfg.tv_loss_weight > 0 and step <= jcfg.tv_cutoff_iter
     if tv_on and fc.i_embed == 3:
         bg = fc.block_grid
@@ -150,6 +161,10 @@ def jax_step_draws(key, jcfg, n_rays, step, with_coords=False):
             k_cell, (m,), 0, oc.n_cells, jnp.int32)).astype(np.int64)
         draws["occ_jitter"] = np.asarray(jax.random.uniform(k_jit, (m, 3)))
     out = {k: torch.from_numpy(np.array(v)) for k, v in draws.items()}
+    if jcfg.reg_depth_tv_weight > 0 and n_reg > 0:
+        out["reg"] = {k: torch.from_numpy(np.array(v)) for k, v in
+                      jax_render_draws(jax.random.fold_in(key, 17), jcfg,
+                                       n_reg).items()}
     if (jcfg.use_structural_priors and fc.predict_normals
             and step >= jcfg.structural_loss_start_iter):
         out["priors"] = {k: torch.from_numpy(np.array(v)) for k, v in
@@ -267,14 +282,16 @@ def step_batch(scene, with_coords, seed=1):
 
 
 def one_step(flags, step=0, with_coords=False, prior_weights=None, key=5,
-             edit=None):
+             edit=None, extra=None):
     """One step of both packages from one state (its step counter set to
     ``step``; the table O(1) from a seed, so that the field is opaque and
     the table's own terms are not lost under the image loss; ``edit``, if
     given, maps the JAX state to the one both start from) on one batch
-    with the JAX draws. Returns (JAX metrics, port metrics, JAX state
-    before and after as numpy, port state after as numpy, the port step's
-    draws)."""
+    with the JAX draws; ``extra``, if given, maps the scene to more arrays
+    of the batch (the patch rays ``reg_rays_o``/``reg_rays_d``, whose
+    count sets the patch render's draws, and ``img_idx``). Returns (JAX
+    metrics, port metrics, JAX state before and after as numpy, port state
+    after as numpy, the port step's draws)."""
     jcfg, tcfg, scene = configs(flags)
     jstate, _ = both_train_states(jcfg)
     table = np.random.default_rng(7).standard_normal(
@@ -287,6 +304,9 @@ def one_step(flags, step=0, with_coords=False, prior_weights=None, key=5,
         jstate = edit(jstate)
     tstate = state_from_numpy(jax_train_state_numpy(jstate))
     batch = step_batch(scene, with_coords)
+    if extra is not None:
+        batch.update(extra(scene))
+    n_reg = len(batch["reg_rays_o"]) if "reg_rays_o" in batch else 0
     k = jax.random.PRNGKey(key)
     before = jax_train_state_numpy(jstate)
     kw = {}
@@ -294,7 +314,7 @@ def one_step(flags, step=0, with_coords=False, prior_weights=None, key=5,
         kw["prior_weights"] = {n: jnp.float32(v) for n, v in prior_weights.items()}
     jnew, jm = jax_step_fn(jcfg)(
         jstate, {n: jnp.asarray(v) for n, v in batch.items()}, k, **kw)
-    draws = jax_step_draws(k, jcfg, N_RAYS, step, with_coords)
+    draws = jax_step_draws(k, jcfg, N_RAYS, step, with_coords, n_reg)
     tnew, tm = train_step(tstate,
                           {n: torch.from_numpy(v) for n, v in batch.items()},
                           tcfg, draws=draws, prior_weights=prior_weights)

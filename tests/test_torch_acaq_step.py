@@ -340,3 +340,21 @@ def test_eval_render_with_calibrated_quant_state(flags):
             tstate["params"]["table"].detach(), tstate["quant"], fc,
             train=False, step=None)
         assert torch.equal(sp["table"], tbh.gather_table(tq, fc.block_grid))
+
+
+@pytest.mark.parametrize("flags", [TINY_FLAGSHIP, TINY_HASH],
+                         ids=["block", "hash"])
+def test_bytes_per_ray_counts_the_activation_quantizer(flags):
+    """The render's tile model: a quantized grid field holds, per sample,
+    ``ACT_QUANT_COPIES`` f32 copies of a hidden layer's activations more
+    than the same field unquantized (the activation quantizer's
+    temporaries, which (aq1) measured on the card)."""
+    from indoor_nerf_tpu_torch.render import renderer
+
+    plain = configs(flags)[1].render
+    quant = configs(flags + QUANT)[1].render
+    n = (plain.n_occ_samples if plain.occupancy is not None
+         else plain.n_samples + plain.n_importance)
+    extra = n * renderer.ACT_QUANT_COPIES * 4 * quant.field.hidden_dim
+    assert extra > 0
+    assert renderer.bytes_per_ray(quant) == renderer.bytes_per_ray(plain) + extra

@@ -233,6 +233,45 @@ def test_room_scene_in_blender_layout(tmp_path):
     assert [len(i) for i in got[4]] == [6, 2, 2]
 
 
+@pytest.mark.parametrize("jitter_test", [False, True])
+def test_room_scene_exposure_jitter(jitter_test):
+    """``make_room_blender_scene(exposure_jitter=0.25)``: the training
+    views (with ``jitter_test`` the held-out ones too) are the clean views
+    times their gain in U(0.75, 1.25), clipped to [0, 1]; the other views
+    and the alpha stay clean, with gain 1; the gains repeat run to run."""
+    from indoor_nerf_tpu_torch.data.scene_files import make_room_blender_scene
+    from indoor_nerf_tpu_torch.data.synthetic import jitter_exposure
+
+    clean = make_room_blender_scene(8, 12, 12)
+    runs = [make_room_blender_scene(8, 12, 12, exposure_jitter=0.25,
+                                    jitter_test=jitter_test)
+            for _ in range(2)]
+    np.testing.assert_array_equal(runs[0]["images"], runs[1]["images"])
+    np.testing.assert_array_equal(clean["exposure_gains"], np.ones(8))
+    got, gains = runs[0]["images"], runs[0]["exposure_gains"]
+    train, held = clean["i_split"][0], clean["i_split"][2]
+    jittered = np.arange(8) if jitter_test else train
+    assert gains.dtype == np.float32 and gains.shape == (8,)
+    assert np.all((0.75 <= gains[jittered]) & (gains[jittered] <= 1.25))
+    assert len(np.unique(gains[jittered])) == len(jittered)
+    if not jitter_test:
+        np.testing.assert_array_equal(gains[held], 1.0)
+        np.testing.assert_array_equal(got[held], clean["images"][held])
+    want = np.clip(clean["images"][..., :3]
+                   * gains[:, None, None, None], 0.0, 1.0)
+    np.testing.assert_array_equal(got[..., :3], want)
+    np.testing.assert_array_equal(got[..., 3], 1.0)
+    assert not np.array_equal(got[jittered], clean["images"][jittered])
+    # The clip, on views bright enough to saturate; the alpha untouched.
+    bright = np.full((8, 2, 2, 4), 0.95, np.float32)
+    g = jitter_exposure(bright, np.arange(8), 0.25, np.random.default_rng(1))
+    assert (g > 1 / 0.95).any() and (g < 1).any()
+    np.testing.assert_array_equal(
+        bright[..., :3], np.broadcast_to(np.minimum(
+            np.float32(0.95) * g, 1.0)[:, None, None, None], (8, 2, 2, 3)))
+    np.testing.assert_array_equal(bright[..., 3], np.float32(0.95))
+
+
 @pytest.mark.parametrize("kw", [{}, {"spherify": True},
                                 {"recenter": False, "bd_factor": None},
                                 {"path_zflat": True}])

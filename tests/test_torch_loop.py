@@ -121,9 +121,12 @@ def test_render_only_baked_and_without_a_checkpoint(lego_run, tmp_path, capsys):
 
 
 def test_render_fit_appearance_is_refused():
-    args = parse_args(TINY_FLAGSHIP + CPU + ["--render_only", "--render_test",
-                                             "--render_fit_appearance"])
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
+    """The half-image fit adds its latent to the view features: a field
+    without ``--use_viewdirs`` is refused (the JAX fit asserts it)."""
+    flags = [f for f in TINY_FLAGSHIP if f != "--use_viewdirs"]
+    args = parse_args(flags + CPU + ["--render_only", "--render_test",
+                                     "--render_fit_appearance"])
+    with pytest.raises(ValueError, match="use_viewdirs"):
         trainer.train(args)
 
 

@@ -215,6 +215,26 @@ render, step, hw = serve.build(argparse.Namespace(
     width=8, height=8, train_args=["--"] + quant))
 maps, _ = render(scene.poses[0])
 assert step == 11 and np.all(np.isfinite(maps["rgb_map"]))
+# The reg patches and the appearance latents: a run with both on the
+# exposure-jittered room, saved, its half-image fit, and served.
+import indoor_nerf_tpu_torch.render.appearance
+write_blender_scene("jittered", make_room_blender_scene(
+    8, 16, 16, exposure_jitter=0.25, jitter_test=True))
+app = room[:2] + ["--datadir", "jittered", "--basedir", "runs", "--n_levels",
+                  "4", "--finest_res", "32", "--log2_hashmap_size", "12",
+                  "--occ_resolution", "16", "--occ_candidates", "32",
+                  "--occ_samples", "8", "--N_rand", "16", "--precrop_iters",
+                  "0", "--device", "cpu", "--expname", "app", "--n_iters",
+                  "2", "--use_appearance", "--reg_views", "1",
+                  "--reg_patch_size", "4"]
+result = train(parse_args(app))
+assert result["state"]["params"]["appearance"].shape[0] == 8
+fit = train(parse_args(app + ["--render_only", "--render_test",
+                              "--render_fit_appearance"]))
+assert os.path.exists(os.path.join(fit["savedir"], "fit_appearance.json"))
+render, step, hw = serve.build(argparse.Namespace(
+    width=8, height=8, train_args=["--"] + app))
+assert step == 2 and np.all(np.isfinite(render(scene.poses[0])[0]["rgb_map"]))
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
                 or m == "flax" and sys.modules[m] is not None)

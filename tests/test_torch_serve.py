@@ -84,9 +84,9 @@ def test_build_train_config_matches_jax():
 def test_unported_flags_name_the_roadmap_item():
     """The parser's defaults (the hash grid, ``--i_embed 1``) and PE
     (``--i_embed 0``) build the JAX config field for field since the
-    parity path came (Queue 1 item 4), and A-CAQ's flags its quantizer
-    config (item 5b); the training extensions still to come are refused by
-    their item."""
+    parity path came (Queue 1 item 4), A-CAQ's flags its quantizer config
+    (item 5b), and the reg patches' and appearance latents' flags their
+    fields (item 5c)."""
     for flags in (["--dataset_type", "synthetic"],
                   ["--dataset_type", "synthetic", "--i_embed", "0",
                    "--i_embed_views", "0", "--N_importance", "64"]):
@@ -111,11 +111,62 @@ def test_unported_flags_name_the_roadmap_item():
         jcfg.use_acaq, jcfg.acaq_start_iter, jcfg.acaq_interval)
     assert dataclasses.asdict(tf.block_grid) == {
         **dataclasses.asdict(jf.block_grid), "tile_interp": False}
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        configs(TINY_FLAGSHIP + ["--use_appearance"])
+    # The reg patches and appearance latents (item 5c) build JAX's fields.
+    jcfg, tcfg, _ = configs(TINY_FLAGSHIP + [
+        "--use_appearance", "--reg_views", "3", "--reg_patch_size", "6",
+        "--reg_mode", "planar", "--reg_start_iter", "20",
+        "--reg_depth_tv_weight", "0.3"])
+    assert tcfg.render.field.n_appearance == jcfg.render.field.n_appearance > 0
+    for f in ("reg_patch_size", "reg_depth_tv_weight", "reg_mode",
+              "reg_start_iter"):
+        assert getattr(tcfg, f) == getattr(jcfg, f), f
     with pytest.raises(ValueError, match="JAX package fails on the pair"):
         configs(["--dataset_type", "synthetic", "--i_embed", "0",
                  "--use_quantization"])
+
+
+def test_serve_appearance_field(tmp_path):
+    """A field trained with ``--use_appearance`` is served with the zero
+    latent, as the JAX server serves it: its checkpoint's appearance leaf
+    is restored, and the online and the ``--baked`` renders equal those of
+    the same params without the leaf, bit for bit."""
+    from indoor_nerf_tpu_torch.models.field import serving_params
+    from indoor_nerf_tpu_torch.render.baked import (
+        bake_field,
+        make_baked_image_renderer,
+    )
+    from indoor_nerf_tpu_torch.render.renderer import make_image_renderer
+    from indoor_nerf_tpu_torch.train import trainer
+
+    flags = TINY_FLAGSHIP + CPU + ["--use_appearance", "--expname", "app",
+                                   "--basedir", str(tmp_path), "--N_rand",
+                                   "32", "--lrate", "0.01", "--i_print", "100"]
+    out = trainer.train(parse_args(flags + ["--n_iters", "7"]))
+    state = out["state"]
+    assert state["params"]["appearance"].abs().max() > 0
+    params = {k: v for k, v in state["params"].items() if k != "appearance"}
+    cfg = configs(TINY_FLAGSHIP + ["--use_appearance"])[1]
+    scene = configs(TINY_FLAGSHIP)[2]
+    H, W = 10, 12
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    c2w = scene.poses[scene.i_test[0]][:3, :4]
+    render, step, _ = _build([], flags)
+    assert step == 7
+    online = make_image_renderer(cfg.render.test_mode(), H, W)(
+        serving_params(params, cfg.render.field), c2w, K, scene.near,
+        scene.far, state["occ"])
+    np.testing.assert_array_equal(render(c2w)[0]["rgb_map"],
+                                  online["rgb_map"].numpy())
+    render, _, _ = _build(["--baked", "--baked_res", "8"], flags)
+    baked = bake_field(serving_params(params, cfg.render.field),
+                       cfg.render.field, resolution=8,
+                       train_cameras=serve.train_cameras(scene))
+    want = make_baked_image_renderer(
+        baked, H, W, n_samples=128, n_coarse=64,
+        white_bkgd=cfg.render.white_bkgd)(c2w, K, scene.near, scene.far)
+    np.testing.assert_array_equal(render(c2w)[0]["rgb_map"],
+                                  want["rgb_map"].numpy())
 
 
 def test_occupancy_with_importance_is_refused():

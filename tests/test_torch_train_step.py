@@ -283,17 +283,36 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--reg_views", "1", "--reg_mode", "planar"], "item 5"),
-    (["--reg_views", "2"], "item 5"),
-    (["--use_appearance"], "item 5"),
     (["--multihost"], "item 8"),
     (["--mesh_shape", "data:1"], "item 8"),
-    (["--render_only", "--render_test", "--render_fit_appearance"], "item 5"),
 ])
 def test_trainer_refuses_unported_flags(flag, item):
     args = parse_args(TINY_FLAGSHIP + CPU + flag + ["--n_iters", "1"])
     with pytest.raises(NotImplementedError, match=item):
         train(args)
+
+
+@pytest.mark.parametrize("flag", [
+    ["--reg_views", "1", "--reg_mode", "planar"],
+    ["--reg_views", "2"],
+    ["--use_appearance"],
+    ["--render_only", "--render_test", "--render_fit_appearance"],
+])
+def test_trainer_runs_the_reg_and_appearance_flags(flag, capsys):
+    """The flags of Queue 1 item 5c, which the trainer refused before it
+    was ported, run: two steps, or a render-only run with the half-image
+    fit (from the seeded field: no --expname)."""
+    args = parse_args(TINY_FLAGSHIP + CPU + flag + [
+        "--N_rand", "32", "--n_iters", "2", "--synthetic_res", "16"])
+    out = train(args)
+    text = capsys.readouterr().out
+    if args.render_only:
+        assert "[fit-appearance] mean right-half PSNR" in text
+        assert np.isfinite(out["fit_appearance"]["mean_fitted"])
+        return
+    assert out["state"]["step"] == 2 and np.all(np.isfinite(out["losses"]))
+    assert ("[reg] unobserved-view depth TV" in text) == (args.reg_views > 0)
+    assert ("appearance" in out["state"]["params"]) == args.use_appearance
 
 
 def test_trainer_names_the_loop_flags_without_effect(capsys, tmp_path):
