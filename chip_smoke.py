@@ -272,6 +272,39 @@ printing any result.
       step of a bake without the leaf; requests timed, baked against
       online in PSNR.
 
+  (md1) multi-device at world size 1, in (v)'s directory:
+      configs/lego_tpu.txt as (v) runs it through run_nerf with --multihost
+      --num_processes 1 --process_id 0 --coordinator_address
+      127.0.0.1:<free port> --mesh_shape data:1 (a NCCL process group of
+      one rank: the sharded step gathers the per-ray outputs and sums the
+      gradients through it) for 200 steps, a test set and a save at 200:
+      the [multihost] line names nccl, tent_contract and table_scatter
+      launch, the loss falls; its steps and (v)'s in alternating windows of
+      50 steps; one step from its state through the sharded step and
+      through train_step on one batch and draws: the forward bit for bit,
+      the update held as (g)'s pair that shares a forward;
+  (md2) the model axis simulated in this process at the flagship's width
+      (8 levels, 4096 rays x 32 samples, a random [65536, 256] table), m =
+      2 and 4, the bf16 and int8 gathers: the m local encodes of
+      parallel/tp.py (tent_contract on each level block, table_scatter into
+      it) concatenated equal block_hash_encode bit for bit, each block's
+      gradient its rows of the full one as (e), m launches of each kernel,
+      the m local passes timed against the one full pass;
+  (md3) the sharded renderer (parallel/sp.py) at world size 1 over NCCL at
+      800x800 from (md1)'s field against the online server's render: rgb
+      within 1e-5, tent_contract launches, both timed;
+  (md4) two processes on the card over Gloo (which takes the card's
+      tensors for the port's collectives): one step of (md1)'s
+      configuration from its state on data:2 and on model:2, the loss the
+      same on both ranks bit for bit, the step held against train_step's
+      as a kernel against its plain version.
+
+The card-against-CPU steps (y2), (sp2), (sp4), (aq2), (aq3), (rp2) hold
+the table's update over the entries whose RAdam moments are resolved card
+against CPU (each within RESOLVED_RTOL of its own size); the share left
+out is held under UNRESOLVED_SHARE. ``--step-spread N`` also runs each of
+(y2), (sp2), (aq2), (rp2) and (md1)'s step check over N batches and draws.
+
 The line before the last is {"kernels": [...]}: for each of the seven
 kernels its launches on the main path, its error and time against its plain
 version, the least time the card could take for the same work ("bound_ms":
@@ -306,8 +339,11 @@ and the int8 gather's: quantized training from files (aq1), its test sets
 and its quantized 800x800 request (aq4), int8 training (aq3); the reg
 patches' and the appearance latents': training with patches (rp1) and with
 latents (ap1), their test sets, the half-image fits with their renders
-(ap2; table_scatter 0), (ap1)'s field served online and baked (ap3). The
-last line is {"ok": true, "device": {...}}.
+(ap2; table_scatter 0), (ap1)'s field served online and baked (ap3); multi-device: --multihost
+training at world size 1 (md1) and its test set, the m local encodes of
+each simulated model axis (md2: "tp_local_<gather>_m<m>"), the sharded
+render (md3), the two processes' step (md4: one rank's). The last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -358,6 +394,17 @@ FORWARD_NORM_TOL = 5e-3
 # alike, and differ by the order of the f32 sums alone (up to ~10^5 terms
 # into an entry of the coarse levels).
 SAME_FORWARD_TABLE_TOLS = (1e-5, 2e-5, 1e-5)
+# A table's update card against CPU (y2, sp2, sp4, aq2, aq3, rp2): RAdam
+# divides each entry's first moment by the root of its own second moment,
+# so an entry whose first moment nearly cancels (the new gradient against
+# the decayed history) moves a whole step apart when the f32 order of its
+# gradient's sum changes: the f32 order acts on the moments linearly, on
+# the update not. The moments are held in norm over every entry; the update
+# over the entries whose mu and nu each agree card against CPU to
+# RESOLVED_RTOL of their own size (the update's relative error there is
+# then under ~1.5 RESOLVED_RTOL), and those left out must stay under
+# UNRESOLVED_SHARE of the entries the moments touch.
+RESOLVED_RTOL, UNRESOLVED_SHARE = 1e-2, 1e-2
 TRAIN_STEPS = 200
 STRIDED_STEPS = 100
 TIMED_STEPS = 30  # per window of (m)
@@ -475,6 +522,10 @@ FIT_Z_RTOL, FIT_MSE_RTOL = 1e-3, 1e-5
 TRAIN_RAYS = 4096  # the flagship preset's --N_rand
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+# (md1)-(md3), multi-device on the one card: (v)'s configuration through
+# --multihost at world size 1 over NCCL for MD_STEPS steps; the model axis
+# simulated in one process at the flagship's width; the sharded renderer.
+MD_STEPS = 200
 KERNELS = ("tent_contract", "table_scatter", "group_scatter",
            "tile_interp_fwd", "tile_interp_bwd_rows", "lane_select_fwd",
            "lane_select_grad")
@@ -958,13 +1009,16 @@ def step_from(torch, flags, trained, batch_seed=5, draw_seed=3,
                       step, cli.N_rand, "spatial_coords" in batch,
                       n_reg_rays(batch))
 
-    def one_step(cfg):
+    def one_step(cfg, run=None):
+        """The step; ``run(state, batch, draws)`` in place of train_step."""
         # Zero moments: after this first step mu = 0.1 g and nu = 0.01 g^2.
         state = make_train_state(copy.deepcopy(params), trained["occ"].copy())
         if at_step:
             state["step"], state["quant"] = step, copy.deepcopy(trained["quant"])
             for k in ("loss_ema", "loss_ema_slow", "best_loss", "infl_ema"):
                 state[k] = trained[k].clone()
+        if run is not None:
+            return run(state, batch, draws)
         return train_step(state, batch, cfg, draws=draws)
 
     return cfg, one_step
@@ -1090,12 +1144,81 @@ def tile_step_pairs(steps: dict) -> list:
              steps["kernels"], steps["default route"], False)]
 
 
+def print_spread(tag, trials, seen) -> None:
+    """Median, 99th percentile, largest, and the count over the tolerance
+    of each ``(what, name, tol) -> errors`` of ``seen``."""
+    for (what, name, tol), errs in seen.items():
+        r = np.sort(np.asarray(errs))
+        held = ("not held" if tol is None else
+                f"tol {tol:.3e}, {int((r > tol).sum())} over it")
+        print(f"[step-spread {tag}] {trials} steps, {what}: {name}: median "
+              f"{np.median(r):.3e}, 99th percentile "
+              f"{np.quantile(r, 0.99):.3e}, largest {r[-1]:.3e}; {held}")
+
+
+def card_vs_cpu_spread(torch, trials: int) -> None:
+    """``--step-spread N``, second part: the card-against-CPU steps (y2),
+    (sp2), (aq2), (rp2) and (md1)'s sharded-against-single step over N
+    batches and draws each, from the states their phases train (as the
+    smoke run trains them, in one temporary directory): each error's
+    median, 99th percentile and largest, and the count over its
+    tolerance. This is where RESOLVED_RTOL and UNRESOLVED_SHARE are read
+    against."""
+    def collect(tag, check):
+        seen: dict = {}
+        for t in range(trials):
+            for name, err, tol in check(100 + t, 200 + t):
+                seen.setdefault(("card vs CPU" if tag != "md1" else
+                                 "sharded vs single", name, tol),
+                                []).append(err)
+        print_spread(tag, trials, seen)
+
+    def via_card_vs_cpu(tag, flags, state, **kw):
+        def check(b, d):
+            _, metrics, _ = quietly(functools.partial(
+                card_vs_cpu_step, torch, tag, flags, state, batch_seed=b,
+                draw_seed=d, hold=False, **kw))[0]
+            return [(k, v, card_cpu_tol(k))
+                    for k, v in metrics["errs"].items()]
+        collect(tag, check)
+
+    with tempfile.TemporaryDirectory() as workdir:
+        files = phase_from_files(torch, workdir)
+        parity = phase_parity_from_files(torch, workdir)
+        collect("y2", lambda b, d: [
+            (k, v, 0.25 if k == "rays moved (share)" else card_cpu_tol(
+                "loss" if k.startswith("loss") else k))
+            for k, v in quietly(phase_parity_step_check, torch,
+                                parity["flags"], parity["state"], b, d,
+                                False)[0].items()])
+        del parity
+        torch.cuda.empty_cache()
+        prior = phase_priors(torch, workdir)
+        via_card_vs_cpu("sp2", prior["flags"]
+                        + ["--structural_loss_start_iter", "0"],
+                        {**prior["state"], "step": 0})
+        del prior
+        torch.cuda.empty_cache()
+        acaq = phase_acaq(torch, workdir, files)
+        via_card_vs_cpu("aq2", acaq["flags"], acaq["state"], hold_loss=False)
+        del acaq
+        torch.cuda.empty_cache()
+        reg = phase_reg_patches(torch, workdir, files)
+        via_card_vs_cpu("rp2", reg["flags"], reg["state"], hold_loss=False)
+        del reg
+        torch.cuda.empty_cache()
+        md = phase_multihost(torch, workdir, files)
+        collect("md1", lambda b, d: quietly(
+            md_step_check, torch, md["flags"], md["state"], b, d, False)[0])
+        torch.distributed.destroy_process_group()
+
+
 def step_spread(torch, trials: int) -> None:
     """``--step-spread N``: every check of (g), (k) and (q)'s one-step
     comparisons over N batches and draws each, from 200 (tile route: 100)
     trained steps: median, 99th percentile and largest error, and how many
     lie over the tolerance. This is where ``FORWARD_NORM_TOL`` and the
-    choice of its measure come from."""
+    choice of its measure come from. Then ``card_vs_cpu_spread``."""
     phase_build()
     for tag, flags, n_steps, steps_of, pairs_of in (
             ("g", SERVE_FLAGS, TRAIN_STEPS,
@@ -1113,15 +1236,10 @@ def step_spread(torch, trials: int) -> None:
                 for name, err, tol in step_checks(torch, got, want, same_forward):
                     seen.setdefault((what, name, tol), []).append(err)
             del steps
-        for (what, name, tol), errs in seen.items():
-            r = np.sort(np.asarray(errs))
-            held = ("not held" if tol is None else
-                    f"tol {tol:.3e}, {int((r > tol).sum())} over it")
-            print(f"[step-spread {tag}] {trials} steps, {what}: {name}: median "
-                  f"{np.median(r):.3e}, 99th percentile "
-                  f"{np.quantile(r, 0.99):.3e}, largest {r[-1]:.3e}; {held}")
+        print_spread(tag, trials, seen)
         del trained
         torch.cuda.empty_cache()
+    card_vs_cpu_spread(torch, trials)
 
 
 def phase_tile_step_check(torch, trained) -> None:
@@ -2111,7 +2229,8 @@ def norm_rel(got, want) -> float:
     return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
 
 
-def phase_parity_step_check(torch, flags, state) -> None:
+def phase_parity_step_check(torch, flags, state, batch_seed=5, draw_seed=3,
+                            hold=True) -> dict:
     """(y2) one step of (y1)'s configuration at its width, from its trained
     state, on the card and on the port's CPU path with the same batch and
     draws: the hash rows of every sample of the step bit for bit, the
@@ -2120,9 +2239,9 @@ def phase_parity_step_check(torch, flags, state) -> None:
     under a quarter of them may move), the RAdam
     moments and the parameters' update held in norm (FORWARD_NORM_TOL: the
     forwards differ in f32 order); the table's update over the entries
-    whose first moment is at least 1e-6 of its largest (RAdam's eps 1e-15
-    moves an entry with a gradient at the f32 rounding floor by an O(lr)
-    step of either sign)."""
+    whose moments are resolved card against CPU (``resolved_table_entries``,
+    as ``card_vs_cpu_step``). Returns the errors; ``hold=False`` raises on
+    none (``--step-spread``)."""
     from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
     from indoor_nerf_tpu_torch.ops.encoding import hash_grid_indices
     from indoor_nerf_tpu_torch.render.renderer import render_rays
@@ -2132,11 +2251,11 @@ def phase_parity_step_check(torch, flags, state) -> None:
 
     dev = torch.device("cuda:0")
     cpu = torch.device("cpu")
-    cfg, batch = one_batch(parse_args(flags), cpu, seed=5)
+    cfg, batch = one_batch(parse_args(flags), cpu, seed=batch_seed)
     tree = state_to_numpy(state)
     step = int(tree["step"])
-    draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg, step,
-                      batch["rays_o"].shape[0])
+    draws = draw_step(torch.Generator(device=cpu).manual_seed(draw_seed), cfg,
+                      step, batch["rays_o"].shape[0])
     rays_d = batch["rays_d"]
     viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
     near = cfg.near * torch.ones_like(rays_d[..., :1])
@@ -2196,8 +2315,7 @@ def phase_parity_step_check(torch, flags, state) -> None:
         w = [a - b for a, b in zip(_tree_leaves(want["params"][name]),
                                    _tree_leaves(tree["params"][name]))]
         updates[name] = norm_rel(g, w)
-    mu = np.abs(want["opt"]["mu"]["table"])
-    resolved = mu >= 1e-6 * mu.max()
+    resolved, share = resolved_table_entries(got, want)
     g = (got["params"]["table"] - tree["params"]["table"])[resolved]
     w = (want["params"]["table"] - tree["params"]["table"])[resolved]
     updates["table"] = norm_rel([g], [w])
@@ -2212,9 +2330,16 @@ def phase_parity_step_check(torch, flags, state) -> None:
           f"{bin_width:.3e}), the image loss "
           f"of the other {int((~moved).sum())} rel {held_rel:.2e} (tol 1e-5); moments rel in norm, largest {max(moments.values()):.2e}; "
           f"parameter updates rel in norm {  {k: f'{v:.2e}' for k, v in updates.items()} } "
-          f"(table over the {resolved.mean():.3f} of its entries with a "
-          f"resolved gradient; tol {FORWARD_NORM_TOL}); step seconds "
+          f"(table over the entries whose moments are resolved, unresolved "
+          f"share {share:.2e} of those touched, tol {UNRESOLVED_SHARE}; tol "
+          f"{FORWARD_NORM_TOL}); step seconds "
           f"{ {k: round(v, 3) for k, v in seconds.items()} }")
+    errs = {"loss over the rays not moved": held_rel,
+            "rays moved (share)": float(moved.float().mean()),
+            "unresolved share": share, **moments,
+            **{f"params update {k}": v for k, v in updates.items()}}
+    if not hold:
+        return errs
     if not idx_equal or w_err > 1e-6:
         raise AssertionError("[y2] hash rows or weights differ card vs CPU")
     if held_rel > 1e-5 or (not moved.any() and loss_rel > 1e-5):
@@ -2224,8 +2349,11 @@ def phase_parity_step_check(torch, flags, state) -> None:
         raise AssertionError(f"[y2] {int(moved.sum())} rays' fine samples moved, "
                              f"by up to {float(z_diff.max())}")
     bad = {k: v for k, v in {**moments, **updates}.items() if v > FORWARD_NORM_TOL}
+    if share > UNRESOLVED_SHARE:
+        bad["unresolved share"] = share
     if bad:
         raise AssertionError(f"[y2] card vs CPU beyond {FORWARD_NORM_TOL}: {bad}")
+    return errs
 
 
 def _tree_leaves(tree):
@@ -2606,27 +2734,43 @@ def _syncs(torch, fn) -> list:
             if "synchroniz" in str(w.message)]
 
 
-def card_vs_cpu_step(torch, tag, flags, state, hold_loss=True) -> dict:
+def resolved_table_entries(got, want):
+    """The table entries whose RAdam moments agree card against CPU to
+    RESOLVED_RTOL of their own size, and the share of the entries the
+    moments touch that fall outside (held under UNRESOLVED_SHARE)."""
+    ok = np.ones(want["opt"]["mu"]["table"].shape, bool)
+    for k in ("mu", "nu"):
+        g, w = got["opt"][k]["table"], want["opt"][k]["table"]
+        ok &= np.abs(g - w) <= RESOLVED_RTOL * np.abs(w)
+    touched = (want["opt"]["mu"]["table"] != 0) | (got["opt"]["mu"]["table"] != 0)
+    share = float((touched & ~ok).sum() / max(1, touched.sum()))
+    return ok, share
+
+
+def card_vs_cpu_step(torch, tag, flags, state, hold_loss=True, batch_seed=5,
+                     draw_seed=3, hold=True) -> dict:
     """One step of ``flags`` from ``state`` on the card and on the port's
-    CPU path with one batch and one set of draws: the loss 1e-5 relative
-    (unless ``hold_loss`` is False: the caller holds it), every RAdam
-    moment, the params' update and (where kept) the EMA's relative in norm
-    (FORWARD_NORM_TOL: the forwards differ in f32 order; the table's over
-    the entries whose first moment is at least 1e-6 of its largest, as
-    (y2)). Returns the config, both steps' metrics and both states after
-    the step, as numpy (``{"card", "cpu"}``)."""
+    CPU path with one batch and one set of draws (of the two seeds): the
+    loss 1e-5 relative (unless ``hold_loss`` is False: the caller holds
+    it), every RAdam moment, the params' update and (where kept) the EMA's
+    relative in norm (FORWARD_NORM_TOL: the forwards differ in f32 order;
+    the table's update over ``resolved_table_entries``, whose unresolved
+    share is held under UNRESOLVED_SHARE). Returns the config, both steps'
+    metrics (with the errors under ``"errs"``) and both states after the
+    step, as numpy (``{"card", "cpu"}``); ``hold=False`` raises on none
+    (``--step-spread``)."""
     from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.step import draw_step, train_step
     from indoor_nerf_tpu_torch.train.trainer import one_batch
 
     cpu = torch.device("cpu")
-    cfg, batch = one_batch(parse_args(flags), cpu, seed=5)
+    cfg, batch = one_batch(parse_args(flags), cpu, seed=batch_seed)
     tree = state_to_numpy(state)
     step = int(tree["step"])
-    draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg, step,
-                      batch["rays_o"].shape[0], "spatial_coords" in batch,
-                      n_reg_rays(batch))
+    draws = draw_step(torch.Generator(device=cpu).manual_seed(draw_seed), cfg,
+                      step, batch["rays_o"].shape[0],
+                      "spatial_coords" in batch, n_reg_rays(batch))
 
     def on(d, x):
         return ({k: on(d, v) for k, v in x.items()} if isinstance(x, dict)
@@ -2643,8 +2787,7 @@ def card_vs_cpu_step(torch, tag, flags, state, hold_loss=True) -> dict:
     errs.update({f"{k}.{n}": norm_rel(_tree_leaves(got["opt"][k][n]),
                                       _tree_leaves(want["opt"][k][n]))
                  for k in ("mu", "nu") for n in want["opt"][k]})
-    mu = np.abs(want["opt"]["mu"]["table"])
-    resolved = mu >= 1e-6 * mu.max()
+    resolved, errs["unresolved share"] = resolved_table_entries(got, want)
     for key in ("params", "ema") if "ema" in want else ("params",):
         for n in want[key]:
             g = [a - b for a, b in zip(_tree_leaves(got[key][n]),
@@ -2658,13 +2801,22 @@ def card_vs_cpu_step(torch, tag, flags, state, hold_loss=True) -> dict:
           f"state, batch ({batch['rays_o'].shape[0]} rays) and draws: loss "
           f"{metrics['card']['loss']:.8f} vs {metrics['cpu']['loss']:.8f}; "
           "relative in norm " + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-          + f" (tol 1e-5 for the loss, {FORWARD_NORM_TOL} else)")
-    bad = {k: v for k, v in errs.items()
-           if v > (1e-5 if k == "loss" else FORWARD_NORM_TOL)
+          + f" (tol 1e-5 for the loss, {UNRESOLVED_SHARE} for the unresolved "
+          f"share, {FORWARD_NORM_TOL} else; the table's update over the "
+          "entries whose moments are resolved)")
+    bad = {k: v for k, v in errs.items() if v > card_cpu_tol(k)
            and (hold_loss or k != "loss")}
-    if bad:
+    if bad and hold:
         raise AssertionError(f"[{tag}] card vs CPU: {bad}")
+    metrics["errs"] = errs
     return cfg, metrics, res
+
+
+def card_cpu_tol(name: str) -> float:
+    """The tolerance of an error of ``card_vs_cpu_step`` (and of (y2))."""
+    if name == "loss":
+        return 1e-5
+    return UNRESOLVED_SHARE if name == "unresolved share" else FORWARD_NORM_TOL
 
 
 def phase_priors_step(torch, flags, state) -> None:
@@ -3192,7 +3344,8 @@ def phase_acaq_serving(torch, flags, state, logdir) -> int:
 
 def alternating_file_steps(torch, tag, runs: dict) -> dict:
     """Steps/s of the train steps of two CLI configurations ``runs``
-    ``{name: argv}`` on one scene (each from its seeded state, its batches
+    ``{name: argv}`` (an argv with ``--multihost``: the sharded step over
+    the process group already joined) on one scene (each from its seeded state, its batches
     from ``trainer.make_sampler``, copied to the card as ``trainer.train``
     copies them), in windows of RP_WINDOW steps, a, b, b, a twice in this
     process, after a warm-up window each; printed, and returned by name."""
@@ -3204,6 +3357,11 @@ def alternating_file_steps(torch, tag, runs: dict) -> dict:
         make_sampler,
     )
 
+    from indoor_nerf_tpu_torch.parallel.shard import (
+        make_mesh,
+        make_sharded_train_step,
+    )
+
     dev = torch.device("cuda:0")
     scene, runners = None, {}
     for name, argv in runs.items():
@@ -3212,7 +3370,12 @@ def alternating_file_steps(torch, tag, runs: dict) -> dict:
         cfg = build_train_config(args, scene)
         state = init_train_state(
             torch.Generator(device=dev).manual_seed(args.seed), cfg, dev)
-        runners[name] = {"cfg": cfg, "state": state, "i": 0,
+        # A --multihost argv runs the sharded step over this process's mesh
+        # (md1: the process group (md1) joined, of one rank).
+        step = (make_sharded_train_step(cfg, make_mesh())
+                if args.multihost else functools.partial(train_step,
+                                                         config=cfg))
+        runners[name] = {"step": step, "state": state, "i": 0,
                          "gen": torch.Generator(device=dev).manual_seed(
                              args.seed + 1),
                          "sample": make_sampler(args, scene, cfg, args.seed)[0]}
@@ -3224,8 +3387,8 @@ def alternating_file_steps(torch, tag, runs: dict) -> dict:
             r["i"] += 1
             batch = {k: torch.from_numpy(v).to(dev, non_blocking=True)
                      for k, v in r["sample"](r["i"]).items()}
-            r["state"], metrics = train_step(r["state"], batch, r["cfg"],
-                                             r["gen"])
+            r["state"], metrics = r["step"](r["state"], batch,
+                                            generator=r["gen"])
         torch.cuda.synchronize(dev)
         if not np.isfinite(float(metrics["loss"])):
             raise AssertionError(f"[{tag}] non-finite loss")
@@ -3712,12 +3875,352 @@ def phase_bench(torch) -> None:
     print(f"[h] {json.dumps(bench.run())}")
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def md_step_check(torch, flags, trained, batch_seed=5, draw_seed=3,
+                  hold=True) -> list:
+    """(md1)'s step check: one step of ``flags`` from ``trained``'s params
+    through the sharded step at world size 1 (``make_sharded_train_step``
+    over the process group md1 joined: the per-ray outputs gathered and the
+    gradients summed over NCCL) and through ``train_step``, on one batch
+    and one set of draws: the forward bit for bit (the loss and the grid
+    equal), the update held as the kernel pairs sharing a forward are
+    (``step_checks``). Returns ``step_checks``' list."""
+    from indoor_nerf_tpu_torch.parallel.shard import (
+        make_mesh,
+        make_sharded_train_step,
+    )
+
+    cfg, one_step = step_from(torch, flags, trained, batch_seed, draw_seed)
+    sharded = make_sharded_train_step(cfg, make_mesh())
+    single = one_step(cfg)
+    got = one_step(cfg, lambda st, b, d: sharded(st, b, draws=d))
+    checks = step_checks(torch, got, single, True)
+    same = (float(got[1]["loss"]) == float(single[1]["loss"])
+            and bool(torch.equal(got[0]["occ"]["density"],
+                                 single[0]["occ"]["density"])))
+    checks.append(("forward bit for bit (0 = yes)", float(not same), 0.0))
+    if hold:
+        hold_steps(torch, "md1", "the sharded step at world size 1 vs "
+                   "train_step, same forward", got, single, True)
+        if not same:
+            raise AssertionError("[md1] the sharded forward differs from "
+                                 "train_step's")
+    return checks
+
+
+def phase_multihost(torch, workdir, plain) -> dict:
+    """(md1) configs/lego_tpu.txt on (v)'s scene through run_nerf with
+    --multihost at world size 1 over NCCL (--mesh_shape data:1) for
+    MD_STEPS steps, a test set and a save at the end: the kernels launch,
+    the loss falls, the [multihost] line names nccl; its steps and (v)'s in
+    alternating windows (the collectives' cost at world size 1); one step
+    against train_step (``md_step_check``). The process group stays for
+    (md2)-(md3)."""
+    t0 = time.perf_counter()
+    flags = ["--config", os.path.join(ROOT, "configs", "lego_tpu.txt"),
+             "--datadir", plain["scene_dir"], "--basedir",
+             os.path.join(workdir, "md1"), "--lrate", "0.01", "--multihost",
+             "--num_processes", "1", "--process_id", "0",
+             "--coordinator_address", f"127.0.0.1:{free_port()}",
+             "--mesh_shape", "data:1"]
+    out, text, training, testset = train_from_files(torch, "md1", flags + [
+        "--n_iters", str(MD_STEPS), "--i_testset", str(MD_STEPS),
+        "--i_weights", str(MD_STEPS), "--i_video", str(10 * MD_STEPS)])
+    line = [l for l in text.splitlines() if l.startswith("[multihost]")]
+    if not line or "backend=nccl" not in line[0]:
+        raise AssertionError(f"[md1] no NCCL process group: {line}")
+    if not ckpt_files(out["logdir"]):
+        raise AssertionError("[md1] no checkpoint written")
+    print(f"[md1] {line[0]}; held-out PSNR at {MD_STEPS} "
+          f"{out['testsets'][-1]['psnr']:.3f} dB")
+    alternating_file_steps(torch, "md1", {"v": plain["flags"], "md1": flags})
+    md_step_check(torch, flags, out["state"])
+    print(f"[md1] seconds {time.perf_counter() - t0:.1f}")
+    return {"flags": flags, "state": out["state"], "training": training,
+            "testset": testset["tent_contract"]}
+
+
+def phase_tp_local(torch) -> dict:
+    """(md2) the model axis simulated in this process at the flagship's
+    full width (8 levels x 4 features, 2^13 rows a level; 4096 rays x 32
+    samples of points in the box, a random table and cotangent), for m = 2
+    and 4 and the bf16 and int8 gathers: the m local encodes
+    (``tp_block_encode_local``: tent_contract on each level block, then
+    table_scatter into it), concatenated, equal ``block_hash_encode`` bit
+    for bit; each block's gradient its rows of the single-device gradient
+    within SCATTER_RTOL / SCATTER_ATOL, as (e); m launches of each kernel;
+    the m local forward-and-backward passes timed against the one full
+    pass. Returns each case's launches."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.ops.blockhash import block_hash_encode
+    from indoor_nerf_tpu_torch.parallel.tp import tp_block_encode_local
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda:0")
+    args = parse_args(SERVE_FLAGS)
+    bg0 = build_train_config(args, load_dataset(args)).render.field.block_grid
+    gen = torch.Generator(device=dev).manual_seed(11)
+    n = TRAIN_RAYS * 32
+    lo = torch.tensor(bg0.bbox_min, device=dev)
+    hi = torch.tensor(bg0.bbox_max, device=dev)
+    x = lo + (hi - lo) * torch.rand((n, 3), generator=gen, device=dev)
+    L, R, F = bg0.n_levels, bg0.rows_per_level, bg0.n_features_per_level
+    table = 1e-2 * torch.randn((L * R, F * bg0.lanes_per_feature),
+                               generator=gen, device=dev)
+    g = torch.randn((n, L * F), generator=gen, device=dev)
+    out = {}
+    for dtype in ("bfloat16", "int8"):
+        bg = dataclasses.replace(bg0, gather_dtype=dtype)
+
+        def full_pass():
+            t = table.clone().requires_grad_(True)
+            f, _ = block_hash_encode(x, t, bg)
+            return f, torch.autograd.grad(f, t, g)[0]
+
+        f_full, g_full = full_pass()
+        for m in (2, 4):
+            rows, lp = L * R // m, L // m
+            blocks = [table[j * rows:(j + 1) * rows].clone().requires_grad_(
+                True) for j in range(m)]
+            cots = [g[:, j * lp * F:(j + 1) * lp * F].contiguous()
+                    for j in range(m)]
+
+            def local_pass():
+                fs, gs = [], []
+                for j in range(m):
+                    f, _ = tp_block_encode_local(x, blocks[j], j, m, bg)
+                    fs.append(f)
+                    gs.append(torch.autograd.grad(f, blocks[j], cots[j])[0])
+                return fs, gs
+
+            torch.cuda.synchronize()
+            reset_launch_counts()  # this case's m local encodes start here
+            fs, gs = local_pass()
+            launches = launch_counts()  # ... and end here
+            equal = bool(torch.equal(torch.cat(fs, 1), f_full))
+            scale = float(g_full.abs().max())
+            errs = [float(((gj - g_full[j * rows:(j + 1) * rows]).abs()
+                           - SCATTER_RTOL * g_full[j * rows:(j + 1) * rows]
+                           .abs()).max() / scale) for j, gj in enumerate(gs)]
+            local_ms = cuda_ms(torch, local_pass, 5)
+            full_ms = cuda_ms(torch, full_pass, 5)
+            print(f"[md2] {dtype} gather, model axis m={m} ({lp} levels, "
+                  f"{rows} rows a block): the local encodes concatenated "
+                  f"equal block_hash_encode bit for bit: {equal}; each "
+                  f"block's gradient against its rows of the full one, "
+                  f"largest |diff| - {SCATTER_RTOL} rel, of the largest "
+                  f"entry: {max(errs):.3e} (tol {SCATTER_ATOL}); launches "
+                  f"tent_contract {launches['tent_contract']}, table_scatter "
+                  f"{launches['table_scatter']} (m each); forward + backward "
+                  f"of the m local encodes {local_ms:.3f} ms, of the one "
+                  f"full encode {full_ms:.3f} ms")
+            if not equal or max(errs) > SCATTER_ATOL:
+                raise AssertionError(f"[md2] {dtype} m={m}: features equal "
+                                     f"{equal}, gradients {errs}")
+            if launches["tent_contract"] != m or launches["table_scatter"] != m:
+                raise AssertionError(f"[md2] {dtype} m={m} launches {launches}")
+            out[f"tp_local_{dtype}_m{m}"] = launches
+            del fs, gs, blocks
+        del f_full, g_full
+    torch.cuda.empty_cache()
+    print(f"[md2] seconds {time.perf_counter() - t0:.1f}")
+    return out
+
+
+def phase_sharded_render(torch, md) -> dict:
+    """(md3) the sharded renderer (parallel/sp.py) at world size 1 over
+    NCCL (the image gathered through the process group md1 joined) at
+    800x800 from (md1)'s field, against the online server's renderer
+    (serving_params + make_image_renderer, as serve.build) on a held-out
+    pose: rgb within 1e-5; tent_contract launches; both timed."""
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models.field import serving_params
+    from indoor_nerf_tpu_torch.parallel.shard import make_mesh
+    from indoor_nerf_tpu_torch.parallel.sp import make_sharded_image_renderer
+    from indoor_nerf_tpu_torch.render.renderer import make_image_renderer
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    t0 = time.perf_counter()
+    args = parse_args(md["flags"])
+    scene = load_dataset(args)
+    rc = build_train_config(args, scene).render.test_mode()
+    state = md["state"]
+    H = W = REQUEST_SIZE
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = np.array([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]])
+    pose = scene.poses[scene.i_test[0]]
+    online = make_image_renderer(rc, H, W)
+    params = serving_params(state["params"], rc.field)
+    sharded = make_sharded_image_renderer(rc, H, W, make_mesh())
+
+    def served():
+        return online(params, pose, K, scene.near, scene.far, state["occ"])
+
+    def mesh_render():
+        return sharded(state["params"], pose, K, scene.near, scene.far,
+                       occ_state=state["occ"])
+
+    want = served()
+    torch.cuda.synchronize()
+    reset_launch_counts()  # the sharded render's launches start here
+    got = mesh_render()
+    torch.cuda.synchronize()
+    launches = launch_counts()  # ... and end here
+    err = float((got["rgb_map"] - want["rgb_map"]).abs().max())
+    ms = {}
+    for label, fn in (("online", served), ("sharded", mesh_render)) * 2:
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.setdefault(label, []).append((time.perf_counter() - t) * 1e3)
+    print(f"[md3] the sharded renderer at world size 1 over NCCL, "
+          f"{H}x{W}: rgb max |diff| against the online server's render "
+          f"{err:.3e} (tol 1e-5); tent_contract launches "
+          f"{launches['tent_contract']}; ms online "
+          f"{[round(v, 1) for v in ms['online']]}, sharded "
+          f"{[round(v, 1) for v in ms['sharded']]}; seconds "
+          f"{time.perf_counter() - t0:.1f}")
+    if err > 1e-5 or launches["tent_contract"] <= 0:
+        raise AssertionError(f"[md3] rgb {err}, launches {launches}")
+    return launches
+
+
+def _md4_rank(rank, rdv, job_path, out_path):
+    """One of (md4)'s two processes on the card: joins the Gloo group and,
+    on each of the job's meshes, takes its share of the global batch and
+    one sharded step from the job's state; saves each mesh's loss, launches
+    and gathered state."""
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    import indoor_nerf_tpu_torch  # noqa: F401  (sets the TF32 policy)
+    from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
+    from indoor_nerf_tpu_torch.parallel.shard import (
+        gather_state,
+        make_mesh,
+        make_sharded_train_step,
+        shard_state,
+    )
+
+    dist.init_process_group("gloo", init_method=f"file://{rdv}",
+                            world_size=2, rank=rank,
+                            timeout=timedelta(seconds=120))
+    try:
+        job = torch.load(job_path, weights_only=False)
+        dev = torch.device("cuda:0")
+        out = {}
+        for axes in job["meshes"]:
+            mesh = make_mesh(axes, (2,))
+            d, D = mesh.index("data"), mesh.size("data")
+            batch = {k: torch.as_tensor(v[d * (len(v) // D):
+                                          (d + 1) * (len(v) // D)]).to(dev)
+                     for k, v in job["batch"].items()}
+            state = shard_state(state_from_numpy(job["tree"], dev), mesh)
+            step = make_sharded_train_step(job["cfg"], mesh)
+            reset_launch_counts()
+            state, m = step(state, batch, draws={
+                k: v.to(dev) for k, v in job["draws"].items()})
+            torch.cuda.synchronize()
+            out[axes[0]] = {"loss": float(m["loss"]),
+                            "launches": launch_counts(),
+                            "state": state_to_numpy(gather_state(state,
+                                                                 mesh))}
+        torch.save(out, out_path)
+    finally:
+        dist.destroy_process_group()
+
+
+def phase_two_processes(torch, md) -> dict:
+    """(md4) two processes on the one card over Gloo (which takes the card's
+    tensors for every collective the port calls): one step of (md1)'s
+    configuration from its state, batch and draws on a data:2 mesh and on
+    a model:2 mesh; the loss bit for bit the same on both ranks, and the
+    step held against train_step's on the card as a kernel against its
+    plain version (the forwards differ in f32 order: ``step_checks``)."""
+    import multiprocessing
+
+    from indoor_nerf_tpu_torch.bridge import state_from_numpy, state_to_numpy
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.step import draw_step, train_step
+    from indoor_nerf_tpu_torch.train.trainer import one_batch
+
+    t0 = time.perf_counter()
+    dev, cpu = torch.device("cuda:0"), torch.device("cpu")
+    cfg, batch = one_batch(parse_args(md["flags"]), cpu, seed=5)
+    tree = state_to_numpy(md["state"])
+    draws = draw_step(torch.Generator(device=cpu).manual_seed(3), cfg,
+                      int(tree["step"]), batch["rays_o"].shape[0])
+    single = train_step(state_from_numpy(tree, dev),
+                        {k: v.to(dev) for k, v in batch.items()}, cfg,
+                        draws={k: v.to(dev) for k, v in draws.items()})
+    ctx = multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        job = os.path.join(tmp, "job.pt")
+        torch.save({"meshes": [("data",), ("model",)], "tree": tree,
+                    "cfg": cfg, "draws": draws,
+                    "batch": {k: v.numpy() for k, v in batch.items()}}, job)
+        outs = [os.path.join(tmp, f"rank{r}.out") for r in (0, 1)]
+        procs = [ctx.Process(target=_md4_rank,
+                             args=(r, os.path.join(tmp, "rdv"), job, outs[r]))
+                 for r in (0, 1)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=300)
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"[md4] exit codes "
+                                 f"{[p.exitcode for p in procs]}")
+        ranks = [torch.load(o, weights_only=False) for o in outs]
+    out = {}
+    for axis in ("data", "model"):
+        r0, r1 = ranks[0][axis], ranks[1][axis]
+        same = r0["loss"] == r1["loss"]
+        got = (state_from_numpy(r0["state"], dev),
+               {"loss": torch.tensor(r0["loss"])})
+        checks = step_checks(torch, got, single, False)
+        print(f"[md4] {axis}:2, two processes on the card over Gloo: loss "
+              f"{r0['loss']:.8f} and {r1['loss']:.8f} (the same on both "
+              f"ranks: {same}), train_step's {float(single[1]['loss']):.8f}; "
+              f"launches per rank "
+              f"{[{k: v for k, v in r['launches'].items() if v} for r in (r0, r1)]}; "
+              + "; ".join(f"{w} {e:.3e}" + (f" (tol {t:.3e})"
+                                             if t is not None else "")
+                          for w, e, t in checks))
+        bad = [(w, e, t) for w, e, t in checks
+               if t is not None and not e <= t]
+        if not same or bad:
+            raise AssertionError(f"[md4] {axis}:2: ranks' losses "
+                                 f"{[r0['loss'], r1['loss']]}, {bad}")
+        out[f"two_processes_{axis}"] = r0["launches"]
+    print(f"[md4] seconds {time.perf_counter() - t0:.1f}")
+    return out
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument(
         "--step-spread", type=int, default=0, metavar="N",
-        help="instead of the smoke run: the spread of (k)'s one-step "
-             "comparison over N batches and draws")
+        help="instead of the smoke run: the spread of every one-step "
+             "comparison ((g), (k), (q), and card against CPU (y2), (sp2), "
+             "(aq2), (rp2), (md1)) over N batches and draws")
     parser.add_argument(
         "--bake-spread", type=int, default=0, metavar="N",
         help="instead of the smoke run: the spread of (y5)'s baked against "
@@ -3818,6 +4321,13 @@ def main() -> int:
         del app["state"]
         print(f"[ap3] seconds: rp1-rp2 {t1 - t0:.1f}, ap1 {t2 - t1:.1f}, ap2 "
               f"{t3 - t2:.1f}, ap3 {time.perf_counter() - t3:.1f}")
+        torch.cuda.empty_cache()
+        md = phase_multihost(torch, workdir, files)
+        tp_local = phase_tp_local(torch)
+        sharded_render = phase_sharded_render(torch, md)
+        torch.distributed.destroy_process_group()
+        two_processes = phase_two_processes(torch, md)
+        del md["state"]
     torch.cuda.empty_cache()
     int8_launches, int8_pack_ms = phase_int8(torch)
     torch.cuda.empty_cache()
@@ -3853,6 +4363,11 @@ def main() -> int:
              "training_reg": reg["training"],
              "training_appearance": app["training"],
              "fit_appearance": fit_launches,
+             # Multi-device (md1-md3): --multihost training at world size
+             # 1, the m local encodes of the simulated model axis, the
+             # sharded renderer's 800x800 image.
+             "training_multihost": md["training"], **tp_local,
+             "sharded_render": sharded_render, **two_processes,
              **parity_launches}
 
     def by_path(name):
@@ -3880,6 +4395,7 @@ def main() -> int:
                               "serving_acaq": acaq_serving,
                               "testset_reg": reg["testset"],
                               "testset_appearance": app["testset"],
+                              "testset_multihost": md["testset"],
                               **app_serving},
          **tent},
         {"name": "table_scatter", "route": "cuda",

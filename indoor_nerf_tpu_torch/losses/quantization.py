@@ -29,8 +29,10 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from indoor_nerf_tpu_torch.ops.constants import device_constant
+from indoor_nerf_tpu_torch.parallel.collectives import data_reduce_
 
 QuantState = Dict[str, Any]
 
@@ -121,7 +123,9 @@ def calibrate(group: QuantState, x: torch.Tensor, symmetric: bool,
     quantized training). ``calibrated`` flips on. Returns a new group."""
     x = x.detach()
     done = group["calibrated"]
-    bmin, bmax = torch.amin(x), torch.amax(x)
+    # The global batch's range, in a sharded step (parallel/shard.py).
+    bmin = data_reduce_(torch.amin(x), dist.ReduceOp.MIN)
+    bmax = data_reduce_(torch.amax(x), dist.ReduceOp.MAX)
     ema_min = (1.0 - momentum) * group["running_min"] + momentum * bmin
     ema_max = (1.0 - momentum) * group["running_max"] + momentum * bmax
     new_min = torch.where(done, torch.minimum(ema_min, bmin), bmin)

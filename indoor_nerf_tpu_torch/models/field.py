@@ -1,5 +1,5 @@
 """The radiance field: encoders + MLP + out-of-bbox masking
-(models/field.py of the JAX package) without tensor parallelism.
+(models/field.py of the JAX package).
 
 Three encoders, as ``i_embed`` says: 3, the block-hash grid (flat or
 ray-structured); 1, the multiresolution hash grid; 0 (any other value, as
@@ -29,6 +29,13 @@ training query returns the state its calibration updated. The table is
 quantized before the gather; the gather selects entries, so this equals the
 reference's quantization of the gathered features, and the hand-written
 kernels of the encode run unchanged on the quantized table.
+
+Inside a sharded step with a model axis (the active mesh of
+``parallel/collectives.py::mesh_context``) the grid encodes go through the
+level-sharded encode, as JAX ``encode_position`` routes them (:442-448):
+``params["table"]`` is then this rank's level block, and a quantized field
+quantizes its own levels and gathers the ``embed`` quantizer state of all
+levels back (``_encode_position_tp``).
 """
 
 from __future__ import annotations
@@ -38,6 +45,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.losses.quantization import (
@@ -67,6 +75,19 @@ from indoor_nerf_tpu_torch.ops.encoding import (
     positional_encode,
     positional_encode_dim,
     sh_encode,
+)
+from indoor_nerf_tpu_torch.parallel.collectives import (
+    MODEL,
+    data_reduce_,
+    gather_features,
+    gather_levels,
+)
+from indoor_nerf_tpu_torch.parallel.tp import (
+    current_block_tp,
+    local_config,
+    tp_block_encode,
+    tp_hash_indices,
+    tp_hash_interp,
 )
 
 Params = Dict[str, Any]
@@ -365,6 +386,9 @@ def quantize_hash_table(table: torch.Tensor, flat_idx: torch.Tensor,
             read = torch.zeros(table.shape[0], dtype=torch.bool,
                                device=table.device)
             read.index_fill_(0, flat_idx.reshape(-1).long(), True)
+            # The rows the global batch reads, in a sharded step.
+            read = data_reduce_(read.to(torch.uint8),
+                                dist.ReduceOp.MAX).to(torch.bool)
             read = read.view(L, -1, 1)
             tl = td.view(L, -1, F)
             lvl_min = torch.amin(torch.where(read, tl, float("inf")), dim=(1, 2))
@@ -418,6 +442,10 @@ def encode_position(x: torch.Tensor, params: Params, config: FieldConfig,
     (``quantize_hash_table``; ``quantize_block_table`` on the master table
     ``[L*R, F*lpf]``, where a packed copy is already the quantized one,
     ``serving_params``)."""
+    mesh = current_block_tp()
+    if mesh is not None and config.uses_grid:
+        return _encode_position_tp(x, params, config, quant_state, train,
+                                   step, mesh)
     if config.i_embed == 1:
         table = params["table"]
         flat_idx, weights, keep = hash_grid_indices(x, config.grid)
@@ -434,6 +462,47 @@ def encode_position(x: torch.Tensor, params: Params, config: FieldConfig,
     feats = positional_encode(x, config.multires)
     return feats, torch.ones(x.shape[0], dtype=torch.bool,
                              device=x.device), quant_state
+
+
+def _encode_position_tp(x: torch.Tensor, params: Params, config: FieldConfig,
+                        quant_state: Optional[QuantState], train: bool,
+                        step: Optional[int], mesh
+                        ) -> Tuple[torch.Tensor, torch.Tensor,
+                                   Optional[QuantState]]:
+    """``encode_position`` of a grid field whose ``params["table"]`` is
+    this model rank's level block: the quantizers of its levels (a local
+    config of L/m levels and the slice of the ``embed`` group), the
+    level-sharded encode (``tp_block_encode``; the hash grid's local corner
+    sum, then the gather), and, where a training query updated the
+    ``embed`` group, the group of all L levels gathered back, so every
+    rank holds the replicated state of the single-device step."""
+    j, m = mesh.index(MODEL), mesh.size(MODEL)
+    grid = config.block_grid if config.i_embed == 3 else config.grid
+    lp = grid.n_levels // m
+    local = dataclasses.replace(
+        config, **{"block_grid" if config.i_embed == 3 else "grid":
+                   local_config(grid, m)})
+    table = params["table"]
+    quantizing = _quantizing(config, quant_state) and table.dim() == 2
+    local_q = None
+    if quantizing:
+        local_q = dict(quant_state, embed={
+            k: v[j * lp:(j + 1) * lp] for k, v in quant_state["embed"].items()})
+    if config.i_embed == 3:
+        if quantizing:
+            table, local_q = quantize_block_table(table, local_q, local,
+                                                  train, step)
+        feats, keep = tp_block_encode(x, table, config.block_grid, mesh)
+    else:
+        idx, w, keep = tp_hash_indices(x, j, m, config.grid)
+        if quantizing:
+            table, local_q = quantize_hash_table(table, idx, local_q, local,
+                                                 train, step)
+        feats = gather_features(tp_hash_interp(table, idx, w), mesh)
+    if quantizing and train:
+        quant_state = dict(quant_state, embed={
+            k: gather_levels(v, mesh) for k, v in local_q["embed"].items()})
+    return feats, keep, quant_state
 
 
 def encode_views(dirs: torch.Tensor, i_embed_views: int,

@@ -408,12 +408,18 @@ def _check_trainable(table: torch.Tensor) -> None:
 
 def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
                       config: BlockHashConfig,
-                      levels: Optional[Sequence[int]] = None
+                      levels: Optional[Sequence[int]] = None,
+                      table_config: Optional[BlockHashConfig] = None,
+                      row_base: int = 0
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Encode ``[N, 3]`` points -> (features ``[N, L*F]`` f32, keep_mask ``[N]``).
 
     ``levels`` restricts the encode to a subset of the grid's levels (L of
     them, in the order given); its gradient still lands in the full table.
+    ``table`` may instead hold a block of the table's rows, from
+    ``row_base`` on, whose pack, gather and scatter ``table_config``
+    describes (a model rank's contiguous levels, ``parallel/tp.py``); the
+    index math always takes ``config``.
     ``table`` is the f32 master (its gradient is f32, of the master's
     shape) or its cached packed ``gather_table`` copy (no gradient). The
     gradient w.r.t. ``x`` is None. The JAX package gives the same zero ``dx`` at
@@ -426,8 +432,10 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
     gradient is the gather's own f32 ``index_add_`` of ``d rows``, and the
     points get the JAX ``dx`` through the tent weights."""
     _check_trainable(table)
+    table_config = table_config or config
     if config.uses_tile_interp:
-        return _encode_tile_interp(x, table, config, levels)
+        return _encode_tile_interp(x, table, config, levels, table_config,
+                                   row_base)
     if torch.is_grad_enabled() and x.requires_grad \
             and config.scatter_dtype == "float32" \
             and config.gather_dtype != "int8":
@@ -437,14 +445,17 @@ def block_hash_encode(x: torch.Tensor, table: torch.Tensor,
             "differentiates through the tent weights")
     lv = _levels(config, levels)
     flat_row, p, keep_mask = _tile_coords(x.detach(), config, lv)
-    out = _Encode.apply(table, flat_row, p, config)
+    if row_base:
+        flat_row = flat_row - row_base
+    out = _Encode.apply(table, flat_row, p, table_config)
     return out.reshape(x.shape[0], len(lv) * config.n_features_per_level), \
         keep_mask
 
 
 def _encode_tile_interp(x: torch.Tensor, table: torch.Tensor,
                         config: BlockHashConfig,
-                        levels: Optional[Sequence[int]]
+                        levels: Optional[Sequence[int]],
+                        table_config: BlockHashConfig, row_base: int
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The encode as the JAX package runs it under ``USE_TILE_INTERP_KERNEL``
     (ops/blockhash.py:594-595, :411-416): ``_tile_coords`` -> a row gather
@@ -463,8 +474,10 @@ def _encode_tile_interp(x: torch.Tensor, table: torch.Tensor,
                          f"{tuple(table.shape)}")
     lv = _levels(config, levels)
     flat_row, p, keep_mask = _tile_coords(x, config, lv)
+    if row_base:
+        flat_row = flat_row - row_base
     # Its own cast: gather_table would pack, and this route reads planes.
-    rows = table.to(_gather_dtype(config)).index_select(0, flat_row)
+    rows = table.to(_gather_dtype(table_config)).index_select(0, flat_row)
     if rows.dtype != torch.float32:
         rows = rows.to(torch.float32)
     out = tile_interp(rows, p.contiguous())

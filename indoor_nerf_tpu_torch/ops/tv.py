@@ -12,6 +12,7 @@ rendered ray patches, plain tensor ops under autograd.
 from __future__ import annotations
 
 import math
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -44,18 +45,24 @@ def draw_tv_origins(generator: torch.Generator, config: HashGridConfig
 
 
 def total_variation_loss(table: torch.Tensor, config: HashGridConfig,
-                         origins: torch.Tensor) -> torch.Tensor:
+                         origins: torch.Tensor,
+                         levels: Optional[Sequence[int]] = None,
+                         row_offset: int = 0) -> torch.Tensor:
     """Sum over levels of the squared differences of adjacent vertices'
     features in the cube at ``origins[level]``, divided by its edge length.
-    ``table`` is the fused ``[L * T, F]`` hash table."""
+    ``table`` is the fused ``[L * T, F]`` hash table, or with ``levels``
+    (a level-sharded table, ``parallel/tp.py``) the block of those levels,
+    whose first row is row ``row_offset`` of the full table."""
     total = torch.zeros((), dtype=torch.float32, device=table.device)
-    for level, (_, cube) in enumerate(_cubes(config)):
+    cubes = _cubes(config)
+    for level in (range(config.n_levels) if levels is None else levels):
+        cube = cubes[level][1]
         ax = torch.arange(cube + 1, device=table.device)
         g = origins[level].to(table.device)[:, None] + ax[None, :]  # [3, C+1]
         cube_idx = torch.stack(torch.meshgrid(g[0], g[1], g[2], indexing="ij"),
                                dim=-1)  # [C+1, C+1, C+1, 3]
         flat = spatial_hash(cube_idx, config.log2_hashmap_size) \
-            + level * config.table_size
+            + (level * config.table_size - row_offset)
         emb = table[flat]  # [C+1, C+1, C+1, F]
         tv_x = torch.sum((emb[1:, :, :, :] - emb[:-1, :, :, :]) ** 2)
         tv_y = torch.sum((emb[:, 1:, :, :] - emb[:, :-1, :, :]) ** 2)

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from indoor_nerf_tpu_torch.models.field import params_device, serving_params
+from indoor_nerf_tpu_torch.parallel.sp import make_sharded_image_renderer
 from indoor_nerf_tpu_torch.render.renderer import (
     RenderConfig,
     _render_pose_block,
@@ -54,6 +55,8 @@ def render_path(
     save_figures: bool = True,
     image_renderer=None,
     quant_state=None,
+    mesh=None,
+    model_axis: Optional[str] = None,
 ) -> Tuple[np.ndarray, np.ndarray, List[float]]:
     """Render every pose; returns (rgbs, depths_normalized, psnrs).
 
@@ -64,7 +67,11 @@ def render_path(
     (``render_factor``-scaled) H and W. The PSNR of a view is computed
     against ``gt_imgs`` at ``render_factor 0`` only, as in JAX. A quantized
     field renders with ``quant_state`` in evaluation mode (JAX
-    render/path.py:38)."""
+    render/path.py:38). With a ``mesh`` of more than one rank (every rank
+    calls this) each pose is rendered by the sharded renderer
+    (``parallel/sp.py``), the rays over every rank, the image on every
+    rank, as JAX render/path.py:99-112; ``model_axis`` says that the
+    params' table is level-sharded over it."""
     H, W, focal = hwf
     if render_factor != 0:
         H = H // render_factor
@@ -81,6 +88,15 @@ def render_path(
 
         def render_block(c2ws):
             return image_renderer(c2ws, K, near, far)
+    elif mesh is not None and mesh.world_size > 1:
+        block = 1
+        single = make_sharded_image_renderer(config, H, W, mesh, tile_rays,
+                                             model_axis)
+
+        def render_block(c2ws):
+            out = single(params, c2ws[0], K, near, far, quant_state,
+                         occ_state)
+            return {k: v[None] for k, v in out.items()}
     else:
         block = max(1, min(POSE_BLOCK, n_poses))
         sp = serving_params(params, config.field, quant_state)

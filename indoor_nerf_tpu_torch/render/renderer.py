@@ -304,25 +304,31 @@ def default_tile_rays(device: torch.device,
     return int(min(1 << 20, max(1 << 12, 1 << (n.bit_length() - 1))))
 
 
-@torch.inference_mode()
-def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
-                       K: torch.Tensor, near: float, far: float,
-                       config: RenderConfig, H: int, W: int, tile_rays: int,
-                       occ_state: Optional[OccState] = None,
-                       quant_state: Optional[Dict[str, Any]] = None,
-                       view_bias: Optional[torch.Tensor] = None
-                       ) -> Dict[str, torch.Tensor]:
-    """Render ``c2ws`` ``[B, 3, 4]`` poses; maps carry a leading B axis.
-    A quantized field renders with ``quant_state`` in evaluation mode
-    (rounded bits, the calibrated levels). ``view_bias`` ``[D]`` is one
-    appearance latent for every ray (JAX renderer.py:316-319); without it
-    the field renders with the zero latent."""
-    B = c2ws.shape[0]
+def pose_rays(c2ws: torch.Tensor, K: torch.Tensor, H: int, W: int,
+              near: float, far: float, config: RenderConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor, Optional[torch.Tensor],
+                         torch.Tensor, torch.Tensor]:
+    """The flat rays of ``c2ws`` ``[B, 3, 4]``, pose by pose in row-major
+    pixel order: (rays_o, rays_d, viewdirs, near, far) of
+    ``_prepare_rays``."""
     rays = [get_rays(H, W, K, c2w) for c2w in c2ws]
     rays_o = torch.stack([r[0] for r in rays])
     rays_d = torch.stack([r[1] for r in rays])
-    rays_o, rays_d, viewdirs, near_a, far_a = _prepare_rays(
-        rays_o, rays_d, H, W, float(K[0][0]), near, far, config)
+    return _prepare_rays(rays_o, rays_d, H, W, float(K[0][0]), near, far,
+                         config)
+
+
+@torch.inference_mode()
+def render_ray_tiles(params: Dict[str, Any], rays_o: torch.Tensor,
+                     rays_d: torch.Tensor, viewdirs: Optional[torch.Tensor],
+                     near_a: torch.Tensor, far_a: torch.Tensor,
+                     config: RenderConfig, tile_rays: int,
+                     occ_state: Optional[OccState] = None,
+                     quant_state: Optional[Dict[str, Any]] = None,
+                     view_bias: Optional[torch.Tensor] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The flat maps ``MAP_KEYS`` of ``[n]`` rays rendered in test mode, in
+    tiles of ``tile_rays`` (the last one short)."""
     test_cfg = config.test_mode()
     outs = {k: [] for k in MAP_KEYS}
     for s in range(0, rays_o.shape[0], tile_rays):
@@ -337,7 +343,26 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
                        else view_bias[None].expand(n, -1)))
         for k in MAP_KEYS:
             outs[k].append(out[k])
-    flat = {k: torch.cat(v) for k, v in outs.items()}
+    return {k: torch.cat(v) for k, v in outs.items()}
+
+
+@torch.inference_mode()
+def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
+                       K: torch.Tensor, near: float, far: float,
+                       config: RenderConfig, H: int, W: int, tile_rays: int,
+                       occ_state: Optional[OccState] = None,
+                       quant_state: Optional[Dict[str, Any]] = None,
+                       view_bias: Optional[torch.Tensor] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """Render ``c2ws`` ``[B, 3, 4]`` poses; maps carry a leading B axis.
+    A quantized field renders with ``quant_state`` in evaluation mode
+    (rounded bits, the calibrated levels). ``view_bias`` ``[D]`` is one
+    appearance latent for every ray (JAX renderer.py:316-319); without it
+    the field renders with the zero latent."""
+    B = c2ws.shape[0]
+    rays = pose_rays(c2ws, K, H, W, near, far, config)
+    flat = render_ray_tiles(params, *rays, config, tile_rays, occ_state,
+                            quant_state, view_bias)
     return {
         "rgb_map": flat["rgb_map"].reshape(B, H, W, 3),
         "depth_map": flat["depth_map"].reshape(B, H, W),

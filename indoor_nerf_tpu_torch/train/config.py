@@ -219,22 +219,19 @@ def build_parser() -> argparse.ArgumentParser:
     add("--n_iters", type=int, default=8000,
         help="training iterations (reference hard-codes 8000, run_nerf.py:923)")
     add("--mesh_shape", type=str, default=None,
-        help="device mesh as 'data' or 'data:4,model:2'; default = all chips on data")
+        help="process mesh as 'data' or 'data:4,model:2' (an axis without "
+             "a size takes the rest); default = every process on data")
     add("--multihost", action="store_true",
-        help="initialize jax.distributed for multi-controller pod training "
-             "(run the same command on every host); each host samples "
-             "N_rand/process_count rays and the global batch is assembled "
-             "with make_array_from_process_local_data")
+        help="join torch.distributed, one process per card (NCCL; Gloo "
+             "with --device cpu); each data rank samples N_rand/D rays")
     add("--coordinator_address", type=str, default=None,
-        help="with --multihost: 'host:port' of the process-0 coordinator "
-             "for clusters jax.distributed cannot auto-detect (Cloud TPU "
-             "auto-detects; tests use this with the CPU Gloo backend)")
+        help="with --multihost: 'host:port' of the rendezvous, or "
+             "'file:///path' of a file every process can reach (without it, "
+             "torchrun's MASTER_ADDR/MASTER_PORT/WORLD_SIZE/RANK)")
     add("--num_processes", type=int, default=None,
-        help="with --multihost: total controller processes (auto-detected "
-             "on Cloud TPU)")
+        help="with --multihost --coordinator_address: the world size")
     add("--process_id", type=int, default=None,
-        help="with --multihost: this controller's rank (auto-detected on "
-             "Cloud TPU)")
+        help="with --multihost --coordinator_address: this process's rank")
     add("--seed", type=int, default=0, help="global PRNG seed")
     add("--precision", type=str, default="f32", choices=["f32", "bf16"],
         help="activation precision on TPU")

@@ -37,6 +37,18 @@ calibration is dropped. The render runs on every step, as JAX's does: the
 gate only multiplies its term. ``--use_appearance`` adds the rows of
 ``params["appearance"]`` of the batch's ``img_idx`` to its rays' view
 features (``_view_bias``).
+
+With a ``mesh`` (``parallel/shard.py::make_sharded_train_step``) the step
+is the JAX global-view step: the batch is this data rank's share, the
+draws are the global batch's (each rank renders with its slice,
+``_local_draws``), the per-ray outputs the losses read are gathered over
+the data axis (``_LOSS_OUTPUTS``), so every rank computes the one loss of
+the global batch, its masked means, k-means frame, pairs and controller
+decision included, and the gradients are summed over the data axis before
+RAdam. The terms that read only the table (TV, table decay) enter the
+gradient on data rank 0 alone, so that the sum counts them once; with a
+model axis each rank computes them on its own levels and sums their values
+over the model axis (``collectives.model_sum``).
 """
 
 from __future__ import annotations
@@ -74,6 +86,13 @@ from indoor_nerf_tpu_torch.ops.tv import (
     draw_tv_origins,
     patch_depth_regularizer,
     total_variation_loss,
+)
+from indoor_nerf_tpu_torch.parallel.collectives import (
+    DATA,
+    MODEL,
+    all_reduce_,
+    gather_rays,
+    model_sum,
 )
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig, draw_render, render_rays
 from indoor_nerf_tpu_torch.train.optim import (
@@ -308,6 +327,86 @@ def draw_step(generator: torch.Generator, config: TrainConfig, step: int,
     return draws
 
 
+# The draws of draw_render: one row per ray, sliced per data rank.
+_RENDER_DRAWS = ("t_rand", "u", "sigma_noise", "sigma_noise1")
+# The per-ray render outputs the step's losses read, gathered over the data
+# axis of a sharded step.
+_LOSS_OUTPUTS = ("rgb_map", "sparsity_loss", "rgb0", "sparsity_loss0",
+                 "weights", "z_vals", "depth_map", "normal_map", "acc_map")
+
+
+def _ray_slice(draws: Dict[str, Any], index: int, n: int) -> Dict[str, Any]:
+    return {k: (v[index * n:(index + 1) * n] if k in _RENDER_DRAWS else v)
+            for k, v in draws.items()}
+
+
+def _local_draws(draws: Dict[str, Any], mesh, n: int, n_reg: int
+                 ) -> Dict[str, Any]:
+    """The global batch's draws with each per-ray draw cut to this data
+    rank's ``n`` rays (and the patch render's to its ``n_reg``)."""
+    d = mesh.index(DATA)
+    out = _ray_slice(draws, d, n)
+    if "reg" in draws:
+        out["reg"] = _ray_slice(draws["reg"], d, n_reg)
+    return out
+
+
+def _gather_outputs(out: Dict[str, torch.Tensor], mesh
+                    ) -> Dict[str, torch.Tensor]:
+    """The outputs the losses read, over the global batch."""
+    return {k: gather_rays(v, mesh) for k, v in out.items()
+            if k in _LOSS_OUTPUTS}
+
+
+def _table_terms_table(params: Dict[str, Any], mesh) -> Optional[torch.Tensor]:
+    """The table the table-only terms read: detached on data ranks other
+    than 0, whose gradient sum would count those terms again."""
+    table = params.get("table")
+    if table is not None and mesh is not None and mesh.index(DATA) != 0:
+        return table.detach()
+    return table
+
+
+def _tv_term(table: torch.Tensor, fc, draws: Dict[str, Any], mesh
+             ) -> torch.Tensor:
+    """The grid's TV over the step's drawn rows or cubes; with a model axis
+    this rank's levels (a local table), summed over the model axis."""
+    m = 1 if mesh is None else mesh.size(MODEL)
+    if m == 1:
+        if fc.i_embed == 1:
+            return total_variation_loss(table, fc.grid, draws["tv_origins"])
+        return block_tv_loss(table, fc.block_grid, draws["tv_rows"])
+    j = mesh.index(MODEL)
+    if fc.i_embed == 1:
+        g = fc.grid
+        lp = g.n_levels // m
+        tv = total_variation_loss(table, g, draws["tv_origins"],
+                                  levels=range(j * lp, (j + 1) * lp),
+                                  row_offset=j * lp * g.table_size)
+    else:
+        g = fc.block_grid
+        lp = g.n_levels // m
+        rows = draws["tv_rows"].reshape(g.n_levels, -1)[j * lp:(j + 1) * lp]
+        tv = block_tv_loss(table, dataclasses.replace(g, n_levels=lp),
+                           rows.reshape(-1) - j * lp * g.rows_per_level)
+    return model_sum(tv, mesh)
+
+
+def _decay_term(table: torch.Tensor, fc, mesh) -> torch.Tensor:
+    """The fine-level table decay, sum_l 2^(l - (L-1)) * mean(table_l^2);
+    with a model axis over this rank's levels, summed over the model
+    axis."""
+    g = fc.block_grid if fc.i_embed == 3 else fc.grid
+    L = g.n_levels
+    m = 1 if mesh is None else mesh.size(MODEL)
+    lo = 0 if mesh is None else mesh.index(MODEL) * (L // m)
+    per_level = torch.mean(table.reshape(L // m, -1) ** 2, dim=1)
+    # Level l weighs 2^(l - (L-1)): the finest 1, each coarser half.
+    decay = sum(per_level[l] * 2.0 ** (lo + l - (L - 1))
+                for l in range(L // m))
+    return decay if m == 1 else model_sum(decay, mesh)
+
+
 def _view_bias(params: Dict[str, Any], fc, img_idx: Optional[torch.Tensor]
                ) -> Optional[torch.Tensor]:
     """The appearance latent rows of the batch's images ``[N, D]`` (JAX
@@ -320,8 +419,8 @@ def _view_bias(params: Dict[str, Any], fc, img_idx: Optional[torch.Tensor]
 
 
 def _patch_smoothness(state: TrainState, batch: Dict[str, torch.Tensor],
-                      config: TrainConfig, draws: Dict[str, torch.Tensor]
-                      ) -> torch.Tensor:
+                      config: TrainConfig, draws: Dict[str, torch.Tensor],
+                      mesh=None) -> torch.Tensor:
     """The patches' depth smoothness (JAX :294-330): the patch rays
     rendered in training mode through the step's params, occupancy grid
     and quantizer state, viewdirs of the world rays, NDC where the render
@@ -341,6 +440,8 @@ def _patch_smoothness(state: TrainState, batch: Dict[str, torch.Tensor],
                          occ_state=state["occ"], step=state["step"],
                          draws=draws, quant_state=state.get("quant"),
                          train=True)
+    if mesh is not None:
+        out = _gather_outputs(out, mesh)
     return patch_depth_regularizer(out["depth_map"], out["acc_map"],
                                    config.reg_patch_size, config.near,
                                    config.far, config.reg_mode)
@@ -349,8 +450,8 @@ def _patch_smoothness(state: TrainState, batch: Dict[str, torch.Tensor],
 def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                config: TrainConfig, generator: Optional[torch.Generator] = None,
                draws: Optional[Dict[str, Any]] = None,
-               prior_weights: Optional[Dict[str, float]] = None
-               ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+               prior_weights: Optional[Dict[str, float]] = None,
+               mesh=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimization step over the ``[N]`` rays of ``batch``
     (``rays_o``, ``rays_d``, ``target``, each ``[N, 3]``, and optionally
     ``spatial_coords`` ``[N, 2]``, the pixels' (row, col), which the
@@ -378,7 +479,9 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     positive ``reg_depth_tv_weight`` the patches' ungated
     ``reg_depth_tv``, and, on steps with the priors, the ``structural_*``
     diagnostics of ``combine_structural_losses``); ``state`` is updated in
-    place."""
+    place. ``mesh``: the sharded step of ``make_sharded_train_step`` (the
+    module docstring); ``batch`` is then this data rank's rays and
+    ``draws``, where given, the global batch's."""
     rc = config.render
     fc = rc.field
     step = state["step"]
@@ -387,9 +490,12 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     spatial_coords = batch.get("spatial_coords")
     reg_o = batch.get("reg_rays_o")
     n_reg = 0 if reg_o is None else reg_o.shape[0]
+    n_data = 1 if mesh is None else mesh.size(DATA)
     if draws is None:
-        draws = draw_step(generator, config, step, rays_o.shape[0],
-                          spatial_coords is not None, n_reg)
+        draws = draw_step(generator, config, step, rays_o.shape[0] * n_data,
+                          spatial_coords is not None, n_reg * n_data)
+    ray_draws = (draws if mesh is None
+                 else _local_draws(draws, mesh, rays_o.shape[0], n_reg))
     view_bias = _view_bias(params, fc, batch.get("img_idx"))
 
     viewdirs = None
@@ -409,8 +515,16 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     out, new_quant = render_rays(params, rays_o, rays_d, viewdirs, near, far,
                                  rc, occ_state=state["occ"], step=step,
-                                 draws=draws, quant_state=state.get("quant"),
+                                 draws=ray_draws,
+                                 quant_state=state.get("quant"),
                                  train=True, view_bias=view_bias)
+    if mesh is not None:
+        out = _gather_outputs(out, mesh)
+        target = gather_rays(target, mesh)
+        if spatial_coords is not None:
+            spatial_coords = gather_rays(spatial_coords, mesh)
+        near = config.near * torch.ones_like(target[..., :1])
+        far = config.far * torch.ones_like(target[..., :1])
     img_loss = torch.mean((out["rgb_map"] - target) ** 2)
     loss = img_loss
     sparsity = torch.sum(out["sparsity_loss"])
@@ -418,29 +532,21 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         loss = loss + torch.mean((out["rgb0"] - target) ** 2)
         sparsity = sparsity + torch.sum(out["sparsity_loss0"])
     loss = loss + config.sparse_loss_weight * sparsity
+    table = _table_terms_table(params, mesh)
     if _tv_active(config, step):
         with record_function("tv"):
-            if fc.i_embed == 1:
-                tv = total_variation_loss(params["table"], fc.grid,
-                                          draws["tv_origins"])
-            else:
-                tv = block_tv_loss(params["table"], fc.block_grid,
-                                   draws["tv_rows"])
+            tv = _tv_term(table, fc, draws, mesh)
         loss = loss + config.tv_loss_weight * tv
     if config.distortion_loss_weight > 0:
         loss = loss + config.distortion_loss_weight * distortion_loss(
             out["weights"], out["z_vals"], near, far)
     if config.table_decay_weight > 0 and fc.uses_grid:
-        g = fc.block_grid if fc.i_embed == 3 else fc.grid
-        L = g.n_levels
-        per_level = torch.mean(params["table"].reshape(L, -1) ** 2, dim=1)
-        # Level l weighs 2^(l - (L-1)): the finest 1, each coarser half.
-        decay = sum(per_level[l] * 2.0 ** (l - (L - 1)) for l in range(L))
-        loss = loss + config.table_decay_weight * decay
+        loss = loss + config.table_decay_weight * _decay_term(table, fc, mesh)
     reg_tv = None
     if reg_active(config, n_reg):
         with record_function("reg_patches"):
-            reg_tv = _patch_smoothness(state, batch, config, draws["reg"])
+            reg_tv = _patch_smoothness(state, batch, config,
+                                       ray_draws["reg"], mesh)
         gate = 1.0 if step >= config.reg_start_iter else 0.0
         loss = loss + config.reg_depth_tv_weight * gate * reg_tv
     diag = {}
@@ -458,16 +564,22 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     wrt = [k for k in leaves if k != "appearance" or view_bias is not None]
     with record_function("backward"):
         grads = torch.autograd.grad(loss, [leaves[k] for k in wrt])
+    if mesh is not None:
+        for g in grads:
+            all_reduce_(g, mesh, DATA)
     fp_loss = None
     if acaq_active(config, step) and fc.quant.target_metric is None:
         # The MDL anchor: this batch's loss without any quantizer, on the
         # same rays, draws and (pre-update) params (JAX :420-434).
         with torch.no_grad(), record_function("acaq_fp_forward"):
-            out_fp, _ = render_rays(params, rays_o, rays_d, viewdirs, near,
-                                    far, rc, occ_state=state["occ"],
-                                    step=step, draws=draws, train=True,
+            out_fp, _ = render_rays(params, rays_o, rays_d, viewdirs,
+                                    near[:rays_o.shape[0]],
+                                    far[:rays_o.shape[0]], rc,
+                                    occ_state=state["occ"], step=step,
+                                    draws=ray_draws, train=True,
                                     view_bias=view_bias)
-            fp_loss = torch.mean((out_fp["rgb_map"] - target) ** 2)
+            fp_loss = torch.mean(
+                (gather_rays(out_fp["rgb_map"], mesh) - target) ** 2)
         del out_fp
     lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
     with record_function("optimizer"):

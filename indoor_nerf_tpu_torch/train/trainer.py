@@ -1,6 +1,5 @@
 """The training entry point (train/trainer.py of the JAX package: the loop of
-its ``train``, without the multi-device parts) and the static config
-assembly that serving shares.
+its ``train``) and the static config assembly that serving shares.
 
     python -m indoor_nerf_tpu_torch.run_nerf --config configs/lego_tpu.txt \
         --datadir DIR
@@ -72,6 +71,21 @@ a latent added to its rays' view features (held-out renders use none).
 ``--render_only --render_test --render_fit_appearance`` scores each
 held-out view by the NeRF-W half-image protocol (``render/appearance.py``)
 into ``fit_appearance.json``, then renders the test set.
+
+``--multihost`` trains on several processes, one per card (NCCL; Gloo with
+``--device cpu``), joined through ``torch.distributed``: with
+``--coordinator_address host:port --num_processes N --process_id i``, or
+under ``torchrun`` from its environment (``MASTER_ADDR``, ``MASTER_PORT``,
+``WORLD_SIZE``, ``RANK``; ``--device cuda`` becomes ``cuda:LOCAL_RANK``).
+``--mesh_shape data:4,model:2`` lays the processes out on a data and a
+model axis (``parallel/shard.py``; default, all on the data axis): each
+data rank samples ``N_rand / D`` rays and ``reg_views / D`` patches from
+``seed + 7919 * data_index``, the model axis shards the grid's table by
+level (``parallel/tp.py``), the step is the global-view step of the
+single-device one, and test sets and videos render through the sharded
+renderer (``parallel/sp.py``). Every rank computes; only rank 0 writes,
+and its checkpoints hold the gathered single-device state, which resumes
+under any mesh and serves on one card.
 """
 
 from __future__ import annotations
@@ -85,6 +99,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from indoor_nerf_tpu_torch import resolve_device
 from indoor_nerf_tpu_torch.data.images import installed
@@ -99,6 +114,13 @@ from indoor_nerf_tpu_torch.models.field import FieldConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.encoding import HashGridConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
+from indoor_nerf_tpu_torch.parallel.shard import (
+    gather_state,
+    make_mesh,
+    make_sharded_train_step,
+    parse_mesh_shape,
+    shard_state,
+)
 from indoor_nerf_tpu_torch.render.path import render_path, write_video
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
 from indoor_nerf_tpu_torch.train.config import parse_args
@@ -124,13 +146,9 @@ PRIOR_KEYS = ("planarity", "manhattan", "normal_consistency", "depth_prior")
 PRIOR_DIAG = ("manhattan", "planarity", "normal_consistency",
               "semantic_floor_count", "semantic_wall_count",
               "wall_cluster_angle_deg")
-# The flags of the multi-device training loop, refused by ``train`` with the
-# ROADMAP item that brings them.
-_ITEM8 = "Queue 1 item 8 (multi-device)"
-_UNPORTED = (
-    ("multihost", False, _ITEM8),
-    ("mesh_shape", None, _ITEM8),
-)
+# The flags ``train`` refuses for want of a port, each with the ROADMAP item
+# that brings it: none since item 8 (multi-device).
+_UNPORTED = ()
 MILESTONES = (15, 20, 25, 30, 35)  # training PSNR, dB (JAX trainer.py:55)
 PROFILE_FIRST, PROFILE_LAST = 10, 210  # --profile_dir: steps start + these
 
@@ -386,8 +404,11 @@ def _quant_bits(flat: np.ndarray, n_embed: int) -> Dict[str, np.ndarray]:
     return {"embed": flat[:n_embed], "network": flat[n_embed:]}
 
 
-def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int):
-    """``(sample, skip)`` of the run's batches (JAX trainer.py:449-527):
+def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
+                 n_data: int = 1):
+    """``(sample, skip)`` of the run's batches (JAX trainer.py:449-527), or
+    of one data rank's share of them (``N_rand / n_data`` rays and
+    ``reg_views / n_data`` patches):
     ``sample(i)`` is step i's batch of numpy arrays, those the step of
     ``cfg`` reads: ``rays_o``, ``rays_d``, ``target``, with
     ``--no_batching`` ``spatial_coords``, with the appearance latents
@@ -399,23 +420,29 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int):
     JAX's. ``skip(i)`` makes step i's draws and, for the image sampler, no
     rays."""
     H, W, _ = scene.hwf
+    for flag in ("N_rand", "reg_views"):
+        if getattr(args, flag) % n_data != 0:
+            raise ValueError(f"--{flag} {getattr(args, flag)} must divide "
+                             f"evenly over the {n_data} data ranks")
+    n_rand = args.N_rand // n_data
     if args.no_batching:
         sampler = ImageRaySampler(
             scene.images, scene.poses, scene.i_train, H, W, scene.K,
-            args.N_rand, precrop_iters=args.precrop_iters,
+            n_rand, precrop_iters=args.precrop_iters,
             precrop_frac=args.precrop_frac, seed=seed)
         sample, skip = sampler.next, sampler.skip
     else:
         sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train,
-                                    H, W, scene.K, args.N_rand, seed=seed)
+                                    H, W, scene.K, n_rand, seed=seed)
         sample = skip = lambda i: sampler.next()
     drop = set() if cfg.render.field.n_appearance > 0 else {"img_idx"}
     if args.reg_views <= 0:
         return (lambda i: {k: v for k, v in sample(i).items()
                            if k not in drop}), skip
     reg = UnobservedPatchSampler(
-        scene.poses[scene.i_train], H, W, scene.K, n_patches=args.reg_views,
-        patch=args.reg_patch_size, seed=seed + 13,
+        scene.poses[scene.i_train], H, W, scene.K,
+        n_patches=args.reg_views // n_data, patch=args.reg_patch_size,
+        seed=seed + 13,
         pose_mode=args.reg_pose_mode)
     if not reg_active(cfg, args.reg_views * args.reg_patch_size ** 2):
         drop |= {"reg_rays_o", "reg_rays_d"}
@@ -461,7 +488,8 @@ def _write_run_files(args, logdir: str) -> None:
 
 
 def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
-                 logdir: Optional[str]) -> Dict:
+                 logdir: Optional[str], mesh=None, is_main: bool = True
+                 ) -> Dict:
     """``--render_only`` (JAX trainer.py:297-401): the render path, or with
     ``--render_test`` the held-out views against their images, from the
     state resumed, into ``renderonly_{path|test}_{step:06d}/`` with its
@@ -469,7 +497,9 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
     ``--render_baked``. With ``--render_test --render_fit_appearance``
     first the half-image protocol on each held-out view (``_fit_appearance``).
     Returns the step, the PSNRs, the directory and the video, and the
-    fit's results under ``fit_appearance`` where it ran."""
+    fit's results under ``fit_appearance`` where it ran. With a ``mesh``
+    of several ranks (``state`` whole on each) the views render through
+    the sharded renderer and only rank 0 (``is_main``) writes."""
     start = int(state["step"])
     print("RENDER ONLY")
     if start == 0:
@@ -481,7 +511,7 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
         )
     gt = scene.images[scene.i_test] if args.render_test else None
     savedir = None
-    if logdir is not None:
+    if logdir is not None and is_main:
         savedir = os.path.join(logdir, "renderonly_{}_{:06d}".format(
             "test" if args.render_test else "path", start))
         os.makedirs(savedir, exist_ok=True)
@@ -517,7 +547,8 @@ def _render_only(args, scene: SceneData, cfg: TrainConfig, state: Dict,
         scene.render_poses, scene.hwf, scene.K, cfg.render.test_mode(),
         eval_params(state), scene.near, scene.far, gt_imgs=gt, savedir=savedir,
         render_factor=args.render_factor, occ_state=state["occ"],
-        image_renderer=image_renderer, quant_state=state["quant"])
+        image_renderer=image_renderer, quant_state=state["quant"],
+        mesh=mesh)
     print("Done rendering", savedir)
     video = (write_video(os.path.join(savedir, "video.mp4"), rgbs)
              if savedir is not None else None)
@@ -576,6 +607,54 @@ def _check_finite(i: int, metrics: Dict, state: Dict) -> None:
                 f"--debug_nans: non-finite {name} after iteration {i}")
 
 
+def init_multihost(args, device: torch.device) -> torch.device:
+    """``--multihost``: join ``torch.distributed`` (JAX
+    ``jax.distributed.initialize``, trainer.py:240-255) and return this
+    process's device. The rendezvous is ``--coordinator_address host:port``
+    (or ``file:///path``, a file rendezvous) with ``--num_processes`` and
+    ``--process_id``, or, without them,
+    torchrun's environment (``MASTER_ADDR``, ``MASTER_PORT``,
+    ``WORLD_SIZE``, ``RANK``). The backend is NCCL on a card and Gloo on
+    the CPU; ``--device cuda`` becomes ``cuda:LOCAL_RANK`` (torchrun's, else
+    the rank modulo the cards visible). A process group this process has
+    already joined is kept if it is the same world."""
+    if args.coordinator_address:
+        if args.num_processes is None or args.process_id is None:
+            raise ValueError("--multihost --coordinator_address needs "
+                             "--num_processes and --process_id")
+        addr = args.coordinator_address
+        init_method = addr if addr.startswith("file://") else f"tcp://{addr}"
+        world, rank = args.num_processes, args.process_id
+    else:
+        missing = [k for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                               "RANK") if k not in os.environ]
+        if missing:
+            raise ValueError(
+                "--multihost needs --coordinator_address host:port, "
+                "--num_processes and --process_id, or torchrun's "
+                f"environment (missing {', '.join(missing)})")
+        init_method = "env://"
+        world, rank = int(os.environ["WORLD_SIZE"]), int(os.environ["RANK"])
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", int(os.environ.get(
+            "LOCAL_RANK", rank % torch.cuda.device_count())))
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    backend = "nccl" if device.type == "cuda" else "gloo"
+    if dist.is_initialized():
+        if (dist.get_world_size(), dist.get_rank(), dist.get_backend()) \
+                != (world, rank, backend):
+            raise RuntimeError(
+                f"this process already joined rank {dist.get_rank()} of "
+                f"{dist.get_world_size()} over {dist.get_backend()}")
+    else:
+        dist.init_process_group(backend, init_method=init_method,
+                                world_size=world, rank=rank)
+    print(f"[multihost] process {rank}/{world} backend={backend} "
+          f"device={device}")
+    return device
+
+
 def train(args) -> Dict:
     """Train up to step ``args.n_iters`` (the loop of JAX trainer.py:234-866
     for what the port runs), or render with ``--render_only``.
@@ -611,8 +690,10 @@ def train(args) -> Dict:
     mean PSNR, SSIM, GMSD, the seconds of the render and of the metrics, per
     ``--i_testset`` evaluation), ``prior_weights`` (the base weights of the
     structural priors at the end) and ``prior_decays`` (step and weights of
-    each overfitting decay), ``state`` and ``logdir``; with
-    ``--render_only``, ``_render_only``'s dict."""
+    each overfitting decay), ``state`` (with a model axis this rank's
+    shard: ``gather_state`` gives the whole), ``logdir`` and ``mesh``; with
+    ``--render_only``, ``_render_only``'s dict. ``--multihost`` and
+    ``--mesh_shape``: the module docstring."""
     _refuse(args, _UNPORTED)
     enable_normals(args)
     t_load = time.perf_counter()
@@ -623,25 +704,55 @@ def train(args) -> Dict:
           f"{load_seconds:.2f} s")
     cfg = build_train_config(args, scene)
     device = resolve_device(args.device)
+    if args.multihost:
+        device = init_multihost(args, device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = make_mesh(*parse_mesh_shape(args.mesh_shape, world))
+    # Every rank computes (the collectives need all of them); only rank 0
+    # writes (JAX trainer.py:268).
+    is_main = mesh.is_main
+    sharded = args.multihost or mesh.world_size > 1
+    print(f"Device mesh: {mesh.shape}")
     logdir = logdir_of(args)
-    if logdir is not None:
+    if logdir is not None and is_main:
         _write_run_files(args, logdir)
     state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
                              cfg, device)
     state = resume(args, state, args.no_reload)
+    eval_mesh = mesh if mesh.world_size > 1 else None
     if args.render_only:
-        return _render_only(args, scene, cfg, state, logdir)
+        return _render_only(args, scene, cfg, state, logdir, eval_mesh,
+                            is_main)
+    state = shard_state(state, mesh)
+    model_axis = "model" if mesh.size("model") > 1 else None
+    if sharded:
+        step_fn = make_sharded_train_step(cfg, mesh)
+    else:
+        def step_fn(st, batch, generator, prior_weights):
+            return train_step(st, batch, cfg, generator,
+                              prior_weights=prior_weights)
+
+    def save(step_no: int) -> Optional[str]:
+        """Every rank gathers the state; rank 0 writes it (the
+        single-device format, whatever the mesh)."""
+        full = gather_state(state, mesh)
+        return save_checkpoint(logdir, step_no, full) if is_main else None
+
     start = int(state["step"])
     metrics_logger = MetricsLogger(
         args.basedir, os.path.basename(logdir or ""),
         dict(vars(args), expname=os.path.basename(logdir or "")),
-        write=logdir is not None)
+        write=logdir is not None and is_main)
     evaluator = ComprehensiveEvaluator()
     test_config = cfg.render.test_mode()
 
     # The JAX trainer's per-step keys split from PRNGKey(seed + 1).
     gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    sample, skip = make_sampler(args, scene, cfg, args.seed)
+    # Each data rank's own ray stream; the model ranks of one data shard
+    # see the same rays.
+    sample, skip = make_sampler(args, scene, cfg,
+                                args.seed + 7919 * mesh.index("data"),
+                                mesh.size("data"))
     n_reg = args.reg_views * args.reg_patch_size ** 2
     if args.reg_views > 0:
         print(f"[reg] unobserved-view depth TV: {args.reg_views} "
@@ -724,7 +835,7 @@ def train(args) -> Dict:
         if not np.isfinite(loss):
             saved = ("no checkpoint (no --expname)" if logdir is None else
                      f"state of step {state['step']} saved to "
-                     f"{save_checkpoint(logdir, int(state['step']), state)}")
+                     f"{save(int(state['step']))}")
             raise FloatingPointError(
                 f"non-finite loss {loss} at iteration {i}; {saved}. "
                 "Re-run with --debug_nans to locate the op.")
@@ -788,8 +899,8 @@ def train(args) -> Dict:
                 profiler.start()
             batch = {k: torch.from_numpy(v).to(device, non_blocking=True)
                      for k, v in sample(i).items()}
-            state, metrics = train_step(state, batch, cfg, gen,
-                                        prior_weights=prior_weights)
+            state, metrics = step_fn(state, batch, gen,
+                                     prior_weights=prior_weights)
             if args.debug_nans:
                 _check_finite(i, metrics, state)
             if profiler is not None and (i == start + PROFILE_LAST
@@ -838,13 +949,15 @@ def train(args) -> Dict:
 
             if due["weights"] and logdir is not None:
                 t_eval = time.perf_counter()
-                print("Saved checkpoints at", save_checkpoint(logdir, i, state))
+                path = save(i)
+                if is_main:
+                    print("Saved checkpoints at", path)
                 saved_at = i
                 metrics_logger.save_checkpoint(i)
                 metrics_logger.plot_training_curves()
                 if args.use_quantization:
                     metrics_logger.calculate_model_complexity(
-                        state["params"], last_bits)
+                        gather_state(state, mesh)["params"], last_bits)
                     metrics_logger.plot_quantization_analysis()
                 eval_seconds += time.perf_counter() - t_eval
 
@@ -854,19 +967,21 @@ def train(args) -> Dict:
                     scene.render_poses, scene.hwf, scene.K, test_config,
                     eval_params(state), scene.near, scene.far,
                     occ_state=state["occ"], save_figures=False,
-                    quant_state=state["quant"])
+                    quant_state=state["quant"], mesh=eval_mesh,
+                    model_axis=model_axis)
                 print("Done, saving", rgbs.shape, disps.shape)
                 moviebase = os.path.join(logdir, "{}_spiral_{:06d}_".format(
                     os.path.basename(logdir), i))
-                write_video(moviebase + "rgb.mp4", rgbs)
-                write_video(moviebase + "disp.mp4",
-                            disps / max(np.max(disps), 1e-8))
+                if is_main:
+                    write_video(moviebase + "rgb.mp4", rgbs)
+                    write_video(moviebase + "disp.mp4",
+                                disps / max(np.max(disps), 1e-8))
                 eval_seconds += time.perf_counter() - t_eval
 
             if due["testset"] and len(scene.i_test) > 0:
                 t_eval = time.perf_counter()
                 testsavedir = None
-                if logdir is not None:
+                if logdir is not None and is_main:
                     testsavedir = os.path.join(logdir, f"testset_{i:06d}")
                     os.makedirs(testsavedir, exist_ok=True)
                 print("test poses shape", scene.poses[scene.i_test].shape)
@@ -874,7 +989,8 @@ def train(args) -> Dict:
                     scene.poses[scene.i_test], scene.hwf, scene.K,
                     test_config, eval_params(state), scene.near, scene.far,
                     gt_imgs=scene.images[scene.i_test], savedir=testsavedir,
-                    occ_state=state["occ"], quant_state=state["quant"])
+                    occ_state=state["occ"], quant_state=state["quant"],
+                    mesh=eval_mesh, model_axis=model_axis)
                 print("Saved test set")
                 t_metrics = time.perf_counter()
                 avg = sum(view_psnrs) / len(view_psnrs)
@@ -892,8 +1008,10 @@ def train(args) -> Dict:
                 if avg > best_test_psnr:
                     best_test_psnr = avg
                     if logdir is not None:
-                        print(f"[best] new best held-out {avg:.2f} dB -> "
-                              f"{save_best_checkpoint(logdir, state)}")
+                        full = gather_state(state, mesh)
+                        if is_main:
+                            print(f"[best] new best held-out {avg:.2f} dB -> "
+                                  f"{save_best_checkpoint(logdir, full)}")
                 now = time.perf_counter()
                 testsets.append({"step": i, "psnr": avg, "ssim": ssim,
                                  "gmsd": gmsd,
@@ -913,7 +1031,7 @@ def train(args) -> Dict:
                 loss_list.append(loss)
                 psnr_list.append(psnr)
                 time_list.append(t)
-                if logdir is not None:
+                if logdir is not None and is_main:
                     _write_training_pickles(args, logdir, loss_list,
                                             psnr_list, time_list, time_metrics,
                                             prior_weights)
@@ -939,8 +1057,9 @@ def train(args) -> Dict:
     final_step = int(state["step"])
     if logdir is not None:
         if saved_at != final_step:
-            print("Saved checkpoints at",
-                  save_checkpoint(logdir, final_step, state))
+            path = save(final_step)
+            if is_main:
+                print("Saved checkpoints at", path)
         metrics_logger.save_checkpoint(final_step)
         metrics_logger.plot_training_curves()
         if args.use_quantization:
@@ -953,7 +1072,7 @@ def train(args) -> Dict:
             "seconds": seconds, "eval_seconds": eval_seconds,
             "load_seconds": load_seconds, "testsets": testsets,
             "prior_weights": prior_weights, "prior_decays": prior_decays,
-            "state": state, "logdir": logdir}
+            "state": state, "logdir": logdir, "mesh": mesh}
 
 
 def _write_training_pickles(args, logdir, loss_list, psnr_list, time_list,

@@ -235,6 +235,28 @@ assert os.path.exists(os.path.join(fit["savedir"], "fit_appearance.json"))
 render, step, hw = serve.build(argparse.Namespace(
     width=8, height=8, train_args=["--"] + app))
 assert step == 2 and np.all(np.isfinite(render(scene.poses[0])[0]["rgb_map"]))
+# The multi-device modules: a sharded step and render on a mesh of one
+# rank (no process group: the collectives are the identity).
+import indoor_nerf_tpu_torch.parallel.collectives
+import indoor_nerf_tpu_torch.parallel.dryrun
+from indoor_nerf_tpu_torch.parallel.shard import (
+    make_mesh, make_sharded_train_step)
+from indoor_nerf_tpu_torch.parallel.sp import make_sharded_image_renderer
+from indoor_nerf_tpu_torch.parallel.tp import tp_block_encode
+mesh = make_mesh(("data", "model"), (1, 1))
+step = make_sharded_train_step(cfg, mesh)
+pstate = init_train_state(torch.Generator().manual_seed(0), cfg)
+batch = {k: torch.as_tensor(v)
+         for k, v in BatchedRaySampler(scene.images, scene.poses,
+                                       scene.i_train, *scene.hwf[:2], scene.K,
+                                       16).next().items()
+         if k in ("rays_o", "rays_d", "target")}
+pstate, m = step(pstate, batch, torch.Generator().manual_seed(1))
+assert np.isfinite(float(m["loss"]))
+img = make_sharded_image_renderer(cfg.render.test_mode(), 4, 4, mesh)(
+    pstate["params"], scene.poses[0], scene.K, scene.near, scene.far,
+    occ_state=pstate["occ"])
+assert img["rgb_map"].shape == (4, 4, 3)
 leaked = sorted(m for m in sys.modules
                 if m == "indoor_nerf_tpu" or m.startswith("indoor_nerf_tpu.")
                 or m == "flax" and sys.modules[m] is not None)
@@ -260,3 +282,28 @@ def test_port_renders_without_jax(tmp_path):
                           env=env, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     assert "NOJAX_OK" in proc.stdout
+
+
+def test_parallel_child_imports_no_jax(tmp_path):
+    """The rank program of the multi-process tests
+    (``_torch_parallel_child.py``) and the port's ``parallel`` package load
+    with every `import jax` failing and no ``indoor_nerf_tpu/``."""
+    shutil.copytree(os.path.join(_ROOT, "indoor_nerf_tpu_torch"),
+                    tmp_path / "indoor_nerf_tpu_torch",
+                    ignore=shutil.ignore_patterns("build", "__pycache__"))
+    shutil.copy(os.path.join(_ROOT, "tests", "_torch_parallel_child.py"),
+                tmp_path)
+    program = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['flax'] = None\n"
+        "import _torch_parallel_child\n"
+        "import indoor_nerf_tpu_torch.parallel.dryrun\n"
+        "assert not any(m == 'indoor_nerf_tpu' or m.startswith("
+        "'indoor_nerf_tpu.') for m in sys.modules)\n"
+        "print('CHILD_NOJAX_OK')\n")
+    proc = subprocess.run([sys.executable, "-c", program], cwd=tmp_path,
+                          env=dict(os.environ, PYTHONPATH=str(tmp_path)),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "CHILD_NOJAX_OK" in proc.stdout

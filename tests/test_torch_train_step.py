@@ -283,12 +283,17 @@ def test_trainer_runs_the_cli_on_cpu(capsys):
 
 
 @pytest.mark.parametrize("flag,item", [
-    (["--multihost"], "item 8"),
-    (["--mesh_shape", "data:1"], "item 8"),
+    (["--multihost"], "torchrun's environment"),
+    (["--mesh_shape", "data:2"], "started with --multihost"),
 ])
-def test_trainer_refuses_unported_flags(flag, item):
+def test_trainer_refuses_unported_flags(flag, item, monkeypatch):
+    """Multi-device training is ported (ROADMAP Queue 1 item 8); the
+    trainer refuses its flags where no process group can be formed: no
+    rendezvous for --multihost, a mesh of two ranks in one process."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
     args = parse_args(TINY_FLAGSHIP + CPU + flag + ["--n_iters", "1"])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match=item):
         train(args)
 
 
