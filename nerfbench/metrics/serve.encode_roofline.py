@@ -1,0 +1,16 @@
+"""The encode's share of its roofline in serving: the logical encode's
+least time over a request's sample points (``counts.py``) over the device
+time of the operations launched inside the ``encode`` span, per request,
+in percent."""
+
+from nerfbench.tracing import under_span
+
+
+def read(run):
+    tr, work = getattr(run, "trace", None), getattr(run, "work", None)
+    if run.kind != "serve" or tr is None or work is None:
+        return None
+    n, sec = under_span(tr["ops"], "encode")
+    if not n or sec <= 0:
+        return None
+    return 100.0 * work["encode_least_s"] * tr["units"] / sec
