@@ -745,10 +745,12 @@ def phase_serving(torch) -> int:
     render, step, hw = serve.build(args)
     captured = []
 
-    def recorded(c2w):
-        maps, dt = render(c2w)
+    def recorded(c2w, request_id=None):
+        maps, dt = render(c2w, request_id)
         captured.append((maps, dt))
         return maps, dt
+
+    recorded.request_ids = render.request_ids
 
     scene = load_dataset(parse_args(SERVE_FLAGS))
     test_poses = scene.poses[scene.i_test]
@@ -2655,11 +2657,14 @@ def room_flags(workdir, config, tag, extra=()):
 
 
 def step_rates(out, spans) -> list:
-    """Median steps/s of ``trainer.train``'s steps in each ``(first, last)``
-    span of iterations (from the host times between the steps' metrics,
-    read one step late)."""
+    """Median steps/s of ``trainer.train``'s print intervals (the steps
+    over the host seconds between two print steps' synchronized loss reads)
+    that lie in each ``(first, last)`` span of iterations, one step past
+    its end allowed."""
     ips = np.asarray(out["iterations_per_second"])
-    return [float(np.median(ips[a - 1:b])) for a, b in spans]
+    steps = np.asarray(out["iterations_per_second_steps"]).reshape(-1, 2)
+    return [float(np.median(ips[(steps[:, 0] >= a) & (steps[:, 1] <= b + 1)]))
+            for a, b in spans]
 
 
 def phase_priors(torch, workdir) -> dict:

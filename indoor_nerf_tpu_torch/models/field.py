@@ -46,7 +46,6 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
-from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.losses.quantization import (
     QuantConfig,
@@ -89,6 +88,7 @@ from indoor_nerf_tpu_torch.parallel.tp import (
     tp_hash_indices,
     tp_hash_interp,
 )
+from indoor_nerf_tpu_torch.utils.spans import span
 
 Params = Dict[str, Any]
 
@@ -603,7 +603,7 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
     quantizer is bypassed, as the JAX step's MDL forward asks."""
     r, s, _ = pts.shape
     bg = config.block_grid
-    with record_function("encode"):
+    with span("encode"):
         if config.i_embed == 3 and (bg.ray_groups is not None
                                     or bg.ray_strides is not None):
             table, quant_state = _block_table(params, config, quant_state,
@@ -627,7 +627,7 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
             vf = vf + view_bias
         view_feats = vf[:, None, :].expand(r, s, vf.shape[-1]).reshape(r * s, -1)
 
-    with record_function("mlp"):
+    with span("mlp"):
         quantizers = ()
         if _quantizing(config, quant_state):
             *quantizers, quant_state = _mlp_quantizers(

@@ -34,7 +34,6 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.encoding import level_resolutions
@@ -50,6 +49,7 @@ from indoor_nerf_tpu_torch.ops.tent_contract import (
     tent_contract,
 )
 from indoor_nerf_tpu_torch.ops.tile_interp import tile_interp
+from indoor_nerf_tpu_torch.utils.spans import span
 
 _BLOCK_PRIMES = (2654435761, 805459861, 3674653429, 2097192037)
 _MASK32 = 0xFFFFFFFF
@@ -392,7 +392,7 @@ class _Encode(torch.autograd.Function):
     def backward(ctx, g):
         flat_row, p = ctx.saved_tensors
         c = ctx.config
-        with record_function("encode_bwd"):
+        with span("encode_bwd"):
             grad = table_scatter(g.contiguous(), p, flat_row, ctx.n_rows,
                                  c.side, c.lanes_per_feature,
                                  c.torch_scatter_dtype)
@@ -513,7 +513,7 @@ class _EncodeGrouped(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         v0, w, level_ids = ctx.saved_tensors
-        with record_function("encode_bwd"):
+        with span("encode_bwd"):
             grad = grouped_scatter(g.contiguous(), v0, w, level_ids,
                                    ctx.config, ctx.groups, ctx.n_rows)
         return grad, None, None, None, None, None

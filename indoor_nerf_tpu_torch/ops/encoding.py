@@ -17,10 +17,10 @@ from typing import Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.hashing import PRIMES
+from indoor_nerf_tpu_torch.utils.spans import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +153,7 @@ class _CornerSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         idx, cw = ctx.saved_tensors
-        with record_function("encode_bwd"):
+        with span("encode_bwd"):
             rows = (cw[..., None] * g[..., None, :]).reshape(idx.shape[0], -1)
             d_table = torch.zeros(ctx.table_shape, dtype=g.dtype,
                                   device=g.device)

@@ -40,7 +40,6 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as nnf
-from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.models.field import (
     FieldConfig,
@@ -53,6 +52,7 @@ from indoor_nerf_tpu_torch.ops.rays import get_rays
 from indoor_nerf_tpu_torch.ops.sampling import linspace01
 from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract
 from indoor_nerf_tpu_torch.utils.checkpoint import atomic_save
+from indoor_nerf_tpu_torch.utils.spans import span
 
 BLOCK = 4  # voxels per block edge (5^3 = 125 halo'd vertices <= 128 lanes)
 SIDE = BLOCK + 1
@@ -317,7 +317,7 @@ def bake_field(params: Dict[str, Any], config: FieldConfig,
     chunk = blocks_per_chunk * LANES
     vert_sigma = torch.empty(V ** 3, dtype=dtype, device=dev)
     geo_table = torch.empty((V ** 3, geo_dim), dtype=dtype, device=dev)
-    with record_function("bake_vertices"):
+    with span("bake_vertices"):
         for start in range(0, V ** 3, chunk):
             ids = torch.arange(start, min(start + chunk, V ** 3), device=dev)
             vi = torch.stack([ids // (V * V), (ids // V) % V, ids % V],
@@ -328,7 +328,7 @@ def bake_field(params: Dict[str, Any], config: FieldConfig,
             geo_table[start:start + chunk] = geo.to(dtype)
 
     if train_cameras is not None:
-        with record_function("bake_visibility"):
+        with span("bake_visibility"):
             keep_vert = _visibility_mask(
                 params, config, mlp_name, resolution, bmin, bmax,
                 train_cameras, subsample=vis_subsample, threshold=vis_threshold)
@@ -503,11 +503,11 @@ def baked_render_rays(baked: Dict[str, Any], rays_o: torch.Tensor,
     dev = rays_o.device
     n = rays_o.shape[0]
 
-    with record_function("baked_sample"):
+    with span("baked_sample"):
         z, (relx, rely, relz), row_idx, p = _tile_samples(
             bc, rays_o, rays_d, near, far, n_samples, t_bounds)
 
-    with record_function("baked_pass1"):
+    with span("baked_pass1"):
         sigma = _sigma_interp(baked["sigma_table"], row_idx.reshape(-1),
                               *(a.reshape(-1) for a in p)).reshape(n, n_samples)
         if bc.sigma_quantized:
@@ -515,7 +515,7 @@ def baked_render_rays(baked: Dict[str, Any], rays_o: torch.Tensor,
             enc = torch.relu(sigma) * baked["sigma_scale"]
             sigma = torch.square(enc) if bc.sigma_enc == "sqrt" else torch.expm1(enc)
 
-    with record_function("baked_composite"):
+    with span("baked_composite"):
         weights = _weights(sigma, z, rays_d)  # [N, S]
         acc = weights.sum(dim=-1)
         depth = (weights * z).sum(dim=-1)
@@ -529,7 +529,7 @@ def baked_render_rays(baked: Dict[str, Any], rays_o: torch.Tensor,
         t_lo = z.gather(1, lo_i[:, None])[:, 0]
         t_hi = z.gather(1, hi_i[:, None])[:, 0]
 
-    with record_function("baked_pass2"):
+    with span("baked_pass2"):
         if k_geo is not None and k_geo < n_samples:
             w_sel, sel = torch.topk(weights, k_geo, dim=-1)  # [N, k]
             if renorm_k:
@@ -566,7 +566,7 @@ def baked_render_rays(baked: Dict[str, Any], rays_o: torch.Tensor,
             geo = geo * baked["geo_scale"][None, None, :]
         feat_ray = (w_sel[..., None] * geo).sum(dim=1)  # [N, geo]
 
-    with record_function("baked_color"):
+    with span("baked_color"):
         # Deferred shading: one colour-net pass per ray.
         h = torch.cat([encode_views(viewdirs, bc.i_embed_views,
                                     bc.multires_views), feat_ray], dim=-1)

@@ -18,7 +18,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.models.field import (
     FieldConfig,
@@ -35,6 +34,7 @@ from indoor_nerf_tpu_torch.ops.sampling import (
     stratified_z_vals,
 )
 from indoor_nerf_tpu_torch.ops.volume import draw_sigma_noise, raw2outputs
+from indoor_nerf_tpu_torch.utils.spans import span
 
 MAP_KEYS = ("rgb_map", "depth_map", "acc_map", "disp_map")
 
@@ -145,14 +145,14 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                          "(draw_render), or a test_mode() config")
     fc = config.field
     if config.occupancy is not None and occ_state is not None:
-        with record_function("sample"):
+        with span("sample"):
             z_vals = occupancy_z_vals(rays_o, rays_d, near, far, occ_state,
                                       config.occupancy, config.n_occ_samples,
                                       step, t_rand=draws.get("t_rand"),
                                       u=draws.get("u"))
         mlp_name = "fine" if "fine" in params else "coarse"
     else:
-        with record_function("sample"):
+        with span("sample"):
             z_vals = stratified_z_vals(near, far, config.n_samples,
                                        lindisp=config.lindisp,
                                        t_rand=draws.get("t_rand"))
@@ -160,13 +160,13 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     pts = rays_o[..., None, :] + rays_d[..., None, :] * z_vals[..., :, None]
     raw, quant_state = query_field(params, mlp_name, pts, viewdirs, fc, step,
                                    quant_state, train, view_bias)
-    with record_function("composite"):
+    with span("composite"):
         out = raw2outputs(raw, z_vals, rays_d, white_bkgd=config.white_bkgd,
                           sigma_noise=draws.get("sigma_noise"))
 
     if config.occupancy is None and config.n_importance > 0:
         coarse = out
-        with record_function("sample"):
+        with span("sample"):
             z_mid = 0.5 * (z_vals[..., 1:] + z_vals[..., :-1])
             z_samples = sample_pdf(z_mid, coarse["weights"][..., 1:-1],
                                    config.n_importance,
@@ -176,7 +176,7 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
         raw, quant_state = query_field(
             params, "fine" if "fine" in params else "coarse", pts, viewdirs,
             fc, step, quant_state, train, view_bias)
-        with record_function("composite"):
+        with span("composite"):
             out = raw2outputs(raw, z_vals, rays_d,
                               white_bkgd=config.white_bkgd,
                               sigma_noise=draws.get("sigma_noise1"))

@@ -35,12 +35,15 @@ API:
   POST /render              body: {"c2w": [[...3x4...]], "format": "png"}
                             -> image/png (or .npy of the rgb map with "npy")
   GET  /render?theta=..&phi=..&radius=..   spherical orbit shortcut
+A /render answer carries its request id in an ``X-Request-Id`` header: the
+id on the request's spans (``utils/spans.py``).
 """
 
 from __future__ import annotations
 
 import argparse
 import io
+import itertools
 import json
 import os
 import threading
@@ -76,6 +79,7 @@ from indoor_nerf_tpu_torch.train.trainer import (
     resume,
 )
 from indoor_nerf_tpu_torch.utils.png import encode_png
+from indoor_nerf_tpu_torch.utils.spans import span
 
 
 def train_cameras(scene) -> dict:
@@ -113,7 +117,12 @@ def _baked_snapshot(args, params, field_cfg, scene, device):
 
 def build(args):
     """Set up the field and renderer. Returns ``(render, step, (H, W))``;
-    ``render(c2w) -> (maps, seconds)`` with numpy rgb/depth/acc/disp maps."""
+    ``render(c2w, request_id=None) -> (maps, seconds)`` with numpy
+    rgb/depth/acc/disp maps. A render is one ``request`` span (the unit of
+    ``utils/spans.py``) tagged with its request id (the next of
+    ``render.request_ids`` unless given) over ``queue`` (waiting for the
+    card's lock), ``render`` (queueing the tiles), ``drain`` (the device
+    finishing) and ``copy`` (the maps into numpy)."""
     train_args = list(args.train_args)
     if train_args and train_args[0] == "--":
         train_args = train_args[1:]
@@ -164,13 +173,30 @@ def build(args):
             return online(params, c2w, K, scene.near, scene.far, occ, quant)
 
     lock = threading.Lock()  # one render at a time on the card
+    request_ids = itertools.count(1)
 
-    def render(c2w):
-        with lock:
-            t0 = time.perf_counter()
-            out = render_maps(c2w)
-            maps = {k: out[k].cpu().numpy() for k in MAP_KEYS}  # synchronizes
-            return maps, time.perf_counter() - t0
+    def render(c2w, request_id=None):
+        rid = next(request_ids) if request_id is None else request_id
+        with span("request", request=rid):
+            with span("queue"):
+                lock.acquire()
+            try:
+                t0 = time.perf_counter()
+                with span("render"):
+                    out = render_maps(c2w)
+                with span("drain"):  # the device finishing the request
+                    if device.type == "cuda":
+                        done = torch.cuda.Event()
+                        done.record()
+                        done.synchronize()
+                with span("copy"):
+                    maps = {k: out[k].cpu().numpy() for k in MAP_KEYS}
+                return maps, time.perf_counter() - t0
+            finally:
+                lock.release()
+
+    # The handler draws a request's id here, to send it back with the image.
+    render.request_ids = request_ids
 
     # One render at start-up builds the kernel and loads the card's
     # libraries, so the first request pays no set-up.
@@ -180,12 +206,16 @@ def build(args):
 
 
 def make_handler(render, step, hw):
-    """The HTTP request handler class over a ``build()`` render function."""
+    """The HTTP request handler class over a ``build()`` render function,
+    whose ``request_ids`` number the answers (``X-Request-Id``)."""
 
     class Handler(BaseHTTPRequestHandler):
-        def _send(self, code, body, ctype="application/json"):
+        def _send(self, code, body, ctype="application/json",
+                  request_id=None):
             self.send_response(code)
             self.send_header("Content-Type", ctype)
+            if request_id is not None:
+                self.send_header("X-Request-Id", str(request_id))
             self.send_header("Content-Length", str(len(body)))
             self.end_headers()
             self.wfile.write(body)
@@ -224,20 +254,23 @@ def make_handler(render, step, hw):
             self._render(c2w, fmt)
 
         def _render(self, c2w, fmt):
+            rid = next(render.request_ids)
             try:
-                maps, dt = render(c2w)
+                maps, dt = render(c2w, request_id=rid)
             except Exception:  # keep serving; report the failure
                 traceback.print_exc()
-                return self._send(500, b'{"error": "render failed"}')
+                return self._send(500, b'{"error": "render failed"}',
+                                  request_id=rid)
             rgb = maps["rgb_map"]
             if fmt == "npy":
                 buf = io.BytesIO()
                 np.save(buf, rgb)
-                self._send(200, buf.getvalue(), "application/octet-stream")
+                self._send(200, buf.getvalue(), "application/octet-stream",
+                           request_id=rid)
             else:
                 img = (np.clip(rgb, 0, 1) * 255).astype(np.uint8)
-                self._send(200, encode_png(img), "image/png")
-            print(f"rendered in {dt:.2f}s")
+                self._send(200, encode_png(img), "image/png", request_id=rid)
+            print(f"request {rid} rendered in {dt:.2f}s")
 
         def log_message(self, *a):
             pass

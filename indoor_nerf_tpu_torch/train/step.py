@@ -60,7 +60,6 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from indoor_nerf_tpu_torch.losses.distortion import distortion_loss
 from indoor_nerf_tpu_torch.losses.quantization import (
@@ -102,6 +101,7 @@ from indoor_nerf_tpu_torch.train.optim import (
     pocketnerf_hyper_fn,
     radam_update,
 )
+from indoor_nerf_tpu_torch.utils.spans import span
 
 TrainState = Dict[str, Any]
 
@@ -309,22 +309,24 @@ def draw_step(generator: torch.Generator, config: TrainConfig, step: int,
     refresh's on refresh steps and, last, the patch render's
     (``draws["reg"]``, for the ``n_reg_rays`` patch rays of ``reg_active``):
     a step without patches draws what it drew before they came."""
-    draws = draw_render(generator, n_rays, config.render)
-    fc = config.render.field
-    if _tv_active(config, step):
-        if fc.i_embed == 1:
-            draws["tv_origins"] = draw_tv_origins(generator, fc.grid)
-        else:
-            draws["tv_rows"] = draw_tv_rows(generator, fc.block_grid)
-    if priors_active(config, step):
-        draws["priors"] = draw_priors(generator, n_rays, with_coords,
-                                      config.priors)
-    if _refresh_due(config, step):
-        cells, jitter = draw_occupancy_update(generator, config.render.occupancy)
-        draws["occ_cells"], draws["occ_jitter"] = cells, jitter
-    if reg_active(config, n_reg_rays):
-        draws["reg"] = draw_render(generator, n_reg_rays, config.render)
-    return draws
+    with span("draw"):
+        draws = draw_render(generator, n_rays, config.render)
+        fc = config.render.field
+        if _tv_active(config, step):
+            if fc.i_embed == 1:
+                draws["tv_origins"] = draw_tv_origins(generator, fc.grid)
+            else:
+                draws["tv_rows"] = draw_tv_rows(generator, fc.block_grid)
+        if priors_active(config, step):
+            draws["priors"] = draw_priors(generator, n_rays, with_coords,
+                                          config.priors)
+        if _refresh_due(config, step):
+            cells, jitter = draw_occupancy_update(generator,
+                                                  config.render.occupancy)
+            draws["occ_cells"], draws["occ_jitter"] = cells, jitter
+        if reg_active(config, n_reg_rays):
+            draws["reg"] = draw_render(generator, n_reg_rays, config.render)
+        return draws
 
 
 # The draws of draw_render: one row per ray, sliced per data rank.
@@ -481,7 +483,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     diagnostics of ``combine_structural_losses``); ``state`` is updated in
     place. ``mesh``: the sharded step of ``make_sharded_train_step`` (the
     module docstring); ``batch`` is then this data rank's rays and
-    ``draws``, where given, the global batch's."""
+    ``draws``, where given, the global batch's. The whole step is one
+    ``train_step`` span, the unit of ``utils/spans.py``."""
+    with span("train_step"):
+        return _train_step(state, batch, config, generator, draws,
+                           prior_weights, mesh)
+
+
+def _train_step(state, batch, config, generator, draws, prior_weights, mesh):
     rc = config.render
     fc = rc.field
     step = state["step"]
@@ -534,7 +543,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     loss = loss + config.sparse_loss_weight * sparsity
     table = _table_terms_table(params, mesh)
     if _tv_active(config, step):
-        with record_function("tv"):
+        with span("tv"):
             tv = _tv_term(table, fc, draws, mesh)
         loss = loss + config.tv_loss_weight * tv
     if config.distortion_loss_weight > 0:
@@ -544,14 +553,14 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
         loss = loss + config.table_decay_weight * _decay_term(table, fc, mesh)
     reg_tv = None
     if reg_active(config, n_reg):
-        with record_function("reg_patches"):
+        with span("reg_patches"):
             reg_tv = _patch_smoothness(state, batch, config,
                                        ray_draws["reg"], mesh)
         gate = 1.0 if step >= config.reg_start_iter else 0.0
         loss = loss + config.reg_depth_tv_weight * gate * reg_tv
     diag = {}
     if priors_active(config, step):
-        with record_function("priors"):
+        with span("priors"):
             structural, diag = combine_structural_losses(
                 out["depth_map"], out["normal_map"], spatial_coords,
                 prior_ramp_weights(config, step, prior_weights),
@@ -562,7 +571,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     # A batch without img_idx does not reach the appearance table: it gets
     # no gradient, which radam_update counts as zero, as JAX's is.
     wrt = [k for k in leaves if k != "appearance" or view_bias is not None]
-    with record_function("backward"):
+    with span("backward"):
         grads = torch.autograd.grad(loss, [leaves[k] for k in wrt])
     if mesh is not None:
         for g in grads:
@@ -571,7 +580,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
     if acaq_active(config, step) and fc.quant.target_metric is None:
         # The MDL anchor: this batch's loss without any quantizer, on the
         # same rays, draws and (pre-update) params (JAX :420-434).
-        with torch.no_grad(), record_function("acaq_fp_forward"):
+        with torch.no_grad(), span("acaq_fp_forward"):
             out_fp, _ = render_rays(params, rays_o, rays_d, viewdirs,
                                     near[:rays_o.shape[0]],
                                     far[:rays_o.shape[0]], rc,
@@ -582,7 +591,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                 (gather_rays(out_fp["rgb_map"], mesh) - target) ** 2)
         del out_fp
     lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
-    with record_function("optimizer"):
+    with span("optimizer"):
         radam_update(leaves, dict(zip(wrt, grads)), state["opt"], lr,
                      pocketnerf_hyper_fn)
 
@@ -602,7 +611,7 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
 
     if _refresh_due(config, step):
         mlp_name = "fine" if "fine" in params else "coarse"
-        with torch.no_grad(), record_function("occ_update"):
+        with torch.no_grad(), span("occ_update"):
             state["occ"] = occupancy_update(
                 state["occ"], lambda pts: sigma_query(params, mlp_name, pts, fc),
                 rc.occupancy, draws["occ_cells"], draws["occ_jitter"])

@@ -140,6 +140,7 @@ from indoor_nerf_tpu_torch.utils.checkpoint import (
 )
 from indoor_nerf_tpu_torch.utils.evaluation import ComprehensiveEvaluator
 from indoor_nerf_tpu_torch.utils.metrics import MetricsLogger
+from indoor_nerf_tpu_torch.utils.spans import span
 
 PRIOR_KEYS = ("planarity", "manhattan", "normal_consistency", "depth_prior")
 # The step's structural-prior diagnostics the [PRIOR] line prints.
@@ -418,7 +419,7 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
     image (``--precrop_iters``); the patches from ``UnobservedPatchSampler``
     (its seed ``seed + 13``), drawn whenever ``--reg_views`` is set, as
     JAX's. ``skip(i)`` makes step i's draws and, for the image sampler, no
-    rays."""
+    rays. ``sample`` is the ``sampler`` span."""
     H, W, _ = scene.hwf
     for flag in ("N_rand", "reg_views"):
         if getattr(args, flag) % n_data != 0:
@@ -436,27 +437,45 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
                                     H, W, scene.K, n_rand, seed=seed)
         sample = skip = lambda i: sampler.next()
     drop = set() if cfg.render.field.n_appearance > 0 else {"img_idx"}
-    if args.reg_views <= 0:
-        return (lambda i: {k: v for k, v in sample(i).items()
-                           if k not in drop}), skip
-    reg = UnobservedPatchSampler(
-        scene.poses[scene.i_train], H, W, scene.K,
-        n_patches=args.reg_views // n_data, patch=args.reg_patch_size,
-        seed=seed + 13,
-        pose_mode=args.reg_pose_mode)
-    if not reg_active(cfg, args.reg_views * args.reg_patch_size ** 2):
-        drop |= {"reg_rays_o", "reg_rays_d"}
+    reg = None
+    if args.reg_views > 0:
+        reg = UnobservedPatchSampler(
+            scene.poses[scene.i_train], H, W, scene.K,
+            n_patches=args.reg_views // n_data, patch=args.reg_patch_size,
+            seed=seed + 13,
+            pose_mode=args.reg_pose_mode)
+        if not reg_active(cfg, args.reg_views * args.reg_patch_size ** 2):
+            drop |= {"reg_rays_o", "reg_rays_d"}
 
-    def sample_reg(i):
-        b = sample(i)
-        b.update(reg.next())
-        return {k: v for k, v in b.items() if k not in drop}
+    def sample_batch(i):
+        with span("sampler"):
+            b = sample(i)
+            if reg is not None:
+                b.update(reg.next())
+            return {k: v for k, v in b.items() if k not in drop}
 
-    def skip_reg(i):
+    def skip_batch(i):
         skip(i)
-        reg.next()
+        if reg is not None:
+            reg.next()
 
-    return sample_reg, skip_reg
+    return sample_batch, skip_batch
+
+
+def device_batch(sample, i: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """Step ``i``'s batch of ``make_sampler``'s ``sample`` on ``device``,
+    copied without blocking: the ``batch`` span."""
+    with span("batch"):
+        return {k: torch.from_numpy(v).to(device, non_blocking=True)
+                for k, v in sample(i).items()}
+
+
+def wait_read(done: Optional[torch.cuda.Event]) -> None:
+    """Wait for a queued copy to the host to land (its CUDA event; None on
+    the CPU, where the copy is done): the ``read`` span."""
+    if done is not None:
+        with span("read"):
+            done.synchronize()
 
 
 def one_batch(args, device, seed=None):
@@ -794,13 +813,16 @@ def train(args) -> Dict:
         "milestones": {},
         "convergence_time": None,
         "iterations_per_second": [],
+        "iterations_per_second_steps": [],  # each rate's first and last step
         "time_to_milestones": {},
         "baseline_comparison": {
             "time_to_20db": None, "time_to_25db": None, "time_to_30db": None,
         },
     }
     time0 = time.time()
-    last_processed = time.time()
+    # (step, time) of the last print step's loss read: a rate is the steps
+    # over the seconds between two such reads, a print interval apart.
+    last_print_read = (start, time.time())
 
     def queue_read(i: int, metrics: Dict):
         """Step ``i``'s loss and PSNR (and the priors' diagnostics on steps
@@ -824,10 +846,9 @@ def train(args) -> Dict:
     def process_metrics(pending) -> Tuple[float, float]:
         """JAX trainer.py:585-668 for a step queued by ``queue_read``.
         Returns its (loss, psnr)."""
-        nonlocal last_processed, last_bits
+        nonlocal last_print_read, last_bits
         i, vals, done, lr, n_keys = pending
-        if done is not None:
-            done.synchronize()
+        wait_read(done)
         loss, psnr, *diag = vals[:n_keys].tolist()
         if state["quant"] is not None:
             last_bits = _quant_bits(vals[n_keys:].numpy(), n_embed)
@@ -852,9 +873,13 @@ def train(args) -> Dict:
                   f"wall-angle: {m['wall_cluster_angle_deg']:.1f} deg")
         losses.append(loss)
         psnrs.append(psnr)
-        dt = now - last_processed
-        time_metrics["iterations_per_second"].append(1.0 / dt if dt > 0 else 0)
-        last_processed = now
+        if args.i_print > 0 and i % args.i_print == 0:
+            i0, t_prev = last_print_read
+            if now > t_prev:
+                time_metrics["iterations_per_second"].append(
+                    (i - i0) / (now - t_prev))
+                time_metrics["iterations_per_second_steps"].append([i0 + 1, i])
+            last_print_read = (i, now)
         for milestone in MILESTONES:
             mkey = f"{milestone}db"
             if psnr >= milestone and mkey not in time_metrics["milestones"]:
@@ -897,8 +922,7 @@ def train(args) -> Dict:
                     + [torch.profiler.ProfilerActivity.CUDA]
                     * (device.type == "cuda")))
                 profiler.start()
-            batch = {k: torch.from_numpy(v).to(device, non_blocking=True)
-                     for k, v in sample(i).items()}
+            batch = device_batch(sample, i, device)
             state, metrics = step_fn(state, batch, gen,
                                      prior_weights=prior_weights)
             if args.debug_nans:
