@@ -38,9 +38,19 @@ printing any result.
       positions of a real step, path_streams.training_stream) with the
       reductions its inputs need; within 1e-4 relative and 1e-6 of the
       largest entry; both timed, and the un-pack pass on its own;
+  (e2) fused_radam against the eager loop (train/optim.py) at the leaf
+      sets of the flagship (a [65536, 256] f32 table and 9 MLP leaves) and
+      of the hash grid (a [8388608, 2] table and 18): one adaptive step bit
+      for bit (parameters and both moments) in one launch, then both timed
+      in device time (the queue held back so the eager loop's host
+      dispatch is not timed), alternating, against the bound of reading
+      p, g, mu, nu and writing p, mu, nu once;
   (f) training: trainer.train on the flagship CLI for 200 steps at full
       width; both kernels must launch, the loss stay finite and the mean
-      loss of the last 10 steps fall below that of the first 10;
+      loss of the last 10 steps fall below that of the first 10. Every
+      training run through trainer.train or run_nerf from here on must take
+      its RAdam update in one fused_radam launch a step, over every leaf
+      of the model;
   (g) one step from the trained params on the same rays and draws three
       ways: through both kernels; with the backward's kernel alone replaced
       by its plain version (the same forward: the MLP's RAdam moments bit
@@ -588,9 +598,30 @@ def reset_launch_counts() -> None:
     from indoor_nerf_tpu_torch.ops import table_scatter as ts
     from indoor_nerf_tpu_torch.ops import tent_contract as tc
     from indoor_nerf_tpu_torch.ops import tile_interp as ti
+    from indoor_nerf_tpu_torch.train import optim
 
-    for m in (tc, ts, gs, ti, lg):
+    for m in (tc, ts, gs, ti, lg, optim):
         m.reset_launch_count()
+
+
+# fused_radam's launches, by the training path that ran them.
+RADAM_BY_PATH = {}
+
+
+def hold_optimizer(tag, steps: int, params) -> str:
+    """Since the last reset_launch_counts, every one of ``steps`` training
+    steps took one fused_radam launch over every leaf of ``params`` (the
+    trained model's): none was left to the eager loop."""
+    from indoor_nerf_tpu_torch.train import optim
+
+    launches, leaves = optim.launch_count(), optim.update_counts()[0]
+    n = len(optim.named_leaves(params))
+    if steps <= 0 or launches != steps or leaves != steps * n:
+        raise AssertionError(
+            f"[{tag}] fused_radam: {launches} launches over {leaves} leaves "
+            f"in {steps} steps of a {n}-leaf model")
+    RADAM_BY_PATH[tag] = launches
+    return f"fused_radam {launches} launches in {steps} steps ({n} leaves)"
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -636,7 +667,7 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     built = build_all(["tent_contract", "table_scatter", "group_scatter",
-                       "tile_interp", "lane_gather"])
+                       "tile_interp", "lane_gather", "fused_radam"])
     print(f"[b] built {len(built)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in built.items():
@@ -951,6 +982,109 @@ def phase_scatter(torch) -> dict:
     return flagship
 
 
+# (e2): the leaf sets of the two training cells of the benchmark.
+RADAM_MLP = {"sigma_net.0.w": (32, 64), "sigma_net.1.w": (64, 16),
+             "color_net.0.w": (31, 64), "color_net.1.w": (64, 64),
+             "color_net.2.w": (64, 3), "normal_net.0.w": (15, 32),
+             "normal_net.0.b": (32,), "normal_net.1.w": (32, 3),
+             "normal_net.1.b": (3,)}
+RADAM_SETS = {
+    "flagship": {"table": (65536, 256),
+                 **{f"coarse.{k}": v for k, v in RADAM_MLP.items()}},
+    "hashgrid": {"table": (8388608, 2),
+                 **{f"{net}.{k}": v for net in ("coarse", "fine")
+                    for k, v in RADAM_MLP.items()}}}
+RADAM_BYTES = 28  # an adaptive step reads p, g, mu, nu and writes p, mu, nu
+RADAM_FLOPS = 14  # 7 for the moments, 2 for the decay, 5 for the update
+
+
+def device_ms(torch, fn, iters: int, rounds: int = 4) -> list:
+    """Device time of ``fn`` (ms a call, ``rounds`` readings of ``iters``
+    calls each), with the stream held back by a spin kernel until every
+    call is queued: a function whose host dispatch is slower than its
+    kernels is timed by its kernels, not by its host."""
+    fn()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(100_000_000)  # ~50 ms of cycles: the host queues
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / iters)
+    return out
+
+
+def phase_fused_radam(torch) -> dict:
+    """(e2) fused_radam against the eager loop at the two cells' leaf sets:
+    one adaptive step bit for bit, one launch; then both timed, alternating
+    (eager, kernel, kernel, eager, each the median of 4 readings)."""
+    from indoor_nerf_tpu_torch.train import optim
+
+    dev = torch.device("cuda:0")
+    gen = torch.Generator(device=dev).manual_seed(11)
+    hyper = optim.pocketnerf_hyper_fn
+    out = {}
+    for label, shapes in RADAM_SETS.items():
+        def draw(scale, positive=False):
+            t = {n: torch.randn(s, generator=gen, device=dev) * scale
+                 for n, s in shapes.items()}
+            return {n: v.abs() for n, v in t.items()} if positive else t
+
+        leaves, grads = draw(1.0), draw(1e-3)
+        state = {"mu": draw(1e-3), "nu": draw(1e-6, True), "step": 100}
+        copies = ({n: v.clone() for n, v in leaves.items()},
+                  {"mu": {n: v.clone() for n, v in state["mu"].items()},
+                   "nu": {n: v.clone() for n, v in state["nu"].items()},
+                   "step": 100})
+        lr = optim.exp_decay_lr(0.01, 250, 100)
+        optim.reset_launch_count()
+        optim.radam_update(leaves, grads, state, lr, hyper)
+        launches = optim.launch_count()
+        optim.radam_update_plain(copies[0], grads, copies[1], lr, hyper)
+        torch.cuda.synchronize()
+        for n in shapes:
+            for what, got, want in (
+                    ("p", leaves[n], copies[0][n]),
+                    ("mu", state["mu"][n], copies[1]["mu"][n]),
+                    ("nu", state["nu"][n], copies[1]["nu"][n])):
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"[e2] {label}: fused_radam's {what} of {n} differs "
+                        f"from the eager loop's in "
+                        f"{int((got != want).sum())} entries")
+        if launches != 1:
+            raise AssertionError(f"[e2] {label}: {launches} launches a step")
+        numel = sum(v.numel() for v in leaves.values())
+        least = bound(RADAM_BYTES * numel, RADAM_FLOPS * numel)
+        times = []
+        for fn in ("plain", "kernel", "kernel", "plain"):
+            if fn == "kernel":
+                step = lambda: optim.radam_update(leaves, grads, state, lr,
+                                                  hyper)
+            else:
+                step = lambda: optim.radam_update_plain(
+                    copies[0], grads, copies[1], lr, hyper)
+            times.append(float(np.median(device_ms(torch, step, 3))))
+        ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+        print(f"[e2] {label}: {len(shapes)} leaves, {numel} elements, one "
+              f"adaptive step bit for bit in {launches} launch; kernel "
+              f"{ms:.4f} ms ({times[1]:.4f}, {times[2]:.4f}), eager loop "
+              f"{plain_ms:.4f} ms ({times[0]:.4f}, {times[3]:.4f}) device "
+              f"time; bound {RADAM_BYTES * numel / 1e6:.1f} MB: "
+              f"{least['bound_ms']:.4f} ms ({least['bound_by']}), "
+              f"{100 * least['bound_ms'] / ms:.1f}% of it")
+        out[label] = {"ms": ms, "plain_ms": plain_ms, "leaves": len(shapes),
+                      "elements": numel, **least}
+        del leaves, grads, state, copies
+        torch.cuda.empty_cache()
+    return out
+
+
 def phase_training(torch, tag, flags, steps, expect, forbid=()):
     """(f), (j), (l), (p): ``steps`` steps through trainer.train, the CLI's
     entry point; every kernel in ``expect`` must launch, none in ``forbid``."""
@@ -962,6 +1096,7 @@ def phase_training(torch, tag, flags, steps, expect, forbid=()):
     reset_launch_counts()  # this path's run starts here
     out = train(args)
     launches = launch_counts()  # ... and ends here
+    radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"])
     losses = np.asarray(out["losses"])
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
     steps_s = steps / out["seconds"]
@@ -972,8 +1107,8 @@ def phase_training(torch, tag, flags, steps, expect, forbid=()):
           f"steps/s, {steps_s * args.N_rand:.0f} rays/s; loss mean of the "
           f"first 10 steps {first:.6f}, last 10 {last:.6f}; PSNR "
           f"{out['psnrs'][0]:.2f} -> {out['psnrs'][-1]:.2f} dB; launches "
-          f"{ {k: v for k, v in launches.items() if v} }; peak device memory "
-          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{ {k: v for k, v in launches.items() if v} }, {radam}; peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     if not np.all(np.isfinite(losses)):
         raise AssertionError("training loss went non-finite")
     if not last < first:
@@ -2011,6 +2146,7 @@ def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter"
     with counting_evals(evals):
         out, text = quietly(run_nerf.main, argv)
     launches = launch_counts()  # ... and ends here
+    radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"])
     zero = dict.fromkeys(launches, 0)
     testset, video = evals.get("testset", zero), evals.get("video", zero)
     training = {k: launches[k] - testset[k] - video[k] for k in launches}
@@ -2026,8 +2162,8 @@ def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter"
           f"{first:.6f}, last 10 {last:.6f}; training launches "
           f"{ {k: v for k, v in training.items() if v} }, test sets "
           f"{ {k: v for k, v in testset.items() if v} }, videos "
-          f"{ {k: v for k, v in video.items() if v} }; peak device memory "
-          f"{peak:.2f} GiB")
+          f"{ {k: v for k, v in video.items() if v} }, {radam}; peak device "
+          f"memory {peak:.2f} GiB")
     if not np.all(np.isfinite(losses)):
         raise AssertionError(f"[{tag}] training loss went non-finite")
     if not last < first:
@@ -4253,6 +4389,7 @@ def main() -> int:
     serve_launches = phase_serving(torch)
     phase_render_check(torch)
     scatter = phase_scatter(torch)
+    radam = phase_fused_radam(torch)
     trained, flat_launches = phase_training(
         torch, "f", SERVE_FLAGS, TRAIN_STEPS, ("tent_contract", "table_scatter"))
     phase_step_check(torch, "g", SERVE_FLAGS, trained["state"])
@@ -4437,6 +4574,10 @@ def main() -> int:
          "replaces": pallas + "lane_gather.py:88",
          "launches_by_path": by_path("lane_select_grad"),
          **lane["lane_select_grad"]},
+        {"name": "fused_radam", "route": "cuda",
+         "source": csrc + "fused_radam.cu", "replaces": None,
+         "launches": RADAM_BY_PATH["f"], "launches_by_path": RADAM_BY_PATH,
+         **radam},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -99,7 +99,7 @@ def load_library(name: str) -> BuiltLibrary:
 
 def launch_on_stream(fn: Callable, error_string: Callable, what: str,
                      tensors: Sequence[Tuple[str, object]], *args,
-                     align: int = 1) -> None:
+                     align: int = 1, device=None) -> None:
     """Call the C launcher ``fn(*pointers, *args, stream)`` on PyTorch's
     current stream of the tensors' device (a CUDA device), or raise. Every
     kernel of the package is launched here.
@@ -108,10 +108,12 @@ def launch_on_stream(fn: Callable, error_string: Callable, what: str,
     that one device, contiguous, at an address that is a multiple of
     ``align`` bytes (16 for the kernels that move float4s). ``fn`` returns
     ``cudaGetLastError()``: a refused launch raises here, with
-    ``error_string(code)`` naming it."""
+    ``error_string(code)`` naming it. ``device`` names the device where
+    the launcher takes no tensor (its pointers come in ``args``)."""
     import torch
 
-    device = tensors[0][1].device
+    if device is None:
+        device = tensors[0][1].device
     for name, t in tensors:
         if t.device != device or not t.is_contiguous() or t.data_ptr() % align:
             raise ValueError(f"{name} must be on {device} and contiguous"
