@@ -461,6 +461,7 @@ LOOP_STEPS, LOOP_ROUNDS = 100, 2
 ROOM_VIEWS, ROOM_SIZE = 24, 400
 PRIOR_STEPS, PRIOR_START, PRIOR_RAMP, PRIOR_TESTSET = 1000, 300, 200, 500
 PRIOR_PRINT = 100  # the parser's --i_print: a [PRIOR] line every 100 steps
+NF_STEPS = 200  # (nf1): nerfacto steps on the room
 PARITY_PRIOR_STEPS, PARITY_PRIOR_START = 400, 200
 EXT_STEPS = 100
 EXT_FLAGS = SERVE_FLAGS + [
@@ -608,18 +609,24 @@ def reset_launch_counts() -> None:
 RADAM_BY_PATH = {}
 
 
-def hold_optimizer(tag, steps: int, params) -> str:
+def hold_optimizer(tag, steps: int, params, updated=None) -> str:
     """Since the last reset_launch_counts, every one of ``steps`` training
-    steps took one fused_radam launch over every leaf of ``params`` (the
-    trained model's): none was left to the eager loop."""
+    steps took one fused_radam launch per MAX_LEAVES leaves over every leaf
+    of ``params`` (the trained model's), or, where a step updates some of
+    them only, over the leaves ``updated(steps, params)`` gives as
+    ``[(steps, leaves a step), ...]``: none was left to the eager loop."""
     from indoor_nerf_tpu_torch.train import optim
 
     launches, leaves = optim.launch_count(), optim.update_counts()[0]
     n = len(optim.named_leaves(params))
-    if steps <= 0 or launches != steps or leaves != steps * n:
+    groups = [(steps, n)] if updated is None else updated(steps, params)
+    want = sum(k * m for k, m in groups)
+    want_launches = sum(k * -(-m // optim.MAX_LEAVES) for k, m in groups)
+    if steps <= 0 or launches != want_launches or leaves != want:
         raise AssertionError(
             f"[{tag}] fused_radam: {launches} launches over {leaves} leaves "
-            f"in {steps} steps of a {n}-leaf model")
+            f"in {steps} steps of a {n}-leaf model (want {want_launches} "
+            f"over {want})")
     RADAM_BY_PATH[tag] = launches
     return f"fused_radam {launches} launches in {steps} steps ({n} leaves)"
 
@@ -1085,9 +1092,10 @@ def phase_fused_radam(torch) -> dict:
     return out
 
 
-def phase_training(torch, tag, flags, steps, expect, forbid=()):
+def phase_training(torch, tag, flags, steps, expect, forbid=(), updated=None):
     """(f), (j), (l), (p): ``steps`` steps through trainer.train, the CLI's
-    entry point; every kernel in ``expect`` must launch, none in ``forbid``."""
+    entry point; every kernel in ``expect`` must launch, none in ``forbid``;
+    ``updated`` as hold_optimizer takes it."""
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.trainer import train
 
@@ -1096,7 +1104,8 @@ def phase_training(torch, tag, flags, steps, expect, forbid=()):
     reset_launch_counts()  # this path's run starts here
     out = train(args)
     launches = launch_counts()  # ... and ends here
-    radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"])
+    radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"],
+                           updated)
     losses = np.asarray(out["losses"])
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
     steps_s = steps / out["seconds"]
@@ -2132,7 +2141,8 @@ def counting_evals(tally):
         yield
 
 
-def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter")):
+def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter"),
+                     updated=None):
     """``run_nerf.main(argv)`` in its own launch window, quietly: (result,
     printed text, training launches, test-set launches, peak GiB). Each of
     ``kernels`` must launch in the steps (``tent_contract`` also in the test
@@ -2146,7 +2156,8 @@ def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter"
     with counting_evals(evals):
         out, text = quietly(run_nerf.main, argv)
     launches = launch_counts()  # ... and ends here
-    radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"])
+    radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"],
+                           updated)
     zero = dict.fromkeys(launches, 0)
     testset, video = evals.get("testset", zero), evals.get("video", zero)
     training = {k: launches[k] - testset[k] - video[k] for k in launches}
@@ -2854,6 +2865,118 @@ def phase_priors(torch, workdir) -> dict:
                   os.path.join(workdir, "sp10"), 1.0)
     return {"flags": flags, "state": out["state"], "training": training,
             "testset": testset["tent_contract"], "rates": (before, after)}
+
+
+def phase_nerfacto(torch, workdir) -> dict:
+    """(nf1) configs/nerfacto/norcliffe_common_room.txt (the nerfacto
+    preset) on (sp1)'s room, NF_STEPS steps through run_nerf: no
+    block-hash kernel launches (the hash grids are eager), one fused RAdam
+    a step, the loss falls. (nf2) two steps from the trained state on the
+    card and on the port's CPU path with one batch and one set of draws
+    each, one that updates the proposal fields and one that does not: the
+    loss 1e-5 relative, every RAdam moment FORWARD_NORM_TOL relative in
+    norm (f32 sums in other orders and the hash grids' atomic index_add_),
+    the proposal leaves unchanged by the second on both. (nf3) three
+    800x800 requests through serve.build on the run's checkpoint: ms each,
+    finite maps, the peak memory."""
+    import argparse
+
+    from indoor_nerf_tpu_torch import serve
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.optim import named_leaves
+    from indoor_nerf_tpu_torch.train.step import (
+        draw_step,
+        init_train_state,
+        train_step,
+    )
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config, one_batch
+
+    flags = room_flags(workdir, os.path.join("nerfacto",
+                                             "norcliffe_common_room.txt"),
+                       "nf1", ["--n_iters", str(NF_STEPS), "--i_testset",
+                               str(NF_STEPS), "--i_weights", str(NF_STEPS),
+                               "--i_print", "50"])
+    from indoor_nerf_tpu_torch.render import proposal
+
+    def updated(steps, params):
+        # Every leaf on the steps that update the proposal fields, the
+        # others' alone on the rest.
+        names = named_leaves(params)
+        p = sum(k.startswith("proposal_") for k in names)
+        u = proposal.sample_counts()["updates"]
+        return [(u, len(names)), (steps - u, len(names) - p)]
+
+    proposal.reset_counts()
+    out, _, training, testset = train_from_files(torch, "nf1", flags,
+                                                 kernels=(), updated=updated)
+    print(f"[nf1] held-out PSNR {out['testsets'][-1]['psnr']:.3f} dB at step "
+          f"{NF_STEPS}; proposal updates since the last "
+          f"{out['state']['proposal_since']}")
+    card = out["state"]
+    cpu_dev = torch.device("cpu")
+    args = parse_args(flags + ["--device", "cpu"])
+    cfg = build_train_config(args, load_dataset(args))
+    cpu = init_train_state(torch.Generator().manual_seed(0), cfg)
+    with torch.no_grad():
+        for src, dst in ((named_leaves(card["params"]),
+                          named_leaves(cpu["params"])),
+                         (card["opt"]["mu"], cpu["opt"]["mu"]),
+                         (card["opt"]["nu"], cpu["opt"]["nu"])):
+            for k, v in src.items():
+                dst[k].copy_(v.detach().cpu())
+    for key in ("step", "proposal_since"):
+        cpu[key] = card[key]
+    cpu["opt"]["step"] = card["opt"]["step"]
+    errs, updates = {}, []
+    for i in range(2):
+        _, batch = one_batch(args, cpu_dev, seed=5 + i)
+        draws = draw_step(torch.Generator().manual_seed(3 + i), cfg,
+                          cpu["step"], batch["rays_o"].shape[0])
+        before = {k: v.detach().clone() for k, v in
+                  named_leaves(card["params"]).items()
+                  if k.startswith("proposal_")}
+        cpu, mc = train_step(cpu, batch, cfg, draws=draws)
+        card, mg = train_step(card, {k: v.cuda() for k, v in batch.items()},
+                              cfg, draws={k: v.cuda() for k, v in draws.items()})
+        updates.append((mc["proposal_update"], mg["proposal_update"]))
+        errs[f"step {i} loss"] = abs(float(mg["loss"]) / float(mc["loss"]) - 1)
+        for k, v in cpu["opt"]["mu"].items():
+            want = float(v.norm())
+            got = float(card["opt"]["mu"][k].norm())
+            errs[f"step {i} mu.{k}"] = abs(got - want) / max(want, 1e-30)
+        if not mg["proposal_update"]:
+            moved = [k for k, v in before.items() if not torch.equal(
+                v, named_leaves(card["params"])[k].detach())]
+            if moved:
+                raise AssertionError(f"[nf2] proposal leaves moved: {moved}")
+    worst = max(errs, key=errs.get)
+    print(f"[nf2] card against the CPU, two steps from step "
+          f"{int(card['step']) - 2}: proposal updates (cpu, card) {updates}; "
+          f"worst relative gap {worst} {errs[worst]:.2e} (tol 1e-5 for the "
+          f"loss, {FORWARD_NORM_TOL} else); losses "
+          f"{[round(errs[f'step {i} loss'], 9) for i in range(2)]}")
+    bad = {k: v for k, v in errs.items()
+           if v > (1e-5 if k.endswith("loss") else FORWARD_NORM_TOL)}
+    if bad or len({u for pair in updates for u in pair}) != 2 or any(
+            a != b for a, b in updates):
+        raise AssertionError(f"[nf2] {bad} {updates}")
+    del card, cpu, out
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (render, step, _), _ = quietly(serve.build, argparse.Namespace(
+        width=800, height=800, baked=False, train_args=["--"] + flags))
+    scene = load_dataset(args)
+    ms = []
+    for pose in scene.poses[scene.i_test[:3]]:
+        maps, sec = render(pose)
+        ms.append(sec * 1e3)
+        if not all(np.all(np.isfinite(v)) for v in maps.values()):
+            raise AssertionError("[nf3] a non-finite map")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"[nf3] 800x800 requests on the step-{step} checkpoint: "
+          f"{[round(m, 2) for m in ms]} ms, peak {peak:.2f} GiB")
+    return {"training": training, "request_ms": ms}
 
 
 def _syncs(torch, fn) -> list:
@@ -4463,6 +4586,10 @@ def main() -> int:
         del app["state"]
         print(f"[ap3] seconds: rp1-rp2 {t1 - t0:.1f}, ap1 {t2 - t1:.1f}, ap2 "
               f"{t3 - t2:.1f}, ap3 {time.perf_counter() - t3:.1f}")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        phase_nerfacto(torch, workdir)
+        print(f"[nf3] seconds: nf1-nf3 {time.perf_counter() - t0:.1f}")
         torch.cuda.empty_cache()
         md = phase_multihost(torch, workdir, files)
         tp_local = phase_tp_local(torch)

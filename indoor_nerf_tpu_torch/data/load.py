@@ -10,6 +10,12 @@ white-background composite, ``K`` from ``hwf`` where the loader gives none,
 ``render_poses`` of the test views under ``--render_test``, and the scene
 bounding box (none for LINEMOD and deepvoxels, which the block-hash grid
 then refuses).
+
+Under ``--nerfacto`` the poses are normalised as nerfstudio's dataparser
+does (``normalize_poses_nerfstudio``: the camera centres' mean at the
+origin, the largest coordinate at 1; the render poses with them), the
+rays' bounds are ``--near_plane``/``--far_plane``, and the box is the
+contracted scene's, [-2, 2]^3.
 """
 
 from __future__ import annotations
@@ -42,6 +48,22 @@ def _as_tuple_bbox(bounding_box) -> Tuple:
     return tuple(np.asarray(mn, np.float64).tolist()), tuple(
         np.asarray(mx, np.float64).tolist()
     )
+
+
+def normalize_poses_nerfstudio(poses: np.ndarray, *others: np.ndarray):
+    """``poses`` ``[N, 3or4, 4]`` with their translations centred on their
+    mean and scaled by one over the largest absolute coordinate
+    (nerfstudio's ``center_method="poses"``, ``auto_scale_poses``), and each
+    of ``others`` moved the same way."""
+    t = np.asarray(poses, np.float64)[:, :3, 3]
+    center = t.mean(axis=0)
+    scale = 1.0 / float(np.max(np.abs(t - center)))
+    out = []
+    for p in (poses,) + others:
+        p = np.array(p, np.float64)
+        p[:, :3, 3] = (p[:, :3, 3] - center) * scale
+        out.append(p.astype(np.float32))
+    return out
 
 
 def load_dataset(args) -> SceneData:
@@ -176,6 +198,10 @@ def load_dataset(args) -> SceneData:
 
     if args.render_test:
         render_poses = np.array(poses[i_test])
+    if getattr(args, "nerfacto", False):
+        poses, render_poses = normalize_poses_nerfstudio(poses, render_poses)
+        near, far = args.near_plane, args.far_plane
+        bounding_box = ((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0))
 
     return SceneData(
         images=np.asarray(images, np.float32),

@@ -1,2 +1,3 @@
 """Training losses beyond the image loss: the structural priors
-(``priors.py``) and the distortion loss (``distortion.py``)."""
+(``priors.py``), the distortion loss (``distortion.py``) and nerfacto's
+interlevel loss (``interlevel.py``)."""

@@ -30,6 +30,15 @@ quantized before the gather; the gather selects entries, so this equals the
 reference's quantization of the gathered features, and the hand-written
 kernels of the encode run unchanged on the quantized table.
 
+Nerfacto (``--nerfacto``, ``NerfactoConfig``): the field is the hash grid
+on the contracted box [-2, 2]^3 with NeRFSmall, whose density is
+``trunc_exp`` of the sigma net's first output and whose colour net reads
+the SH of the direction, the geometry features and a per-image appearance
+embedding ``params["embedding_appearance"]`` (its mean in evaluation;
+``nerfacto_query``); two proposal density fields, each its own hash table
+and a bias-free sigma net (``ProposalField``, ``proposal_density``), are
+``params["proposal_0"]`` and ``params["proposal_1"]``.
+
 Inside a sharded step with a model axis (the active mesh of
 ``parallel/collectives.py::mesh_context``) the grid encodes go through the
 level-sharded encode, as JAX ``encode_position`` routes them (:442-448):
@@ -53,8 +62,12 @@ from indoor_nerf_tpu_torch.losses.quantization import (
     calibrate,
     learned_fake_quant,
 )
+from torch import nn
+
 from indoor_nerf_tpu_torch.models.mlp import (
+    _linear,
     apply_nerf_big,
+    init_linear,
     init_nerf_big,
     init_nerf_small,
 )
@@ -637,3 +650,118 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
         sigma = torch.where(keep, raw[..., 3], 0.0)
         raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
     return raw.reshape(r, s, -1), quant_state
+
+
+@dataclasses.dataclass(frozen=True)
+class NerfactoConfig:
+    """Nerfacto's proposal fields and sample counts (nerfstudio's
+    ``NerfactoModelConfig`` defaults; the field itself is
+    ``FieldConfig.grid`` on the contracted box). ``n_images``: the
+    appearance embedding's rows, one per training image."""
+
+    proposal_grids: Tuple[HashGridConfig, ...]
+    proposal_samples: Tuple[int, ...] = (256, 96)
+    nerf_samples: int = 48
+    n_images: int = 1
+
+
+# Nerfacto's fixed widths (nerfstudio's defaults): the proposal fields'
+# hidden width and the appearance embedding's.
+PROPOSAL_HIDDEN = 16
+APPEARANCE_DIM = 32
+
+
+class _TruncExp(torch.autograd.Function):
+    """``exp`` whose backward multiplies by ``exp(min(x, 15))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.exp(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return g * torch.exp(torch.clamp_max(x, 15.0))
+
+
+def trunc_exp(x: torch.Tensor) -> torch.Tensor:
+    """nerfacto's density activation: exp forward, a gradient capped at
+    ``exp(15)``."""
+    return _TruncExp.apply(x)
+
+
+class ProposalField(nn.Module):
+    """A proposal density field: a hash table ``[L * T, F]`` (``table``)
+    and a bias-free sigma net ``L * F -> hidden -> 1`` (``sigma_net``)."""
+
+    def __init__(self, table: torch.Tensor, sigma_net):
+        super().__init__()
+        self.table = nn.Parameter(table)
+        self.sigma_net = nn.ModuleList(sigma_net)
+
+
+def init_nerfacto_params(generator: torch.Generator, config: FieldConfig,
+                         nc: NerfactoConfig, device=None) -> Params:
+    """Fresh nerfacto params: the field's hash table, its NeRFSmall
+    (``coarse``; the colour net's input 16 SH + geo + ``APPEARANCE_DIM``), the
+    appearance embedding ``[n_images, APPEARANCE_DIM]`` ~ N(0, 1) (an
+    ``nn.Embedding``'s init) and the proposal fields, each table ~
+    U(-1e-4, 1e-4)."""
+    params: Params = {
+        "table": init_hash_table(generator, config.grid, device),
+        "coarse": init_nerf_small(
+            generator, input_ch=config.input_ch,
+            input_ch_views=config.input_ch_views + APPEARANCE_DIM,
+            num_layers=config.num_layers, hidden_dim=config.hidden_dim,
+            geo_feat_dim=config.geo_feat_dim,
+            num_layers_color=config.num_layers_color,
+            hidden_dim_color=config.hidden_dim_color, device=device),
+        "embedding_appearance": torch.randn(
+            (nc.n_images, APPEARANCE_DIM), generator=generator, device=device),
+    }
+    for i, grid in enumerate(nc.proposal_grids):
+        params[f"proposal_{i}"] = ProposalField(
+            init_hash_table(generator, grid, device),
+            [init_linear(generator, grid.out_dim, PROPOSAL_HIDDEN,
+                         bias=False, device=device),
+             init_linear(generator, PROPOSAL_HIDDEN, 1, bias=False,
+                         device=device)])
+    return params
+
+
+def proposal_density(field: ProposalField, x: torch.Tensor,
+                     grid: HashGridConfig,
+                     compute_dtype: Optional[torch.dtype] = None
+                     ) -> torch.Tensor:
+    """A proposal field's density ``[N]`` at contracted points ``x`` ``[N,
+    3]`` (``trunc_exp``; zero outside the box)."""
+    with span("encode"):
+        idx, w, keep = hash_grid_indices(x, grid)
+        feats = hash_interp(field.table, idx, w, grid)
+    with span("mlp"):
+        h = torch.relu(_linear(field.sigma_net[0], feats, compute_dtype))
+        h = _linear(field.sigma_net[1], h, compute_dtype)
+        return torch.where(keep, trunc_exp(h[:, 0]), 0.0)
+
+
+def nerfacto_query(params: Params, x: torch.Tensor, viewdirs: torch.Tensor,
+                   embedding: torch.Tensor, config: FieldConfig
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Nerfacto's field at contracted points ``x`` ``[R, S, 3]`` of rays
+    with unit ``viewdirs`` ``[R, 3]`` and appearance ``embedding`` ``[R,
+    E]``: (density ``[R, S]``, ``trunc_exp``, zero outside the box; rgb
+    ``[R, S, 3]`` in [0, 1])."""
+    r, s, _ = x.shape
+    with span("encode"):
+        feats, keep, _ = encode_position(x.reshape(-1, 3), params, config,
+                                         None, False, None)
+    views = encode_views(viewdirs, config.i_embed_views, config.multires_views)
+    views = views[:, None, :].expand(r, s, views.shape[-1]).reshape(r * s, -1)
+    extra = embedding[:, None, :].expand(r, s, embedding.shape[-1])
+    with span("mlp"):
+        raw = params["coarse"](feats, views, config.torch_compute_dtype,
+                               input_extra=extra.reshape(r * s, -1))
+        density = torch.where(keep, trunc_exp(raw[:, 3]), 0.0)
+        rgb = torch.sigmoid(raw[:, :3])
+    return density.reshape(r, s), rgb.reshape(r, s, 3)

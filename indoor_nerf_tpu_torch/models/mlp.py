@@ -78,9 +78,10 @@ class NeRFSmall(nn.Module):
                 input_views: Optional[torch.Tensor],
                 compute_dtype: Optional[torch.dtype] = None,
                 weight_quant: Optional[Callable] = None,
-                act_quants: Optional[Sequence[Callable]] = None) -> torch.Tensor:
+                act_quants: Optional[Sequence[Callable]] = None,
+                input_extra: Optional[torch.Tensor] = None) -> torch.Tensor:
         return apply_nerf_small(self, input_pts, input_views, compute_dtype,
-                                weight_quant, act_quants)
+                                weight_quant, act_quants, input_extra)
 
 
 def init_nerf_small(generator: torch.Generator, input_ch: int = 32,
@@ -115,11 +116,14 @@ def apply_nerf_small(model: NeRFSmall, input_pts: torch.Tensor,
                      input_views: Optional[torch.Tensor],
                      compute_dtype: Optional[torch.dtype] = None,
                      weight_quant: Optional[Callable] = None,
-                     act_quants: Optional[Sequence[Callable]] = None
+                     act_quants: Optional[Sequence[Callable]] = None,
+                     input_extra: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
     """Forward NeRFSmall -> ``[N, 4]`` (rgb logits, sigma), ``[N, 7]`` with
     the unit normal ``n / max(|n|, 1e-12)`` of the normal net, which runs in
-    f32 whatever ``compute_dtype`` says (JAX mlp.py:98-103).
+    f32 whatever ``compute_dtype`` says (JAX mlp.py:98-103). The colour net
+    reads ``[input_views, geo_feat, input_extra]`` (nerfacto's appearance
+    embedding comes last, where given).
 
     A-CAQ's fake quantizers, where given (JAX mlp.py:111-140):
     ``weight_quant`` on the first sigma layer's weight, ``act_quants[l]`` on
@@ -134,8 +138,8 @@ def apply_nerf_small(model: NeRFSmall, input_pts: torch.Tensor,
                 h = act_quants[l](h)
 
     sigma, geo_feat = h[..., :1], h[..., 1:]
-    h = geo_feat if input_views is None else torch.cat(
-        [input_views, geo_feat], dim=-1)
+    parts = [t for t in (input_views, geo_feat, input_extra) if t is not None]
+    h = parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     for l, layer in enumerate(model.color_net):
         h = _linear(layer, h, compute_dtype)
         if l != len(model.color_net) - 1:

@@ -48,6 +48,7 @@ from indoor_nerf_tpu_torch.models.field import (
     serving_params,
     sigma_query,
 )
+from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.rays import get_rays
 from indoor_nerf_tpu_torch.ops.sampling import linspace01
 from indoor_nerf_tpu_torch.ops.tent_contract import tent_contract
@@ -454,8 +455,9 @@ def _tile_samples(bc: BakedConfig, rays_o, rays_d, near, far, n_samples: int,
     ``row_idx``."""
     dev = rays_o.device
     E = bc.blocks_per_edge
-    bmin = torch.tensor(bc.bbox_min, dtype=torch.float32, device=dev)
-    bmax = torch.tensor(bc.bbox_max, dtype=torch.float32, device=dev)
+    # Made once: a fresh host-to-card copy waits for the card each tile.
+    bmin = device_constant(bc.bbox_min, torch.float32, dev)
+    bmax = device_constant(bc.bbox_max, torch.float32, dev)
     t0, t1 = _ray_aabb(rays_o, rays_d, bmin, bmax, near, far)
     if t_bounds is not None:
         # Where the guided interval and the box interval are disjoint, the
@@ -554,8 +556,8 @@ def baked_render_rays(baked: Dict[str, Any], rays_o: torch.Tensor,
         stride = LANES // 8  # lanes per corner in the voxel_geo row
         geo_dim = bc.n_features - 1
         crows = baked["voxel_geo"].index_select(0, vox).view(n, k_geo, 8, stride)
-        corner = torch.tensor(list(np.ndindex(2, 2, 2)), dtype=torch.float32,
-                              device=dev)  # [8, 3], the bake's corner order
+        corner = device_constant(list(np.ndindex(2, 2, 2)), torch.float32,
+                                 dev)  # [8, 3], the bake's corner order
         cw = torch.where(corner[None, None, :, :] == 1.0, frac[:, :, None, :],
                          1.0 - frac[:, :, None, :])  # [N, k, 8, 3]
         cw = cw[..., 0] * cw[..., 1] * cw[..., 2]  # [N, k, 8]

@@ -1,9 +1,10 @@
 """Volumetric rendering (render/renderer.py of the JAX package).
 
 ``render_rays`` runs the occupancy-guided single pass (the flagship), the
-stratified single pass (``n_importance == 0``) or the hierarchical one
+stratified single pass (``n_importance == 0``), the hierarchical one
 (stratified coarse samples, then ``n_importance`` more drawn from the
-coarse weights, and the fine net on all of them). Full images are rendered
+coarse weights, and the fine net on all of them) or, with ``nerfacto``,
+nerfacto's proposal chain (``render/proposal.py``). Full images are rendered
 as a Python loop over ray tiles in place of the JAX ``lax.map``, tiles
 sized from the card's free memory and the config (``bytes_per_ray``).
 Serving draws no random numbers: ``test_mode`` sets ``perturb = 0`` and no
@@ -20,7 +21,10 @@ import numpy as np
 import torch
 
 from indoor_nerf_tpu_torch.models.field import (
+    APPEARANCE_DIM,
+    PROPOSAL_HIDDEN,
     FieldConfig,
+    NerfactoConfig,
     params_device,
     query_field,
     serving_params,
@@ -34,6 +38,7 @@ from indoor_nerf_tpu_torch.ops.sampling import (
     stratified_z_vals,
 )
 from indoor_nerf_tpu_torch.ops.volume import draw_sigma_noise, raw2outputs
+from indoor_nerf_tpu_torch.render import proposal
 from indoor_nerf_tpu_torch.utils.spans import span
 
 MAP_KEYS = ("rgb_map", "depth_map", "acc_map", "disp_map")
@@ -61,6 +66,7 @@ class RenderConfig:
     ndc: bool = False
     occupancy: Optional[OccupancyConfig] = None
     n_occ_samples: int = 64
+    nerfacto: Optional[NerfactoConfig] = None
 
     def test_mode(self) -> "RenderConfig":
         """Test-time variant: no jitter, no sigma noise."""
@@ -69,6 +75,9 @@ class RenderConfig:
 
 def _draw_shapes(config: RenderConfig, n_rays: int) -> Dict[str, Tuple[int, int]]:
     """The draws a render of ``n_rays`` rays takes under ``config``."""
+    if config.nerfacto is not None:
+        return (proposal.draw_shapes(config.nerfacto, n_rays)
+                if config.perturb != 0.0 else {})
     occ = config.occupancy
     n_samples = config.n_samples if occ is None else config.n_occ_samples
     fine = occ is None and config.n_importance > 0
@@ -98,7 +107,7 @@ def draw_render(generator: torch.Generator, n_rays: int,
     ``test_mode()`` configs."""
     out = {}
     for k, shape in _draw_shapes(config, n_rays).items():
-        if k == "t_rand":
+        if k == "t_rand" or config.nerfacto is not None:
             out[k] = draw_stratified(generator, *shape)
         elif k == "u":
             out[k] = draw_pdf_u(generator, *shape)
@@ -115,7 +124,9 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
                 draws: Optional[Dict[str, torch.Tensor]] = None,
                 quant_state: Optional[Dict[str, Any]] = None,
                 train: bool = True,
-                view_bias: Optional[torch.Tensor] = None
+                view_bias: Optional[torch.Tensor] = None,
+                update_proposals: bool = False,
+                camera_idx: Optional[torch.Tensor] = None
                 ) -> Tuple[Dict[str, torch.Tensor], Optional[Dict[str, Any]]]:
     """Render ``[N]`` rays (``rays_o``/``rays_d`` ``[N, 3]``, ``near``/``far``
     ``[N, 1]``). Returns (outputs, quant_state); the outputs are
@@ -136,13 +147,23 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     JAX renderer.py:66-133): a training render returns the state its
     queries calibrated, coarse pass first; with ``quant_state`` None every
     fake quantizer is bypassed. ``view_bias`` ``[N, D]`` (appearance
-    latents) goes to the queries of both passes."""
+    latents) goes to the queries of both passes.
+
+    With ``config.nerfacto`` the render is ``proposal.render_rays_proposal``
+    (its outputs; ``quant_state`` comes back unchanged): ``step`` is None
+    in evaluation, ``update_proposals`` runs the proposal fields under
+    autograd, ``camera_idx`` picks the rays' appearance embedding rows."""
     draws = draws or {}
     missing = sorted(set(_draw_shapes(config, rays_o.shape[0])) - set(draws))
     if missing:
         raise ValueError(f"render with perturb={config.perturb}, raw_noise_std="
                          f"{config.raw_noise_std} needs the draws {missing} "
                          "(draw_render), or a test_mode() config")
+    if config.nerfacto is not None:
+        return proposal.render_rays_proposal(
+            params, rays_o, rays_d, near, far, config,
+            step if train else None, draws, update_proposals,
+            camera_idx), quant_state
     fc = config.field
     if config.occupancy is not None and occ_state is not None:
         with span("sample"):
@@ -258,6 +279,20 @@ def _act_quant_bytes(fc: FieldConfig) -> int:
     return ACT_QUANT_COPIES * 4 * fc.hidden_dim
 
 
+def _nerfacto_bytes(config: RenderConfig) -> int:
+    """Device bytes one ray of a nerfacto render holds, its three passes
+    counted as if they were live together: each proposal pass's samples at
+    its hash grid's encode bytes and its sigma net's, the field's at
+    ``_sample_bytes`` and its appearance row."""
+    nc, fc = config.nerfacto, config.field
+    total = 0
+    for g, n in zip(nc.proposal_grids, nc.proposal_samples):
+        total += n * (g.n_levels * (32 + 32 + 64 * g.n_features_per_level)
+                      + 4 * (g.out_dim + 2 * PROPOSAL_HIDDEN)
+                      + SAMPLE_BYTES)
+    return total + nc.nerf_samples * (_sample_bytes(fc) + 4 * APPEARANCE_DIM)
+
+
 def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
     """Device bytes one ray of a test-mode render holds at its peak.
 
@@ -277,6 +312,8 @@ def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
     if config is None:
         return BYTES_PER_RAY
     fc = config.field
+    if config.nerfacto is not None:
+        return _nerfacto_bytes(config)
     if fc.i_embed != 3:
         n = (config.n_occ_samples if config.occupancy is not None
              else config.n_samples + config.n_importance)

@@ -61,6 +61,7 @@ from indoor_nerf_tpu_torch.data.poses import pose_spherical
 from indoor_nerf_tpu_torch.models.field import serving_params
 from indoor_nerf_tpu_torch.render.baked import (
     bake_field,
+    default_baked_tile_rays,
     load_baked,
     make_baked_image_renderer,
     save_baked,
@@ -115,6 +116,27 @@ def _baked_snapshot(args, params, field_cfg, scene, device):
     return baked
 
 
+def maps_to_host(out, device) -> dict:
+    """The maps ``MAP_KEYS`` of ``out`` as numpy arrays of their own.
+
+    From the card each map is copied straight into page-locked memory
+    (PyTorch's caching host allocator: a block goes back to its cache when
+    the caller drops the array, and the next request reuses it), so the
+    copy is one DMA at the link's speed. A pageable copy stages through a
+    host buffer and takes the host's cores with it, and its time follows
+    whatever else the host does; in a fresh process it also faults in new
+    pages, request after request."""
+    if device.type != "cuda":
+        return {k: out[k].cpu().numpy() for k in MAP_KEYS}
+    host = {}
+    for k in MAP_KEYS:
+        host[k] = torch.empty(out[k].shape, dtype=out[k].dtype,
+                              pin_memory=True)
+        host[k].copy_(out[k], non_blocking=True)
+    torch.cuda.current_stream(device).synchronize()
+    return {k: v.numpy() for k, v in host.items()}
+
+
 def build(args):
     """Set up the field and renderer. Returns ``(render, step, (H, W))``;
     ``render(c2w, request_id=None) -> (maps, seconds)`` with numpy
@@ -142,6 +164,10 @@ def build(args):
     # is made once here, from the RESTORED table (valid while these params
     # are served unchanged), fake-quantized first for a quantized field.
     quant, occ = state["quant"], state["occ"]
+    if getattr(args, "baked", False) and cfg.render.nerfacto is not None:
+        raise ValueError("--baked with --nerfacto: the bake reads the "
+                         "block-hash and hash-grid fields, not nerfacto's "
+                         "chain; serve it online")
     if getattr(args, "baked", False):
         # The bake reads the unquantized params, as the JAX bake does.
         params = serving_params(state["params"], field_cfg)
@@ -156,10 +182,15 @@ def build(args):
     if getattr(args, "baked", False):
         baked = _baked_snapshot(args, params, field_cfg, scene, device)
         g = getattr(args, "guided", 0)
+        # Tiles sized once, from the memory free after the bake, as the
+        # online server sizes them: sized per request, they followed the
+        # allocator's cache from one request to the next.
+        tile = default_baked_tile_rays(baked, 64 if g else 128, 4)
         renderer = make_baked_image_renderer(
-            baked, H, W, n_samples=(16 if g else 128), guided=g, n_coarse=64,
-            white_bkgd=cfg.render.white_bkgd)
-        print(f"rendering {H}x{W} on {device} from the baked snapshot"
+            baked, H, W, tile_rays=tile, n_samples=(16 if g else 128),
+            guided=g, n_coarse=64, white_bkgd=cfg.render.white_bkgd)
+        print(f"rendering {H}x{W} on {device} from the baked snapshot in "
+              f"tiles of {tile} rays"
               + (f", guided by a 1/{g} pass" if g else ""))
 
         def render_maps(c2w):
@@ -190,7 +221,7 @@ def build(args):
                         done.record()
                         done.synchronize()
                 with span("copy"):
-                    maps = {k: out[k].cpu().numpy() for k in MAP_KEYS}
+                    maps = maps_to_host(out, device)
                 return maps, time.perf_counter() - t0
             finally:
                 lock.release()

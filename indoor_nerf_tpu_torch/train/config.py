@@ -4,9 +4,11 @@ The port keeps its own copy of ``build_parser``, ``_read_config_file``,
 ``parse_args`` and ``FLAGSHIP_PRESET`` (it imports, reads and executes
 nothing of ``indoor_nerf_tpu``): every flag of the JAX package's
 ``train/config.py`` with the same name, type and default, so the
-``configs/*.txt`` files parse to the same values, plus ``--device``, the
-one flag the port adds. ``tests/test_torch_config.py`` holds the two
-parsers equal. Flags of features the port does not run yet are parsed here
+``configs/*.txt`` files parse to the same values, plus the flags the port
+adds: ``--device`` and nerfacto's (``--nerfacto``, which applies
+``NERFACTO_PRESET`` as ``--flagship`` applies its preset, and
+``NERFACTO_FLAGS``). ``tests/test_torch_config.py`` holds the two
+parsers equal on every other flag. Flags of features the port does not run yet are parsed here
 and refused by ``train/trainer.py`` with the ROADMAP.md item that brings
 them.
 
@@ -313,7 +315,28 @@ def build_parser() -> argparse.ArgumentParser:
              "row). Any config-file/CLI value you set explicitly still "
              "wins. Parity behavior (exact NGP layout, i_embed 1) stays "
              "the default without this flag.")
-    # The port's one flag of its own.
+    # Nerfacto (nerfstudio's default method; render/proposal.py): the
+    # port's own flags, with nerfstudio's NerfactoModelConfig defaults (its
+    # other settings are models/field.py's NerfactoConfig defaults).
+    add("--nerfacto", action="store_true",
+        help="train nerfacto (NERFACTO_PRESET: the hash grid on the "
+             "contracted scene, two proposal density fields and their "
+             "resampling chain, the interlevel and distortion losses, a "
+             "per-image appearance embedding); config-file and CLI values "
+             "still win")
+    add("--proposal_samples", type=str, default="256,96",
+        help="nerfacto: samples a ray of the initial spacing and of each "
+             "proposal round but the last (comma list, one per proposal "
+             "field)")
+    add("--nerf_samples", type=int, default=48,
+        help="nerfacto: the field's samples a ray")
+    add("--near_plane", type=float, default=0.05,
+        help="nerfacto: the rays' near bound (replaces the dataset's)")
+    add("--far_plane", type=float, default=1000.0,
+        help="nerfacto: the rays' far bound (replaces the dataset's)")
+    add("--proposal_log2_hashmap_size", type=int, default=17,
+        help="nerfacto: log2 rows a level of the proposal fields' tables")
+    # The port's device flag.
     add("--device", type=str, default="cuda",
         help="torch device the trainer and the server run on: 'cuda' (the "
              "current CUDA card, the default), 'cuda:N' or 'cpu'. A CUDA "
@@ -346,6 +369,32 @@ FLAGSHIP_PRESET = {
 }
 
 
+# The nerfacto preset (--nerfacto / `nerfacto = True` in a config file):
+# nerfstudio's "nerfacto" method (nerfstudio/configs/method_configs.py,
+# NerfactoModelConfig) on the port's flags. Values are defaults, as the
+# flagship preset's: config files and CLI flags override them.
+NERFACTO_PRESET = {
+    "i_embed": 1,  # the hash grid, 16 levels x 2 features at 2^19 rows
+    "n_levels": 16,
+    "feats_per_level": 2,
+    "log2_hashmap_size": 19,
+    "finest_res": 2048,
+    "i_embed_views": 2,  # SH degree 4 of the direction
+    "use_viewdirs": True,
+    "N_rand": 4096,
+    "N_importance": 0,
+    "lrate": 1e-2,
+    # 0.1^(step / 100k): nerfstudio's decay from 1e-2 to 1e-4 over 200k.
+    "lrate_decay": 100,
+    "distortion_loss_weight": 0.002,
+    "sparse_loss_weight": 0.0,
+    "tv_loss_weight": 0.0,
+}
+# The flags the port adds for nerfacto (read only under --nerfacto).
+NERFACTO_FLAGS = ("nerfacto", "proposal_samples", "nerf_samples",
+                  "near_plane", "far_plane", "proposal_log2_hashmap_size")
+
+
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
     """configargparse semantics: config file sets defaults, CLI overrides."""
     parser = build_parser()
@@ -354,6 +403,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         # Preset layer: weaker than config-file values, which are weaker
         # than explicit CLI flags (configargparse-style precedence).
         parser.set_defaults(**FLAGSHIP_PRESET)
+    if args.nerfacto:
+        parser.set_defaults(**NERFACTO_PRESET)
     if args.config:
         file_values = _read_config_file(args.config)
         # Map file keys to parser actions; booleans in the file are words.
@@ -374,5 +425,7 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             # `flagship = True` INSIDE a config file: the preset still sits
             # below the file's own explicit values (preset < file < CLI).
             defaults = {**FLAGSHIP_PRESET, **defaults}
+        if defaults.get("nerfacto"):
+            defaults = {**NERFACTO_PRESET, **defaults}
         parser.set_defaults(**defaults)
     return parser.parse_args(argv)

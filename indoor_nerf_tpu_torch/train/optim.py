@@ -88,6 +88,12 @@ def pocketnerf_hyper_fn(name: str) -> RAdamHyper:
     return RAdamHyper(eps=1e-8, weight_decay=1e-6)
 
 
+def nerfacto_hyper_fn(name: str) -> RAdamHyper:
+    """Nerfacto's one group: nerfstudio's Adam settings for its fields and
+    proposal networks (eps 1e-15, no weight decay) on every leaf."""
+    return RAdamHyper(eps=1e-15, weight_decay=0.0)
+
+
 def _rectified_step(h: RAdamHyper, t: int):
     """(adaptive?, rect) for step ``t`` (1-based), in float32 as JAX :81-95."""
     f32 = np.float32

@@ -38,6 +38,17 @@ gate only multiplies its term. ``--use_appearance`` adds the rows of
 ``params["appearance"]`` of the batch's ``img_idx`` to its rays' view
 features (``_view_bias``).
 
+With ``render.nerfacto`` the step is nerfacto's (``_train_step_nerfacto``):
+the proposal chain's render (``render/proposal.py``), the loss MSE +
+``INTERLEVEL_LOSS_WEIGHT`` x the interlevel loss (``losses/interlevel.py``)
++ ``distortion_loss_weight`` x the interval distortion of the field's
+weights, and RAdam at one group (``nerfacto_hyper_fn``). The proposal
+fields take part in the backward and the update only on the steps
+``proposal.update_due`` names from ``state["proposal_since"]`` (steps
+since their last update, reset by an update, one more after every step);
+on the others their leaves keep their values and moments. The step count
+of RAdam's rectifier stays the state's one counter.
+
 With a ``mesh`` (``parallel/shard.py::make_sharded_train_step``) the step
 is the JAX global-view step: the batch is this data rank's share, the
 draws are the global batch's (each rank renders with its slice,
@@ -61,7 +72,11 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
-from indoor_nerf_tpu_torch.losses.distortion import distortion_loss
+from indoor_nerf_tpu_torch.losses.distortion import (
+    distortion_loss,
+    interval_distortion,
+)
+from indoor_nerf_tpu_torch.losses.interlevel import interlevel_loss
 from indoor_nerf_tpu_torch.losses.quantization import (
     QuantState,
     acaq_controller_update,
@@ -72,7 +87,11 @@ from indoor_nerf_tpu_torch.losses.priors import (
     combine_structural_losses,
     draw_priors,
 )
-from indoor_nerf_tpu_torch.models.field import init_field_params, sigma_query
+from indoor_nerf_tpu_torch.models.field import (
+    init_field_params,
+    init_nerfacto_params,
+    sigma_query,
+)
 from indoor_nerf_tpu_torch.ops.blockhash import block_tv_loss, draw_tv_rows
 from indoor_nerf_tpu_torch.ops.occupancy import (
     OccState,
@@ -93,17 +112,21 @@ from indoor_nerf_tpu_torch.parallel.collectives import (
     gather_rays,
     model_sum,
 )
+from indoor_nerf_tpu_torch.render import proposal
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig, draw_render, render_rays
 from indoor_nerf_tpu_torch.train.optim import (
     exp_decay_lr,
     init_radam_state,
     named_leaves,
+    nerfacto_hyper_fn,
     pocketnerf_hyper_fn,
     radam_update,
 )
 from indoor_nerf_tpu_torch.utils.spans import span
 
 TrainState = Dict[str, Any]
+# Nerfacto's weight of the interlevel loss (nerfstudio's interlevel_loss_mult).
+INTERLEVEL_LOSS_WEIGHT = 1.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -209,12 +232,22 @@ def init_quant(config: TrainConfig, device=None) -> Optional[QuantState]:
 def init_train_state(generator: torch.Generator, config: TrainConfig,
                      device=None) -> TrainState:
     """Fresh train state: seeded params, zero moments, a fully occupied
-    grid, and the params EMA where ``config.ema_decay > 0``."""
-    params = init_field_params(generator, config.render.field, device)
+    grid, and the params EMA where ``config.ema_decay > 0``; nerfacto's
+    params and its proposal-update counter ``proposal_since`` with
+    ``render.nerfacto``."""
+    nc = config.render.nerfacto
+    if nc is not None:
+        params = init_nerfacto_params(generator, config.render.field, nc,
+                                      device)
+    else:
+        params = init_field_params(generator, config.render.field, device)
     occ = (init_occupancy(config.render.occupancy, device)
            if config.render.occupancy is not None else None)
-    return make_train_state(params, occ, ema=config.ema_decay > 0.0,
-                            quant=init_quant(config, device))
+    state = make_train_state(params, occ, ema=config.ema_decay > 0.0,
+                             quant=init_quant(config, device))
+    if nc is not None:
+        state["proposal_since"] = 0
+    return state
 
 
 def eval_params(state: TrainState) -> Dict[str, Any]:
@@ -490,8 +523,59 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                            prior_weights, mesh)
 
 
+def _train_step_nerfacto(state, batch, config, generator, draws):
+    """Nerfacto's step (the module docstring)."""
+    rc = config.render
+    step = state["step"]
+    params = state["params"]
+    rays_o, rays_d, target = batch["rays_o"], batch["rays_d"], batch["target"]
+    if draws is None:
+        draws = draw_step(generator, config, step, rays_o.shape[0])
+    update = proposal.update_due(step, state["proposal_since"])
+    near = config.near * torch.ones_like(rays_d[..., :1])
+    far = config.far * torch.ones_like(rays_d[..., :1])
+    out, _ = render_rays(params, rays_o, rays_d, None, near, far, rc,
+                         step=step, draws=draws, train=True,
+                         update_proposals=update,
+                         camera_idx=batch.get("img_idx"))
+    img_loss = torch.mean((out["rgb_map"] - target) ** 2)
+    with span("interlevel"):
+        interlevel = interlevel_loss(out["edges"], out["weights"],
+                                     out["proposal_edges"],
+                                     out["proposal_weights"])
+    distortion = interval_distortion(out["edges"], out["weights"])
+    loss = (img_loss + INTERLEVEL_LOSS_WEIGHT * interlevel
+            + config.distortion_loss_weight * distortion)
+    leaves = named_leaves(params)
+    wrt = [k for k in leaves if update or not k.startswith("proposal_")]
+    with span("backward"):
+        # A leaf the loss does not reach gets None, which RAdam counts as
+        # zero.
+        grads = torch.autograd.grad(loss, [leaves[k] for k in wrt],
+                                    allow_unused=True)
+    lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
+    with span("optimizer"):
+        radam_update({k: leaves[k] for k in wrt}, dict(zip(wrt, grads)),
+                     state["opt"], lr, nerfacto_hyper_fn)
+    if update:
+        proposal.count_update()
+    state["proposal_since"] = (0 if update else state["proposal_since"]) + 1
+    il = img_loss.detach()
+    state["step"] = step + 1
+    return state, {"loss": loss.detach(), "img_loss": il,
+                   "psnr": -10.0 * torch.log(il) / math.log(10.0), "lr": lr,
+                   "interlevel": interlevel.detach(),
+                   "distortion": distortion.detach(),
+                   "proposal_update": update}
+
+
 def _train_step(state, batch, config, generator, draws, prior_weights, mesh):
     rc = config.render
+    if rc.nerfacto is not None:
+        if mesh is not None:
+            raise NotImplementedError("nerfacto trains on one device: no "
+                                      "sharded step")
+        return _train_step_nerfacto(state, batch, config, generator, draws)
     fc = rc.field
     step = state["step"]
     params = state["params"]

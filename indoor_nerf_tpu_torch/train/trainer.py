@@ -110,7 +110,7 @@ from indoor_nerf_tpu_torch.data.pipeline import (
     UnobservedPatchSampler,
 )
 from indoor_nerf_tpu_torch.losses.quantization import QuantConfig, flat_bits
-from indoor_nerf_tpu_torch.models.field import FieldConfig
+from indoor_nerf_tpu_torch.models.field import FieldConfig, NerfactoConfig
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.encoding import HashGridConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
@@ -243,9 +243,92 @@ def enable_normals(args) -> None:
         args.predict_normals = True
 
 
+# What ``--nerfacto`` refuses: (flag, its value without the flag, why).
+_NERFACTO_REFUSES = (
+    ("use_occupancy", False, "the proposal chain is nerfacto's sampler"),
+    ("N_importance", 0, "the proposal chain replaces the fine pass"),
+    ("use_structural_priors", False, "nerfacto predicts no normals"),
+    ("predict_normals", False, "nerfacto predicts no normals"),
+    ("use_quantization", False, "A-CAQ quantizes the block and hash grids "
+     "of the other fields"),
+    ("use_acaq", False, "A-CAQ quantizes the other fields"),
+    ("ray_groups", None, "a block-hash encode option"),
+    ("ray_strides", None, "a block-hash encode option"),
+    ("use_pallas", False, "a block-hash encode option"),
+    ("use_appearance", False, "nerfacto has its own appearance embedding"),
+    ("reg_views", 0, "the patches render through the other samplers"),
+    ("multihost", False, "nerfacto trains on one device (no data or model "
+     "axis yet)"),
+    ("mesh_shape", None, "nerfacto trains on one device (no data or model "
+     "axis yet)"),
+    ("render_baked", False, "the bake reads the other fields"),
+    ("ema_decay", 0.0, "not carried to nerfacto's step"),
+    ("table_decay_weight", 0.0, "not carried to nerfacto's step"),
+    ("freq_anneal_iters", 0, "not carried to nerfacto's field"),
+    ("view_anneal_iters", 0, "not carried to nerfacto's field"),
+    ("raw_noise_std", 0.0, "not carried to nerfacto's field"),
+    ("lindisp", False, "nerfacto has its own spacing"),
+    ("render_fit_appearance", False, "the fit trains the other fields' "
+     "latents"),
+)
+
+
+# Nerfacto's proposal fields: nerfstudio's two, 5 levels x 2 features each,
+# finest resolutions 128 and 256.
+PROPOSAL_FINEST = (128, 256)
+
+
+def _nerfacto_train_config(args, scene: SceneData) -> TrainConfig:
+    """The static config of ``--nerfacto``: the field's hash grid and the
+    proposal fields' on the contracted box, the chain's sample counts and
+    schedule, one appearance row per training image, the rays' bounds
+    ``--near_plane``/``--far_plane`` (the scene loader set them)."""
+    for flag, off, why in _NERFACTO_REFUSES:
+        if getattr(args, flag) != off:
+            raise ValueError(f"--nerfacto refuses --{flag}: {why}")
+    if args.i_embed != 1:
+        raise ValueError(f"--nerfacto runs the hash grid (--i_embed 1; got "
+                         f"{args.i_embed})")
+    if scene.ndc and not args.no_ndc:
+        raise ValueError("--nerfacto contracts world rays: pass --no_ndc")
+    box_min, box_max = (-2.0, -2.0, -2.0), (2.0, 2.0, 2.0)
+    samples = _per_level(args.proposal_samples)
+    if len(samples) != len(PROPOSAL_FINEST):
+        raise ValueError(f"--proposal_samples {args.proposal_samples}: one "
+                         f"value per proposal field ({len(PROPOSAL_FINEST)})")
+    grid = HashGridConfig(
+        bbox_min=box_min, bbox_max=box_max, n_levels=args.n_levels,
+        n_features_per_level=args.feats_per_level,
+        log2_hashmap_size=args.log2_hashmap_size, base_resolution=16,
+        finest_resolution=args.finest_res)
+    field = FieldConfig(
+        grid=grid, i_embed=1, i_embed_views=args.i_embed_views,
+        multires_views=args.multires_views, use_viewdirs=True,
+        compute_dtype="bfloat16" if args.precision == "bf16" else "float32")
+    nerfacto = NerfactoConfig(
+        proposal_grids=tuple(
+            HashGridConfig(bbox_min=box_min, bbox_max=box_max, n_levels=5,
+                           n_features_per_level=2,
+                           log2_hashmap_size=args.proposal_log2_hashmap_size,
+                           base_resolution=16, finest_resolution=f)
+            for f in PROPOSAL_FINEST),
+        proposal_samples=samples, nerf_samples=args.nerf_samples,
+        n_images=len(scene.i_train))
+    render = RenderConfig(field=field, perturb=args.perturb,
+                          white_bkgd=args.white_bkgd, nerfacto=nerfacto)
+    return TrainConfig(
+        render=render, near=scene.near, far=scene.far, n_rand=args.N_rand,
+        lrate=args.lrate, lrate_decay=args.lrate_decay,
+        sparse_loss_weight=0.0, tv_loss_weight=0.0,
+        distortion_loss_weight=args.distortion_loss_weight)
+
+
 def build_train_config(args, scene: SceneData) -> TrainConfig:
     """Assemble the static config from CLI args + scene geometry (the JAX
-    ``build_train_config``, for what the port runs)."""
+    ``build_train_config``, for what the port runs; ``--nerfacto``:
+    ``_nerfacto_train_config``)."""
+    if getattr(args, "nerfacto", False):
+        return _nerfacto_train_config(args, scene)
     if args.use_occupancy and args.N_importance > 0:
         raise ValueError(
             f"--use_occupancy with --N_importance {args.N_importance}: the "
@@ -436,7 +519,13 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
         sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train,
                                     H, W, scene.K, n_rand, seed=seed)
         sample = skip = lambda i: sampler.next()
-    drop = set() if cfg.render.field.n_appearance > 0 else {"img_idx"}
+    nerfacto = cfg.render.nerfacto is not None
+    drop = (set() if cfg.render.field.n_appearance > 0 or nerfacto
+            else {"img_idx"})
+    # Nerfacto's appearance embedding has one row per training image: its
+    # rays carry their image's position among the training views.
+    train_pos = np.zeros(len(scene.images), np.int32)
+    train_pos[np.asarray(scene.i_train)] = np.arange(len(scene.i_train))
     reg = None
     if args.reg_views > 0:
         reg = UnobservedPatchSampler(
@@ -450,6 +539,8 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
     def sample_batch(i):
         with span("sampler"):
             b = sample(i)
+            if nerfacto:
+                b["img_idx"] = train_pos[b["img_idx"]]
             if reg is not None:
                 b.update(reg.next())
             return {k: v for k, v in b.items() if k not in drop}

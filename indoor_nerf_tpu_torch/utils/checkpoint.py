@@ -11,7 +11,7 @@ tensors and plain ints, keyed by dotted leaf paths (``params.table``,
 ``--use_appearance``), ``opt.mu.table``, ``opt.step``,
 ``occ.density``, ``ema.table`` (the params EMA of ``--ema_decay``),
 ``quant.embed.soft_bits`` (the A-CAQ quantizers of a quantized field),
-``step``, ``best_loss``, ``infl_ema``, ...), written with ``torch.save``
+``step``, ``best_loss``, ``infl_ema``, nerfacto's ``proposal_since``, ...), written with ``torch.save``
 and read with ``weights_only=True``: no pickled classes. ``restore_checkpoint``
 also reads a checkpoint written by the JAX package (flax msgpack), which it
 tells apart by the file's first bytes (``bridge.load_jax_checkpoint``).
@@ -55,6 +55,8 @@ def _payload(state: Dict[str, Any]) -> Dict[str, Any]:
     out.update({k: v.detach().cpu() for k, v in _tensor_leaves(state).items()})
     out["opt.step"] = int(state["opt"]["step"])
     out["step"] = int(state["step"])
+    if "proposal_since" in state:
+        out["proposal_since"] = int(state["proposal_since"])
     return out
 
 
@@ -151,6 +153,8 @@ def _restore_own(payload: Dict[str, Any], template: Dict[str, Any],
         template["opt"]["step"] = int(payload["opt.step"])
     if "step" in payload:
         template["step"] = int(payload["step"])
+    if "proposal_since" in payload and "proposal_since" in template:
+        template["proposal_since"] = int(payload["proposal_since"])
     return template
 
 

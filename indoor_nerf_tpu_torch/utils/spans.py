@@ -53,6 +53,8 @@ NAMES = (
     "priors", "backward", "acaq_fp_forward", "optimizer", "occ_update",
     # the field and the renderer: models/field.py, render/renderer.py
     "sample", "encode", "mlp", "composite",
+    # nerfacto: render/proposal.py, train/step.py
+    "contract", "proposal", "pdf", "interlevel",
     # the encodes' backward: ops/blockhash.py, ops/encoding.py
     "encode_bwd",
     # serving: serve.py

@@ -115,3 +115,32 @@ def test_cuda_baked_render_matches_cpu(table_dtype, guided):
             assert float(diff.mean()) <= tol, key
         else:
             assert float(diff.max()) <= tol, key
+
+
+@pytest.mark.cuda
+def test_cuda_baked_render_rays_never_waits_for_the_card():
+    """A tile of the unguided baked render launches its work and returns
+    without one host-card synchronisation (a synchronising call raises under
+    ``set_sync_debug_mode("error")``), so the host stays ahead of the card
+    and a request's time is the card's. The first tile makes the render's
+    constants; later tiles reuse them."""
+    _need_card()
+    dev = torch.device("cuda:0")
+    fc, params = _field(dev, "bfloat16")
+    baked = tb.bake_field(params, fc, resolution=32, table_dtype="bfloat16",
+                          blocks_per_chunk=64)
+    g = torch.Generator(device=dev).manual_seed(1)
+    rays_o = torch.rand(4096, 3, generator=g, device=dev) - 0.5
+    rays_d = torch.randn(4096, 3, generator=g, device=dev)
+    viewdirs = rays_d / torch.linalg.norm(rays_d, dim=-1, keepdim=True)
+    with torch.inference_mode():
+        want = tb.baked_render_rays(baked, rays_o, rays_d, viewdirs, 0.05, 6.0)
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = tb.baked_render_rays(baked, rays_o, rays_d, viewdirs, 0.05,
+                                       6.0)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    for key in want:
+        torch.testing.assert_close(got[key], want[key], rtol=0, atol=0)

@@ -17,6 +17,7 @@ from indoor_nerf_tpu_torch.train.config import parse_args
 from indoor_nerf_tpu_torch import run_nerf
 from test_torch_config import (
     CONFIGS,
+    NERFACTO_CONFIGS,
     PARITY_CONFIGS,
     PRIORS_CONFIGS,
     TPU_CONFIGS,
@@ -92,5 +93,22 @@ def test_structural_priors_config_is_refused(scene_dirs, tmp_path, name):
     assert out["prior_weights"] == {"depth_prior": 0.0, "planarity": 0.001,
                                     "manhattan": 0.0005,
                                     "normal_consistency": 0.0002}
+    assert sorted(f for f in os.listdir(out["logdir"])
+                  if f.endswith(".ckpt")) == ["000001.ckpt"]
+
+
+@pytest.mark.parametrize("path", NERFACTO_CONFIGS)
+def test_nerfacto_config_trains_one_step_from_files(path, scene_dirs,
+                                                    tmp_path):
+    """The nerfacto file trains one step through ``run_nerf`` (its proposal
+    chain cut to 16 + 8 samples and 2^10 rows here)."""
+    out = run_nerf.main(["--config", os.path.join(_ROOT, path), "--datadir",
+                         scene_dirs["blender"], "--basedir", str(tmp_path),
+                         "--proposal_samples", "16,8", "--nerf_samples", "8",
+                         "--proposal_log2_hashmap_size", "10"] + TINY)
+    state = out["state"]
+    assert state["step"] == 1 and np.isfinite(out["losses"][0])
+    assert sorted(state["params"]) == ["coarse", "embedding_appearance",
+                                       "proposal_0", "proposal_1", "table"]
     assert sorted(f for f in os.listdir(out["logdir"])
                   if f.endswith(".ckpt")) == ["000001.ckpt"]

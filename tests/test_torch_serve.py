@@ -169,6 +169,19 @@ def test_serve_appearance_field(tmp_path):
                                   want["rgb_map"].numpy())
 
 
+def test_maps_to_host_on_the_cpu_returns_the_maps():
+    """On the CPU the maps come back as numpy arrays of the same values."""
+    from indoor_nerf_tpu_torch.render.renderer import MAP_KEYS
+    g = torch.Generator().manual_seed(0)
+    out = {k: torch.rand(6, 5, 3, generator=g) if k == "rgb_map"
+           else torch.rand(6, 5, generator=g) for k in MAP_KEYS}
+    maps = serve.maps_to_host(out, torch.device("cpu"))
+    assert set(maps) == set(MAP_KEYS)
+    for k in MAP_KEYS:
+        assert isinstance(maps[k], np.ndarray)
+        np.testing.assert_array_equal(maps[k], out[k].numpy())
+
+
 def test_occupancy_with_importance_is_refused():
     """The JAX package fails on the pair (its step reads ``out["rgb0"]``,
     which the occupancy branch never returns); the port says so."""
