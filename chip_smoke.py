@@ -14,8 +14,9 @@ printing any result.
 
   (a) device: name, torch / CUDA versions, nvidia-smi name and power limit;
   (b) build: compiles csrc/tent_contract.cu, csrc/table_scatter.cu,
-      csrc/group_scatter.cu, csrc/tile_interp.cu and csrc/lane_gather.cu
-      with nvcc for sm_90a, one nvcc per source, started together;
+      csrc/group_scatter.cu, csrc/tile_interp.cu, csrc/lane_gather.cu,
+      csrc/fused_radam.cu and csrc/nerf_small_fused.cu with nvcc for
+      sm_90a, one nvcc per source, started together;
   (c) tent_contract against its plain PyTorch version at the serving shapes
       (flagship side 4 / lpf 64 / F 4 over a bf16 [65536, 256] table with
       M = 16384 rays x 32 samples x 8 levels; side 5 / lpf 128 / F 2; a
@@ -45,6 +46,13 @@ printing any result.
       in device time (the queue held back so the eager loop's host
       dispatch is not timed), alternating, against the bound of reading
       p, g, mu, nu and writing p, mu, nu once;
+  (e3) nerf_small_fused against the eager chain (models/mlp_fused.py) at
+      one 800x800 request's rows (640,000 rays x 32 samples, 20.48M rows,
+      the flagship's NeRFSmall with its normal net): each channel within
+      KERNEL_TOL of its largest value, then both timed in device time,
+      alternating, against the bound of 8,896 multiply-adds a row and
+      1,024 a ray at the float32 FMA rate; (d) holds its launches and
+      rows a request on the online server's path;
   (f) training: trainer.train on the flagship CLI for 200 steps at full
       width; both kernels must launch, the loss stay finite and the mean
       loss of the last 10 steps fall below that of the first 10. Every
@@ -316,7 +324,8 @@ out is held under UNRESOLVED_SHARE. ``--step-spread N`` also runs each of
 (y2), (sp2), (aq2), (rp2) and (md1)'s step check over N batches and draws.
 
 The line before the last is {"kernels": [...]}: for each of the seven
-kernels its launches on the main path, its error and time against its plain
+kernels (and fused_radam and nerf_small_fused, which replace none) its
+launches on the main path, its error and time against its plain
 version, the least time the card could take for the same work ("bound_ms":
 the larger of bytes moved once over 3.35 TB/s and operations over 67
 TFLOP/s f32, computed from the run's shapes) and, where one PyTorch call
@@ -379,6 +388,7 @@ import numpy as np
 
 SERVE_FLAGS = ["--flagship", "--dataset_type", "synthetic", "--use_viewdirs",
                "--white_bkgd"]
+SERVE_SAMPLES = 32  # the flagship's occupancy samples a ray
 GROUPS = (4, 4, 2, 2, 1, 1, 1, 1)  # the 8-level --ray_groups of the help text
 GROUP_FLAGS = SERVE_FLAGS + ["--ray_groups", ",".join(map(str, GROUPS))]
 STRIDE_FLAGS = SERVE_FLAGS + ["--ray_strides", ",".join(map(str, GROUPS))]
@@ -674,7 +684,8 @@ def phase_build() -> None:
 
     t0 = time.perf_counter()
     built = build_all(["tent_contract", "table_scatter", "group_scatter",
-                       "tile_interp", "lane_gather", "fused_radam"])
+                       "tile_interp", "lane_gather", "fused_radam",
+                       "nerf_small_fused"])
     print(f"[b] built {len(built)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in built.items():
@@ -771,9 +782,28 @@ def _request(url, body=None):
     return status, ctype, data, time.perf_counter() - t0
 
 
-def phase_serving(torch) -> int:
+def hold_mlp(tag, requests: int, rows_per_request: int) -> int:
+    """Since the last reset_counts, ``requests`` requests each took the
+    same number of nerf_small_fused launches, at least one, over
+    ``rows_per_request`` rows: every sample of the request went through
+    the kernel, none through the eager chain. Returns the launches a
+    request."""
+    from indoor_nerf_tpu_torch.models import mlp_fused
+
+    launches, rows = mlp_fused.launch_count(), mlp_fused.rows_count()
+    if (launches < requests or launches % requests
+            or rows != requests * rows_per_request):
+        raise AssertionError(
+            f"[{tag}] nerf_small_fused: {launches} launches over {rows} rows "
+            f"in {requests} requests (want a launch a tile and "
+            f"{rows_per_request} rows a request)")
+    return launches // requests
+
+
+def phase_serving(torch) -> tuple:
     from indoor_nerf_tpu_torch import serve
     from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.models import mlp_fused
     from indoor_nerf_tpu_torch.ops import tent_contract as tc
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.utils.png import decode_png
@@ -808,6 +838,7 @@ def phase_serving(torch) -> int:
     torch.cuda.reset_peak_memory_stats()
     try:
         tc.reset_launch_count()  # the serving path's run starts here
+        mlp_fused.reset_counts()
         status, _, data, dt = _request(base + "/health")
         health = json.loads(data)
         if status != 200 or health["status"] != "ok":
@@ -837,6 +868,7 @@ def phase_serving(torch) -> int:
                   f"render {render_s * 1e3:.1f} ms")
             print(f"[d] rays/s {label}: {800 * 800 / render_s:.0f}")
         launches = tc.launch_count()  # the serving path's run ends here
+        mlp = hold_mlp("d", len(requests), 800 * 800 * SERVE_SAMPLES)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -844,9 +876,10 @@ def phase_serving(torch) -> int:
     if thread.is_alive():
         raise AssertionError("server thread did not stop")
     peak = torch.cuda.max_memory_allocated()
-    print(f"[d] main path: {launches} tent_contract launches over 3 renders; "
-          f"peak device memory {peak / 2**30:.2f} GiB")
-    return launches
+    print(f"[d] main path: {launches} tent_contract launches over 3 renders, "
+          f"nerf_small_fused {mlp} a render over {800 * 800 * SERVE_SAMPLES} "
+          f"rows; peak device memory {peak / 2**30:.2f} GiB")
+    return launches, mlp
 
 
 def phase_render_check(torch) -> None:
@@ -1003,6 +1036,17 @@ RADAM_SETS = {
                     for k, v in RADAM_MLP.items()}}}
 RADAM_BYTES = 28  # an adaptive step reads p, g, mu, nu and writes p, mu, nu
 RADAM_FLOPS = 14  # 7 for the moments, 2 for the decay, 5 for the update
+# (e3): one 800x800 request's field query. The least multiply-adds: a
+# row's (sigma 32x64 + 64x16, colour 15x64 + 64x64 + 64x3 from the
+# geometry features on, normal 15x32 + 32x3) and a ray's (the colour
+# net's 16x64 view part, which depends on the ray alone;
+# nerfbench/counts.py::mlp_flops_per_sample counts it a row, 9,920 in
+# all). Bytes: a row's 32 features and keep flag read, 7 outputs written;
+# the view features once a ray.
+MLP_RAYS = 800 * 800
+MLP_FMA_PER_ROW = 8896
+MLP_FMA_PER_RAY = 16 * 64
+MLP_BYTES_PER_ROW = 32 * 4 + 1 + 7 * 4
 
 
 def device_ms(torch, fn, iters: int, rounds: int = 4) -> list:
@@ -1090,6 +1134,64 @@ def phase_fused_radam(torch) -> dict:
         del leaves, grads, state, copies
         torch.cuda.empty_cache()
     return out
+
+
+def phase_nerf_small_fused(torch) -> dict:
+    """(e3) nerf_small_fused against the eager chain at one request's rows:
+    each channel within KERNEL_TOL of its largest value, one launch; then
+    both timed in device time (plain, kernel, kernel, plain, each the
+    median of 4 readings of 3 calls), against the FMA bound."""
+    from indoor_nerf_tpu_torch.models import mlp_fused
+    from indoor_nerf_tpu_torch.models.mlp import init_nerf_small
+    from indoor_nerf_tpu_torch.ops.encoding import sh_encode
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device=dev).manual_seed(13)
+    net = init_nerf_small(torch.Generator().manual_seed(13),
+                          predict_normals=True).to(dev)
+    n = MLP_RAYS * SERVE_SAMPLES
+    feats = torch.randn((n, 32), generator=g, device=dev)
+    dirs = torch.nn.functional.normalize(
+        torch.randn((MLP_RAYS, 3), generator=g, device=dev), dim=-1)
+    vf = sh_encode(dirs, degree=4).contiguous()
+    keep = torch.rand(n, generator=g, device=dev) < 0.8
+    with torch.inference_mode():
+        mlp_fused.reset_counts()
+        got = mlp_fused.nerf_small_fused(net, feats, vf, SERVE_SAMPLES, keep)
+        launches = mlp_fused.launch_count()
+        want = mlp_fused.nerf_small_plain(net, feats, vf, SERVE_SAMPLES, keep)
+        torch.cuda.synchronize()
+        errs = {}
+        for name, sl in (("rgb", slice(0, 3)), ("sigma", slice(3, 4)),
+                         ("normal", slice(4, 7))):
+            scale = float(want[:, sl].abs().max())
+            errs[name] = float((got[:, sl] - want[:, sl]).abs().max()) / scale
+        del got, want
+        if launches != 1 or max(errs.values()) > KERNEL_TOL:
+            raise AssertionError(f"[e3] nerf_small_fused: {launches} launches, "
+                                 f"errors {errs} (of each channel's largest; "
+                                 f"tol {KERNEL_TOL})")
+        least = bound(MLP_BYTES_PER_ROW * n + 16 * 4 * MLP_RAYS,
+                      2 * (MLP_FMA_PER_ROW * n + MLP_FMA_PER_RAY * MLP_RAYS))
+        fns = {"kernel": lambda: mlp_fused.nerf_small_fused(
+                   net, feats, vf, SERVE_SAMPLES, keep),
+               "plain": lambda: mlp_fused.nerf_small_plain(
+                   net, feats, vf, SERVE_SAMPLES, keep)}
+        times = [float(np.median(device_ms(torch, fns[k], 3)))
+                 for k in ("plain", "kernel", "kernel", "plain")]
+    ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+    blocks = mlp_fused.blocks_per_sm(32, 16, True)
+    print(f"[e3] nerf_small_fused: {n} rows ({MLP_RAYS} rays x "
+          f"{SERVE_SAMPLES}) in {launches} launch, {blocks} blocks an SM; "
+          f"max |diff| of each channel's largest {errs}; kernel {ms:.3f} ms "
+          f"({times[1]:.3f}, {times[2]:.3f}), eager chain {plain_ms:.3f} ms "
+          f"({times[0]:.3f}, {times[3]:.3f}) device time; bound "
+          f"{least['bound_ms']:.3f} ms ({least['bound_by']}), "
+          f"{100 * least['bound_ms'] / ms:.1f}% of it")
+    del feats, keep, vf
+    torch.cuda.empty_cache()
+    return {"ms": ms, "plain_ms": plain_ms, "rows": n, "errors": errs,
+            "blocks_per_sm": blocks, **least}
 
 
 def phase_training(torch, tag, flags, steps, expect, forbid=(), updated=None):
@@ -4509,10 +4611,11 @@ def main() -> int:
         return 0
     phase_build()
     tent = phase_kernel(torch)
-    serve_launches = phase_serving(torch)
+    serve_launches, serve_mlp = phase_serving(torch)
     phase_render_check(torch)
     scatter = phase_scatter(torch)
     radam = phase_fused_radam(torch)
+    mlp = phase_nerf_small_fused(torch)
     trained, flat_launches = phase_training(
         torch, "f", SERVE_FLAGS, TRAIN_STEPS, ("tent_contract", "table_scatter"))
     phase_step_check(torch, "g", SERVE_FLAGS, trained["state"])
@@ -4705,6 +4808,10 @@ def main() -> int:
          "source": csrc + "fused_radam.cu", "replaces": None,
          "launches": RADAM_BY_PATH["f"], "launches_by_path": RADAM_BY_PATH,
          **radam},
+        {"name": "nerf_small_fused", "route": "cuda",
+         "source": csrc + "nerf_small_fused.cu", "replaces": None,
+         "launches": serve_mlp,
+         "launches_by_path": {"serving (a request)": serve_mlp}, **mlp},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

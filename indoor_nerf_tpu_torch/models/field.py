@@ -71,6 +71,11 @@ from indoor_nerf_tpu_torch.models.mlp import (
     init_nerf_big,
     init_nerf_small,
 )
+from indoor_nerf_tpu_torch.models.mlp_fused import (
+    fused_applies,
+    mask_sigma,
+    nerf_small_fused,
+)
 from indoor_nerf_tpu_torch.ops.blockhash import (
     BlockHashConfig,
     block_hash_encode,
@@ -607,7 +612,11 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
     latents) is added to them after the view anneal (JAX field.py:557-567).
     A training query (``step`` given) applies the level and view anneals.
     Sigma is zeroed outside the bbox; the
-    normal channels are kept as they are.
+    normal channels are kept as they are. A query on the card without
+    autograd outside a training step (``train`` False: serving,
+    evaluation renders) runs the net and the mask in one kernel where
+    ``mlp_fused.fused_applies`` says so, from the per-ray view features,
+    with no broadcast copy of them.
 
     A quantized grid field with a ``quant_state`` fake-quantizes the table,
     NeRFSmall's first sigma weight and its hidden activations (``train``:
@@ -630,7 +639,7 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
                 pts.reshape(-1, 3), params, config, quant_state, train, step)
         feats = _apply_level_anneal(feats, config, step)
 
-    view_feats = None
+    vf = None
     if config.use_viewdirs and viewdirs is not None:
         vf = encode_views(viewdirs, config.i_embed_views,
                           config.multires_views)  # [R, D]
@@ -638,17 +647,27 @@ def query_field(params: Params, mlp_name: str, pts: torch.Tensor,
             vf = vf * _ramp(step, config.view_anneal_iters)
         if view_bias is not None:
             vf = vf + view_bias
-        view_feats = vf[:, None, :].expand(r, s, vf.shape[-1]).reshape(r * s, -1)
 
+    net = params[mlp_name]
+    if fused_applies(net, feats.device, torch.is_grad_enabled(), train,
+                     config.torch_compute_dtype,
+                     _quantizing(config, quant_state)):
+        with span("mlp"):
+            raw = nerf_small_fused(net, feats.contiguous(),
+                                   None if vf is None else vf.contiguous(),
+                                   s, keep.contiguous())
+        return raw.reshape(r, s, -1), quant_state
+
+    view_feats = None
+    if vf is not None:
+        view_feats = vf[:, None, :].expand(r, s, vf.shape[-1]).reshape(r * s, -1)
     with span("mlp"):
         quantizers = ()
         if _quantizing(config, quant_state):
             *quantizers, quant_state = _mlp_quantizers(
                 params, mlp_name, config, quant_state, train)
-        raw = params[mlp_name](feats, view_feats, config.torch_compute_dtype,
-                               *quantizers)
-        sigma = torch.where(keep, raw[..., 3], 0.0)
-        raw = torch.cat([raw[..., :3], sigma[..., None], raw[..., 4:]], dim=-1)
+        raw = mask_sigma(net(feats, view_feats, config.torch_compute_dtype,
+                             *quantizers), keep)
     return raw.reshape(r, s, -1), quant_state
 
 

@@ -366,6 +366,11 @@ def radam_update_fused(leaves: Leaves,
     for args, _ in table.launches:
         launch_on_stream(lib.fused_radam, lib.fused_radam_error_string,
                          "fused_radam", (), *args, device=device)
+    # The kernel wrote the leaves through their pointers: count that as an
+    # in-place update, so what is keyed by a leaf's version (the fused
+    # MLP's weight pack, autograd's saved tensors) sees it.
+    for p in leaves.values():
+        torch.autograd.graph.increment_version(p)
     with _LOCK:
         _launches += len(table.launches)
         _leaves_updated += len(table.names)
