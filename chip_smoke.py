@@ -65,7 +65,6 @@ printing any result.
       for bit, the table's within 1e-5 / 2e-5 of their largest entry and
       1e-5 in norm); with both replaced (the forwards differ in rounding:
       loss 1e-5, grid 1e-4, every moment 5e-3 relative in norm);
-  (h) the training benchmark (indoor_nerf_tpu_torch.bench) JSON line;
   (i) group_scatter against its plain version at the flagship grouped
       shape (4096 rays x 32 samples x 8 levels, G 4,4,2,2,1,1,1,1: 720,896
       groups, F 4, lpf 64, side 4, bf16 rounding, a [65536, 256] f32
@@ -84,8 +83,6 @@ printing any result.
   (k) one grouped step from those params the same three ways, held as (g);
   (l) strided training: --ray_strides 4,4,2,2,1,1,1,1 for 100 steps;
       tent_contract and table_scatter must launch, the loss fall;
-  (m) the bench step with and without ray_groups 4,4,2,2,1,1,1,1 in
-      eight alternating windows of 30 steps, in this one process;
   (n) tile_interp_fwd and tile_interp_bwd_rows against their plain versions
       at the --use_pallas training shape (M = 4096 rays x 32 samples x 16
       levels = 2,097,152 gathered rows [M, 256] f32, p in [0, 4] with 4,096
@@ -156,15 +153,7 @@ printing any result.
       images/ at 1512x2016, images_8/ at 189x252), configs/fern_tpu.txt
       (factor 8, llffhold 8, NDC, raw_noise_std 1) for 200 steps at --lrate
       0.01 with a test set at 200: both kernels launch, the loss falls, the
-      held-out PSNR beats the seeded field's;
-  (x) phase (f)'s configuration in windows of 100 steps through
-      trainer.train (each step's loss read one step late, with the
-      metrics), through the loop's earlier form (losses read at --i_print
-      steps only) and through that form reading every step's loss one step
-      late as trainer.train does, to tell the read's cost apart,
-      two rounds of earlier, per-step, new, new, per-step, earlier in
-      this process: steps/s of each window, medians; and the two ray
-      samplers' host ms per batch.
+      held-out PSNR beats the seeded field's.
 
   (y1) the parity path from files, in (v)'s directory: configs/lego.txt as
       shipped (the hash grid 16 x 2 at 2^19 entries per level, 64 + 128
@@ -248,7 +237,8 @@ printing any result.
       its plain form on the card and the CPU (1e-5), the int8 and bf16
       packs and contractions timed; one int8 step of 1024 rays card
       against CPU; the
-      bench step int8 against bf16 in alternating windows, as (m);
+      root bench's step int8 against bf16 in eight alternating windows of
+      30 steps, in this process;
   (aq4) (aq1)'s checkpoint restored (every leaf equal to the saved
       state, the quantizers included), resumed for one step through
       trainer.train, served through serve.build at 800x800 with its
@@ -427,7 +417,8 @@ SAME_FORWARD_TABLE_TOLS = (1e-5, 2e-5, 1e-5)
 RESOLVED_RTOL, UNRESOLVED_SHARE = 1e-2, 1e-2
 TRAIN_STEPS = 200
 STRIDED_STEPS = 100
-TIMED_STEPS = 30  # per window of (m)
+TIMED_STEPS = 30  # per window of (z) and (aq3)
+BENCH_RAYS = 4096  # the JAX package's root bench.py: N_rand
 # The --use_pallas path: the block-hash grid at the parser's defaults.
 TILE_FLAGS = ["--i_embed", "3", "--use_pallas", "--use_occupancy",
               "--N_importance", "0", "--occ_samples", "32", "--occ_weighting",
@@ -459,8 +450,6 @@ NDC_VIEWS, NDC_FULL_HWF, NDC_STEPS = 16, (1512, 2016, 1630.0), 200
 # run's steps; the bake resolution of its baked server.
 PARITY_STEPS, PARITY_NDC_STEPS, PE_STEPS, PARITY_BAKE_RES = 600, 100, 50, 128
 BAKE_SPREAD_STEPS = 1000  # --bake-spread's second reading
-# (x): two rounds of six alternating windows of 100 steps.
-LOOP_STEPS, LOOP_ROUNDS = 100, 2
 # (sp1)-(sp4), the structural priors: the room scene of
 # data/scene_files.py in blender layout (24 views of 400x400, 6 held out);
 # configs/norcliffe_common_room_tpu.txt as shipped for 1000 steps with the
@@ -588,31 +577,19 @@ def table_sectors_touched(torch, table, flat_row, p, side) -> int:
 
 
 def launch_counts() -> dict:
-    """Every kernel's launch count, by the names of the kernels line."""
-    from indoor_nerf_tpu_torch.ops import group_scatter as gs
-    from indoor_nerf_tpu_torch.ops import lane_gather as lg
-    from indoor_nerf_tpu_torch.ops import table_scatter as ts
-    from indoor_nerf_tpu_torch.ops import tent_contract as tc
-    from indoor_nerf_tpu_torch.ops import tile_interp as ti
+    """The launches of the kernels line's seven kernels since the last
+    reset_counts, by name."""
+    from indoor_nerf_tpu_torch import cuda_build
 
-    out = {"tent_contract": tc.launch_count(),
-           "table_scatter": ts.launch_count(),
-           "group_scatter": gs.launch_count()}
-    out.update({k: ti.launch_count(k) for k in ti.KERNELS})
-    out.update({k: lg.launch_count(k) for k in lg.KERNELS})
-    return out
+    counts = cuda_build.launch_counts()
+    return {k: counts[k] for k in KERNELS}
 
 
-def reset_launch_counts() -> None:
-    from indoor_nerf_tpu_torch.ops import group_scatter as gs
-    from indoor_nerf_tpu_torch.ops import lane_gather as lg
-    from indoor_nerf_tpu_torch.ops import table_scatter as ts
-    from indoor_nerf_tpu_torch.ops import tent_contract as tc
-    from indoor_nerf_tpu_torch.ops import tile_interp as ti
-    from indoor_nerf_tpu_torch.train import optim
+def reset_counts() -> None:
+    """Clear every count of the port's kernels (cuda_build.launch_counts)."""
+    from indoor_nerf_tpu_torch import cuda_build
 
-    for m in (tc, ts, gs, ti, lg, optim):
-        m.reset_launch_count()
+    cuda_build.reset_counts()
 
 
 # fused_radam's launches, by the training path that ran them.
@@ -620,14 +597,16 @@ RADAM_BY_PATH = {}
 
 
 def hold_optimizer(tag, steps: int, params, updated=None) -> str:
-    """Since the last reset_launch_counts, every one of ``steps`` training
+    """Since the last reset_counts, every one of ``steps`` training
     steps took one fused_radam launch per MAX_LEAVES leaves over every leaf
     of ``params`` (the trained model's), or, where a step updates some of
     them only, over the leaves ``updated(steps, params)`` gives as
     ``[(steps, leaves a step), ...]``: none was left to the eager loop."""
+    from indoor_nerf_tpu_torch import cuda_build
     from indoor_nerf_tpu_torch.train import optim
 
-    launches, leaves = optim.launch_count(), optim.update_counts()[0]
+    counts = cuda_build.launch_counts()
+    launches, leaves = counts["fused_radam"], counts["fused_radam.leaves"]
     n = len(optim.named_leaves(params))
     groups = [(steps, n)] if updated is None else updated(steps, params)
     want = sum(k * m for k, m in groups)
@@ -788,9 +767,11 @@ def hold_mlp(tag, requests: int, rows_per_request: int) -> int:
     ``rows_per_request`` rows: every sample of the request went through
     the kernel, none through the eager chain. Returns the launches a
     request."""
-    from indoor_nerf_tpu_torch.models import mlp_fused
+    from indoor_nerf_tpu_torch import cuda_build
 
-    launches, rows = mlp_fused.launch_count(), mlp_fused.rows_count()
+    counts = cuda_build.launch_counts()
+    launches = counts["nerf_small_fused"]
+    rows = counts["nerf_small_fused.rows"]
     if (launches < requests or launches % requests
             or rows != requests * rows_per_request):
         raise AssertionError(
@@ -803,8 +784,6 @@ def hold_mlp(tag, requests: int, rows_per_request: int) -> int:
 def phase_serving(torch) -> tuple:
     from indoor_nerf_tpu_torch import serve
     from indoor_nerf_tpu_torch.data.load import load_dataset
-    from indoor_nerf_tpu_torch.models import mlp_fused
-    from indoor_nerf_tpu_torch.ops import tent_contract as tc
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.utils.png import decode_png
 
@@ -837,17 +816,16 @@ def phase_serving(torch) -> tuple:
     ]
     torch.cuda.reset_peak_memory_stats()
     try:
-        tc.reset_launch_count()  # the serving path's run starts here
-        mlp_fused.reset_counts()
+        reset_counts()  # the serving path's run starts here
         status, _, data, dt = _request(base + "/health")
         health = json.loads(data)
         if status != 200 or health["status"] != "ok":
             raise AssertionError(f"/health answered {status} {health}")
         print(f"[d] GET /health: {status} {health} in {dt * 1e3:.1f} ms")
-        counts = [tc.launch_count()]
+        counts = [launch_counts()["tent_contract"]]
         for label, path, body in requests:
             status, ctype, data, latency = _request(base + path, body)
-            counts.append(tc.launch_count())
+            counts.append(launch_counts()["tent_contract"])
             if status != 200:
                 raise AssertionError(f"{label}: HTTP {status}")
             if ctype == "image/png":
@@ -867,7 +845,8 @@ def phase_serving(torch) -> tuple:
             print(f"[d] latency {label}: {latency * 1e3:.1f} ms round trip, "
                   f"render {render_s * 1e3:.1f} ms")
             print(f"[d] rays/s {label}: {800 * 800 / render_s:.0f}")
-        launches = tc.launch_count()  # the serving path's run ends here
+        # The serving path's run ends here.
+        launches = launch_counts()["tent_contract"]
         mlp = hold_mlp("d", len(requests), 800 * 800 * SERVE_SAMPLES)
     finally:
         srv.shutdown()
@@ -957,7 +936,7 @@ def hold_scatter(torch, tag, what, kernel, plain, args, shape) -> dict:
 
 def phase_scatter(torch) -> dict:
     """(e) table_scatter against its plain version at the training shape."""
-    from indoor_nerf_tpu_torch.cuda_build import launch_on_stream
+    from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
     from indoor_nerf_tpu_torch.ops import table_scatter as ts
     from indoor_nerf_tpu_torch.path_streams import count_reductions, training_stream
 
@@ -1004,7 +983,7 @@ def phase_scatter(torch) -> dict:
     passes = torch.zeros((n_rows, lpf, F), device=dev)
     fill_ms = cuda_ms(torch, lambda: torch.zeros_like(passes), 20)
     unpacked = torch.empty((n_rows, F * lpf), device=dev)
-    lib = ts._library()
+    lib = load_library("table_scatter").lib
     unpack_ms = cuda_ms(torch, lambda: launch_on_stream(
         lib.table_scatter_unpack, lib.table_scatter_error_string,
         "table_scatter_unpack", (("packed", passes), ("out", unpacked)),
@@ -1074,6 +1053,7 @@ def phase_fused_radam(torch) -> dict:
     """(e2) fused_radam against the eager loop at the two cells' leaf sets:
     one adaptive step bit for bit, one launch; then both timed, alternating
     (eager, kernel, kernel, eager, each the median of 4 readings)."""
+    from indoor_nerf_tpu_torch import cuda_build
     from indoor_nerf_tpu_torch.train import optim
 
     dev = torch.device("cuda:0")
@@ -1093,9 +1073,9 @@ def phase_fused_radam(torch) -> dict:
                    "nu": {n: v.clone() for n, v in state["nu"].items()},
                    "step": 100})
         lr = optim.exp_decay_lr(0.01, 250, 100)
-        optim.reset_launch_count()
+        reset_counts()
         optim.radam_update(leaves, grads, state, lr, hyper)
-        launches = optim.launch_count()
+        launches = cuda_build.launch_counts()["fused_radam"]
         optim.radam_update_plain(copies[0], grads, copies[1], lr, hyper)
         torch.cuda.synchronize()
         for n in shapes:
@@ -1141,6 +1121,7 @@ def phase_nerf_small_fused(torch) -> dict:
     each channel within KERNEL_TOL of its largest value, one launch; then
     both timed in device time (plain, kernel, kernel, plain, each the
     median of 4 readings of 3 calls), against the FMA bound."""
+    from indoor_nerf_tpu_torch import cuda_build
     from indoor_nerf_tpu_torch.models import mlp_fused
     from indoor_nerf_tpu_torch.models.mlp import init_nerf_small
     from indoor_nerf_tpu_torch.ops.encoding import sh_encode
@@ -1156,9 +1137,9 @@ def phase_nerf_small_fused(torch) -> dict:
     vf = sh_encode(dirs, degree=4).contiguous()
     keep = torch.rand(n, generator=g, device=dev) < 0.8
     with torch.inference_mode():
-        mlp_fused.reset_counts()
+        reset_counts()
         got = mlp_fused.nerf_small_fused(net, feats, vf, SERVE_SAMPLES, keep)
-        launches = mlp_fused.launch_count()
+        launches = cuda_build.launch_counts()["nerf_small_fused"]
         want = mlp_fused.nerf_small_plain(net, feats, vf, SERVE_SAMPLES, keep)
         torch.cuda.synchronize()
         errs = {}
@@ -1203,7 +1184,7 @@ def phase_training(torch, tag, flags, steps, expect, forbid=(), updated=None):
 
     args = parse_args(flags + ["--n_iters", str(steps), "--i_print", "50"])
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()  # this path's run starts here
+    reset_counts()  # this path's run starts here
     out = train(args)
     launches = launch_counts()  # ... and ends here
     radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"],
@@ -1635,32 +1616,63 @@ def phase_group_scatter(torch) -> dict:
     return flagship
 
 
-def bench_with(**block_grid):
-    """The bench step's config with ``block_grid``'s fields replaced."""
-    from indoor_nerf_tpu_torch import bench
+def _bench_config():
+    """The root bench.py's TrainConfig, built from the port's classes."""
+    from indoor_nerf_tpu_torch.models.field import FieldConfig
+    from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
+    from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
+    from indoor_nerf_tpu_torch.render.renderer import RenderConfig
+    from indoor_nerf_tpu_torch.train.step import TrainConfig
 
-    cfg = bench.bench_config()
+    bbox = 1.5
+    bb = ((-bbox,) * 3, (bbox,) * 3)
+    block_grid = BlockHashConfig(
+        bbox_min=bb[0], bbox_max=bb[1], n_levels=8, n_features_per_level=4,
+        log2_rows=13, base_resolution=16, finest_resolution=512,
+        block_size=3, gather_dtype="bfloat16", scatter_dtype="bfloat16",
+    )
+    occupancy = OccupancyConfig(
+        bbox_min=bb[0], bbox_max=bb[1], resolution=64, warmup_steps=8,
+        weighting="transmittance",
+    )
+    fc = FieldConfig(block_grid=block_grid, i_embed=3, n_importance=0)
+    rc = RenderConfig(field=fc, n_samples=64, n_importance=0,
+                      white_bkgd=True, occupancy=occupancy, n_occ_samples=32)
+    return TrainConfig(render=rc, near=2.0, far=6.0, n_rand=BENCH_RAYS)
+
+
+def _bench_batch(n_rand: int = BENCH_RAYS, bbox: float = 1.5):
+    """The root bench.py's numpy ray batch from seed 0."""
+    rng = np.random.default_rng(0)
+    d = rng.normal(size=(n_rand, 3))
+    o = 4.0 * d / np.linalg.norm(d, axis=-1, keepdims=True)
+    aim = rng.uniform(-bbox, bbox, size=(n_rand, 3))
+    dirs = aim - o
+    return {
+        "rays_o": o.astype(np.float32),
+        "rays_d": (dirs / np.linalg.norm(dirs, axis=-1, keepdims=True)
+                   ).astype(np.float32),
+        "target": rng.uniform(size=(n_rand, 3)).astype(np.float32),
+    }
+
+
+def bench_with(**block_grid):
+    """The root bench's config with ``block_grid``'s fields replaced."""
+    cfg = _bench_config()
     fc = cfg.render.field
     return dataclasses.replace(cfg, render=dataclasses.replace(
         cfg.render, field=dataclasses.replace(fc, block_grid=dataclasses.replace(
             fc.block_grid, **block_grid))))
 
 
-def phase_group_timing(torch) -> None:
-    """(m) The bench step with and without grouping, in alternating windows."""
-    alternating_step_ms(torch, "m", {"ungrouped": bench_with(),
-                                     "grouped": bench_with(ray_groups=GROUPS)})
-
-
 def alternating_step_ms(torch, tag, configs) -> dict:
-    """The bench step under each of two ``configs`` ``{name: cfg}``, in
-    eight alternating windows of TIMED_STEPS steps (a, b, b, a, twice) after
-    a warm-up of as many: ms a step of each window, printed."""
-    from indoor_nerf_tpu_torch import bench
+    """The root bench's step under each of two ``configs`` ``{name: cfg}``,
+    in eight alternating windows of TIMED_STEPS steps (a, b, b, a, twice)
+    after a warm-up of as many: ms a step of each window, printed."""
     from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
 
     dev = torch.device("cuda:0")
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in bench.bench_batch().items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _bench_batch().items()}
     runs = {}
     for name, cfg in configs.items():
         state = init_train_state(torch.Generator(device=dev).manual_seed(0),
@@ -1683,7 +1695,7 @@ def alternating_step_ms(torch, tag, configs) -> dict:
             raise AssertionError(f"{name} bench step: non-finite loss")
     print(f"[{tag}] bench step, {TIMED_STEPS} steps per window, alternating: "
           + "; ".join(f"{k} {', '.join(f'{v:.3f}' for v in vs)} ms/step "
-                      f"({bench.N_RAND / (sum(vs) / len(vs)) * 1e3:.0f} rays/s)"
+                      f"({BENCH_RAYS / (sum(vs) / len(vs)) * 1e3:.0f} rays/s)"
                       for k, vs in ms.items()))
     return ms
 
@@ -1792,7 +1804,7 @@ def phase_lane_select(torch) -> dict:
     dev = torch.device("cuda:0")
     g0 = torch.Generator(device=dev).manual_seed(7)
     stats = {}
-    lg.reset_launch_count()
+    reset_counts()
     for label, N, k in (("corners", 4096 * 32 * 16, 8), ("full", 32768, 128)):
         values = torch.randn((N, lg.LANES), generator=g0, device=dev)
         g = torch.randn((N, k), generator=g0, device=dev)
@@ -1856,8 +1868,9 @@ def phase_lane_select(torch) -> dict:
         torch.cuda.empty_cache()
     # No path of either package runs lane_select: its launches are this
     # phase's own.
+    counts = launch_counts()
     for name in lg.KERNELS:
-        stats[name]["launches"] = lg.launch_count(name)
+        stats[name]["launches"] = counts[name]
     return stats
 
 
@@ -1895,7 +1908,7 @@ def phase_tile_render(torch) -> None:
         torch.cuda.empty_cache()
         tiles[name] = default_tile_rays(dev, rc)
         torch.cuda.reset_peak_memory_stats()
-        reset_launch_counts()
+        reset_counts()
         out[name] = make_image_renderer(rc, H, W)(params, c2w, K, scene.near,
                                                   scene.far, occ)
         torch.cuda.synchronize()
@@ -2032,14 +2045,15 @@ def phase_bake(torch, flags, state, scene) -> int:
     fc = build_train_config(parse_args(flags), scene).render.field
     cams = serve.train_cameras(scene)
     kw = dict(table_dtype="bfloat16", geo_resolution=-1, train_cameras=cams)
-    tc.reset_launch_count()
+    reset_counts()
     got = bake_field(state["params"], fc, resolution=32, **kw)
-    small_launches = tc.launch_count()
+    small_launches = launch_counts()["tent_contract"]
     with mock.patch.object(blockhash, "tent_contract", tc.tent_contract_plain):
         want = bake_field(state["params"], fc, resolution=32, **kw)
-    if small_launches <= 0 or tc.launch_count() != small_launches:
+    plain_launches = launch_counts()["tent_contract"] - small_launches
+    if small_launches <= 0 or plain_launches:
         raise AssertionError(f"32^3 bake: {small_launches} launches, the plain "
-                             f"bake {tc.launch_count() - small_launches}")
+                             f"bake {plain_launches}")
     report = []
     for key in ("sigma_table", "voxel_geo"):
         g, w = got[key].float(), want[key].float()
@@ -2059,12 +2073,12 @@ def phase_bake(torch, flags, state, scene) -> int:
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tc.reset_launch_count()  # the bake's run starts here
+    reset_counts()  # the bake's run starts here
     t0 = time.perf_counter()
     baked = bake_field(state["params"], fc, resolution=BAKE_RES, **kw)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = tc.launch_count()  # ... and ends here
+    launches = launch_counts()["tent_contract"]  # ... and ends here
     tables = ", ".join(
         f"{k} {tuple(v.shape)} {str(v.dtype)[6:]} {nbytes(v) / 1e6:.1f} MB"
         for k, v in baked.items() if torch.is_tensor(v))
@@ -2088,7 +2102,6 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
     """(u) baked serving beside online serving; returns the tent_contract
     launches of the baked requests."""
     from indoor_nerf_tpu_torch import profile_step, serve
-    from indoor_nerf_tpu_torch.ops import tent_contract as tc
     from indoor_nerf_tpu_torch.ops.rays import get_rays
     from indoor_nerf_tpu_torch.render import baked as bk
 
@@ -2124,7 +2137,7 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
     ms, maps, peak = {}, {}, {}
     for name in ("online", "baked", "guided4", "guided4", "baked", "online"):
         if name == "baked":
-            tc.reset_launch_count()  # the baked path's run starts here
+            reset_counts()  # the baked path's run starts here
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         for c2w in poses:
@@ -2132,7 +2145,7 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
             ms.setdefault(name, []).append(dt * 1e3)
             maps.setdefault(name, []).append(out["rgb_map"])
         if name == "baked":
-            launches = tc.launch_count()  # ... and ends here
+            launches = launch_counts()["tent_contract"]  # ... and ends here
         peak[name] = (torch.cuda.max_memory_allocated() - resident) / 2**30
     for name, rgbs in maps.items():
         if not all(np.all(np.isfinite(r)) and r.shape == (size, size, 3)
@@ -2254,7 +2267,7 @@ def train_from_files(torch, tag, argv, kernels=("tent_contract", "table_scatter"
 
     evals = {}
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()  # this path's run starts here
+    reset_counts()  # this path's run starts here
     with counting_evals(evals):
         out, text = quietly(run_nerf.main, argv)
     launches = launch_counts()  # ... and ends here
@@ -2296,7 +2309,7 @@ def render_test(flags):
     own launch window: (result, every kernel's launches)."""
     from indoor_nerf_tpu_torch import run_nerf
 
-    reset_launch_counts()
+    reset_counts()
     out, _ = quietly(run_nerf.main, flags + ["--render_only", "--render_test"])
     return out, launch_counts()
 
@@ -2659,7 +2672,7 @@ def phase_pe(torch, workdir) -> dict:
     params = serving_params(out["state"]["params"], rc.field)
     resident = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     maps = make_image_renderer(rc, int(H), int(W), tile)(
         params, scene.poses[scene.i_test[0]], K, scene.near, scene.far)
@@ -2749,7 +2762,7 @@ def phase_parity_serving(torch, flags, workdir) -> dict:
         if step != PARITY_STEPS or "UNTRAINED" in text:
             raise AssertionError(f"[y5] served step {step}: {text}")
         tiles[size] = int(text.split(" in tiles of ")[1].split()[0])
-        reset_launch_counts()
+        reset_counts()
         resident = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         ms[size], maps[size] = request_ms(torch, render, poses)
@@ -2762,7 +2775,7 @@ def phase_parity_serving(torch, flags, workdir) -> dict:
         snap = os.path.join(workdir, f"y5_snapshot_{res}.pt")
         baked, bake_s, build_s = parity_baked(flags, res, snapshot=snap)
         name = "baked" if res == BAKE_RES else f"baked_{res}"
-        reset_launch_counts()
+        reset_counts()
         ms[name], maps[name] = request_ms(torch, baked, poses)
         launches[f"parity_{name}_serving"] = launch_counts()
         quality[res] = view_psnrs(maps[name], maps[REQUEST_SIZE])
@@ -2853,14 +2866,13 @@ def phase_precision(torch) -> None:
     batch, alternating windows) and an 800x800 request (alternating) at each
     precision, in this process."""
     from indoor_nerf_tpu_torch import serve
-    from indoor_nerf_tpu_torch.bench import bench_batch
     from indoor_nerf_tpu_torch.data.load import load_dataset
     from indoor_nerf_tpu_torch.train.config import parse_args
     from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
     from indoor_nerf_tpu_torch.train.trainer import build_train_config
 
     dev = torch.device("cuda:0")
-    batch = {k: torch.from_numpy(v).to(dev) for k, v in bench_batch().items()}
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _bench_batch().items()}
     cfgs, states = {}, {}
     for prec in ("f32", "bf16"):
         cli = parse_args(SERVE_FLAGS + ["--precision", prec])
@@ -3344,13 +3356,13 @@ def phase_extensions(torch, prior_flags) -> dict:
         raise AssertionError(f"[sp4] served step {step}: {text}")
     scene = load_dataset(parse_args(prior_flags))
     scene_poses = scene.poses[scene.i_test]
-    reset_launch_counts()
+    reset_counts()
     ms, online = request_ms(torch, render, scene_poses[:1])
     serving = launch_counts()["tent_contract"]
     del render
     torch.cuda.empty_cache()
     baked, bake_s, _ = parity_baked(prior_flags, BAKE_RES)
-    reset_launch_counts()
+    reset_counts()
     baked_ms, baked_maps = request_ms(torch, baked, scene_poses[:1])
     baked_launches = launch_counts()["tent_contract"]
     del baked
@@ -3580,7 +3592,7 @@ def phase_int8(torch) -> dict:
     bg = cfg.render.field.block_grid
     L, R, F = bg.n_levels, bg.rows_per_level, bg.n_features_per_level
     table = out["state"]["params"]["table"].detach()
-    reset_launch_counts()
+    reset_counts()
     packed = blockhash.gather_table(table, bg)
     plain = tc.pack_rows_plain(tc.dequantize_int8_plain(table, L), F,
                                torch.float32)
@@ -3678,7 +3690,7 @@ def phase_acaq_serving(torch, flags, state, logdir) -> int:
     if step != AQ_STEPS + 1 or "UNTRAINED" in text:
         raise AssertionError(f"[aq4] served step {step}")
     pose = scene.poses[scene.i_test[0]]
-    reset_launch_counts()
+    reset_counts()
     ms, served = request_ms(torch, render, [pose])
     launches = launch_counts()["tent_contract"]
     del render
@@ -3992,7 +4004,7 @@ def phase_fit(torch, ap) -> dict:
         views[-1].update(view_ms=ms, view=launches)
         return res
 
-    reset_launch_counts()
+    reset_counts()
     with mock.patch.object(appearance, "fit_view_latent", fit), \
             mock.patch.object(appearance, "eval_view_with_fitted_latent",
                               evaluate):
@@ -4082,7 +4094,7 @@ def phase_appearance_serving(torch, ap, workdir) -> dict:
     (render, step, _), text = quietly(serve.build, argparse.Namespace(
         width=W, height=H, train_args=["--"] + ap["flags"]))
     tile = int(text.split("in tiles of ")[1].split()[0])
-    reset_launch_counts()
+    reset_counts()
     ms, served = request_ms(torch, render, [pose])
     online = launch_counts()["tent_contract"]
     del render
@@ -4094,7 +4106,7 @@ def phase_appearance_serving(torch, ap, workdir) -> dict:
     (baked_render, _, _), _ = quietly(serve.build, argparse.Namespace(
         width=W, height=H, baked=True, baked_res=BAKE_RES, snapshot=snap,
         train_args=["--"] + ap["flags"]))
-    reset_launch_counts()
+    reset_counts()
     baked_ms, baked = request_ms(torch, baked_render, [pose])
     baked_launches = launch_counts()["tent_contract"]
     del baked_render
@@ -4117,128 +4129,6 @@ def phase_appearance_serving(torch, ap, workdir) -> dict:
                              f"baked {errs}")
     return {"serving_appearance": online,
             "baked_serving_appearance": baked_launches}
-
-
-def loop_seconds(torch, args, read_every_step: bool) -> float:
-    """The trainer's bare step loop, for timing against trainer.train in
-    one process: each step's loss and PSNR stay on the card and only an
-    --i_print step reads them (the loop before the metrics came in), or,
-    with ``read_every_step``, each step's are read one step late as
-    trainer.train and the JAX trainer read them (a pinned copy and an event
-    per step, waited on after the next step is queued). Returns the loop's
-    seconds, closed by a synchronize (trainer.train's ``seconds``)."""
-    from indoor_nerf_tpu_torch.data.load import load_dataset
-    from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
-    from indoor_nerf_tpu_torch.train.step import init_train_state, train_step
-    from indoor_nerf_tpu_torch.train.trainer import build_train_config
-
-    scene = load_dataset(args)
-    H, W, _ = scene.hwf
-    cfg = build_train_config(args, scene)
-    device = torch.device(args.device)
-    state = init_train_state(torch.Generator(device=device).manual_seed(args.seed),
-                             cfg, device)
-    gen = torch.Generator(device=device).manual_seed(args.seed + 1)
-    sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                                scene.K, args.N_rand, seed=args.seed)
-    losses, pending = [], None
-    t0 = time.perf_counter()
-    for i in range(1, args.n_iters + 1):
-        b = sampler.next()
-        batch = {k: torch.from_numpy(b[k]).to(device, non_blocking=True)
-                 for k in ("rays_o", "rays_d", "target")}
-        state, metrics = train_step(state, batch, cfg, gen)
-        if read_every_step:
-            if pending is not None:
-                pending[1].synchronize()
-                losses.append(pending[0].tolist())
-            done = torch.cuda.Event()
-            vals = torch.stack([metrics["loss"], metrics["psnr"]]).to(
-                "cpu", non_blocking=True)
-            done.record()
-            pending = (vals, done)
-        else:
-            losses.append(metrics["loss"])
-        if i % args.i_print == 0 or i == args.n_iters:
-            print(f"[TRAIN] Iter: {i} Loss: {float(metrics['loss']):.6f} "
-                  f"PSNR: {float(metrics['psnr']):.3f} lr: {metrics['lr']:.3e}")
-    torch.cuda.synchronize(device)
-    return time.perf_counter() - t0
-
-
-def phase_loop_timing(torch) -> None:
-    """(x) phase (f)'s configuration, 200 steps, through trainer.train and
-    through the loop's two earlier forms (``loop_seconds``), in the order
-    earlier, per-step read, new, new, per-step read, earlier."""
-    from indoor_nerf_tpu_torch.train.config import parse_args
-    from indoor_nerf_tpu_torch.train.trainer import train
-
-    args = parse_args(SERVE_FLAGS + ["--n_iters", str(LOOP_STEPS),
-                                     "--i_print", "50"])
-    runs = []
-    for form in ("earlier", "per_step", "new", "new", "per_step",
-                 "earlier") * LOOP_ROUNDS:
-        if form == "new":
-            seconds = quietly(train, args)[0]["seconds"]
-        else:
-            seconds = quietly(loop_seconds, torch, args, form == "per_step")[0]
-        runs.append((form, LOOP_STEPS / seconds))
-    rate = {f: [s for g, s in runs if g == f]
-            for f in ("earlier", "per_step", "new")}
-    med = {f: float(np.median(v)) for f, v in rate.items()}
-    print(f"[x] the trainer's loop, windows of {LOOP_STEPS} flagship steps "
-          f"of {args.N_rand} rays, steps/s in order "
-          f"{[(f, round(s, 2)) for f, s in runs]}; medians (min-max): "
-          + "; ".join(f"{f} {med[f]:.2f} ({min(v):.2f}-{max(v):.2f})"
-                      for f, v in rate.items())
-          + f"; trainer.train (each step read one step late) "
-          f"{med['new'] / med['earlier']:.3f} of the earlier loop, every "
-          f"step read one step late {med['per_step'] / med['earlier']:.3f}")
-    print(f"[x] the samplers' host time per batch: {sampler_ms(args)}")
-
-
-def sampler_ms(args) -> dict:
-    """Host ms of one batch of each ray sampler: the shuffled pool at
-    ``args``' scene and N_rand, the image sampler (every view's rays made)
-    at 1024 rays of 400x400 views with lego_tpu's precrop, and its replay of
-    a step (``skip``); the mean of 200 calls over steps 0-995."""
-    from indoor_nerf_tpu_torch.data.load import load_dataset
-    from indoor_nerf_tpu_torch.data.pipeline import (
-        BatchedRaySampler,
-        ImageRaySampler,
-    )
-
-    scene = load_dataset(args)
-    H, W, _ = scene.hwf
-    pool = BatchedRaySampler(scene.images, scene.poses, scene.i_train, H, W,
-                             scene.K, args.N_rand)
-    rng = np.random.default_rng(0)
-    images = rng.random((16, 400, 400, 3), dtype=np.float32)
-    K = np.array([[500.0, 0, 200], [0, 500.0, 200], [0, 0, 1]])
-    per_image = ImageRaySampler(images, np.tile(np.eye(4, dtype=np.float32),
-                                                 (16, 1, 1)), np.arange(16),
-                                400, 400, K, 1024, precrop_iters=500)
-    for i in range(16):  # every view's rays made, as after the first steps
-        per_image._rays_for(i)
-    out = {}
-    for name, fn in ((f"pool, {args.N_rand} rays", lambda i: pool.next()),
-                     ("per image, 1024 rays", per_image.next),
-                     # A resume's replay of the image sampler: the draws of
-                     # a step without its rays (in and past the precrop).
-                     ("per image, replayed step", per_image.skip)):
-        fn(0)
-        t0 = time.perf_counter()
-        for i in range(200):
-            fn(i * 5)  # steps 0-995: in the precrop up to 500, then not
-        out[name] = round((time.perf_counter() - t0) / 200 * 1e3, 4)
-    return out
-
-
-def phase_bench(torch) -> None:
-    """(h) The training benchmark's JSON line."""
-    from indoor_nerf_tpu_torch import bench
-
-    print(f"[h] {json.dumps(bench.run())}")
 
 
 def free_port() -> int:
@@ -4369,7 +4259,7 @@ def phase_tp_local(torch) -> dict:
                 return fs, gs
 
             torch.cuda.synchronize()
-            reset_launch_counts()  # this case's m local encodes start here
+            reset_counts()  # this case's m local encodes start here
             fs, gs = local_pass()
             launches = launch_counts()  # ... and end here
             equal = bool(torch.equal(torch.cat(fs, 1), f_full))
@@ -4438,7 +4328,7 @@ def phase_sharded_render(torch, md) -> dict:
 
     want = served()
     torch.cuda.synchronize()
-    reset_launch_counts()  # the sharded render's launches start here
+    reset_counts()  # the sharded render's launches start here
     got = mesh_render()
     torch.cuda.synchronize()
     launches = launch_counts()  # ... and end here
@@ -4497,7 +4387,7 @@ def _md4_rank(rank, rdv, job_path, out_path):
                      for k, v in job["batch"].items()}
             state = shard_state(state_from_numpy(job["tree"], dev), mesh)
             step = make_sharded_train_step(job["cfg"], mesh)
-            reset_launch_counts()
+            reset_counts()
             state, m = step(state, batch, draws={
                 k: v.to(dev) for k, v in job["draws"].items()})
             torch.cuda.synchronize()
@@ -4619,14 +4509,12 @@ def main() -> int:
     trained, flat_launches = phase_training(
         torch, "f", SERVE_FLAGS, TRAIN_STEPS, ("tent_contract", "table_scatter"))
     phase_step_check(torch, "g", SERVE_FLAGS, trained["state"])
-    phase_bench(torch)
     grouped = phase_group_scatter(torch)
     trained, group_launches = phase_training(
         torch, "j", GROUP_FLAGS, TRAIN_STEPS, ("tent_contract", "group_scatter"))
     phase_step_check(torch, "k", GROUP_FLAGS, trained["state"])
     _, stride_launches = phase_training(
         torch, "l", STRIDE_FLAGS, STRIDED_STEPS, ("tent_contract", "table_scatter"))
-    phase_group_timing(torch)
     tile = phase_tile_interp(torch)
     lane = phase_lane_select(torch)
     trained, tile_launches = phase_training(
@@ -4702,8 +4590,6 @@ def main() -> int:
         del md["state"]
     torch.cuda.empty_cache()
     int8_launches, int8_pack_ms = phase_int8(torch)
-    torch.cuda.empty_cache()
-    phase_loop_timing(torch)
     # "launches" is the count of the path of its slice that runs the
     # kernel (grouped training for tent_contract and group_scatter, strided
     # training for table_scatter, tile-interp training for the tile_interp

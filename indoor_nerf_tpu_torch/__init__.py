@@ -36,8 +36,8 @@ The slices ported so far:
   occupancy-guided sampling -> block-hash encode (the hand-written
   ``tent_contract`` CUDA kernel, ``csrc/``) -> NeRFSmall -> compositing,
   forward only under ``torch.inference_mode``;
-- the flagship training step (``train/step.py``, ``train/trainer.py``,
-  ``bench.py``): the same forward with jittered draws, MSE + entropy +
+- the flagship training step (``train/step.py``, ``train/trainer.py``):
+  the same forward with jittered draws, MSE + entropy +
   block TV, the encode backward (the hand-written ``table_scatter`` CUDA
   kernel), RAdam and the occupancy-grid refresh;
 - the ray-structured encodes of that step (``--ray_groups``, whose

@@ -36,13 +36,12 @@ from __future__ import annotations
 import ctypes
 import itertools
 import math
-import threading
 from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
+from indoor_nerf_tpu_torch.cuda_build import count, launch_on_stream, load_library
 from indoor_nerf_tpu_torch.models.mlp import NeRFSmall, apply_nerf_small
 
 # The widths the kernel is built for (csrc/nerf_small_fused.cu), one
@@ -187,27 +186,6 @@ def nerf_small_plain(net: NeRFSmall, feats: torch.Tensor,
     return mask_sigma(apply_nerf_small(net, feats, views), keep)
 
 
-_LOCK = threading.Lock()
-_launches = 0
-_rows = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_counts``."""
-    return _launches
-
-
-def rows_count() -> int:
-    """Rows the kernel computed since the last ``reset_counts``."""
-    return _rows
-
-
-def reset_counts() -> None:
-    global _launches, _rows
-    with _LOCK:
-        _launches = _rows = 0
-
-
 def _check(name: str, t: torch.Tensor, dtype: torch.dtype,
            shape: Tuple[int, ...]) -> None:
     if t.dtype != dtype:
@@ -247,61 +225,39 @@ def nerf_small_fused(net: NeRFSmall, feats: torch.Tensor,
     if n == 0:
         return out
     pack = packed(net)
-    lib = _library()
+    lib = load_library("nerf_small_fused", check_layout).lib
     launch_on_stream(lib.nerf_small_fused, lib.nerf_small_fused_error_string,
                      "nerf_small_fused",
                      (("feats", feats), ("vf", vf), ("keep", keep),
                       ("pack", pack), ("out", out)),
                      n, samples, input_ch, views, int(net.predict_normals),
                      align=16)
-    global _launches, _rows
-    with _LOCK:
-        _launches += 1
-        _rows += n
+    count("nerf_small_fused.rows", n)
     return out
 
 
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared and the
-    pack layout of each of its instantiations checked against
-    ``pack_layout``'s."""
-    global _lib
-    if _lib is None:
-        lib = load_library("nerf_small_fused").lib
-        lib.nerf_small_fused.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_longlong] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-        lib.nerf_small_fused.restype = ctypes.c_int
-        lib.nerf_small_fused_error_string.argtypes = [ctypes.c_int]
-        lib.nerf_small_fused_error_string.restype = ctypes.c_char_p
-        lib.nerf_small_fused_layout.argtypes = [ctypes.c_int] * 3 + [
-            ctypes.c_void_p, ctypes.c_int]
-        lib.nerf_small_fused_layout.restype = ctypes.c_int
-        lib.nerf_small_fused_blocks_per_sm.argtypes = [ctypes.c_int] * 3
-        lib.nerf_small_fused_blocks_per_sm.restype = ctypes.c_int
-        values = (ctypes.c_int * 16)()
-        for input_ch, views, normals in itertools.product(
-                SUPPORTED_INPUTS, SUPPORTED_VIEWS, (True, False)):
-            count = lib.nerf_small_fused_layout(input_ch, views, int(normals),
-                                                values, 16)
-            # Every offset is named, the normal net's too; then the size.
-            offsets, _ = pack_offsets(input_ch, views, True)
-            _, size = pack_offsets(input_ch, views, normals)
-            if list(values[:count]) != offsets + [size]:
-                raise RuntimeError(
-                    "csrc/nerf_small_fused.cu's pack layout differs from "
-                    f"models/mlp_fused.py's at input {input_ch}, views "
-                    f"{views}, normals {normals}")
-        _lib = lib
-    return _lib
+def check_layout(lib) -> None:
+    """Raise unless the pack layout of each of the built library's
+    instantiations is ``pack_offsets``'."""
+    values = (ctypes.c_int * 16)()
+    for input_ch, views, normals in itertools.product(
+            SUPPORTED_INPUTS, SUPPORTED_VIEWS, (True, False)):
+        n = lib.nerf_small_fused_layout(input_ch, views, int(normals),
+                                        values, 16)
+        # Every offset is named, the normal net's too; then the size.
+        offsets, _ = pack_offsets(input_ch, views, True)
+        _, size = pack_offsets(input_ch, views, normals)
+        if list(values[:n]) != offsets + [size]:
+            raise RuntimeError(
+                "csrc/nerf_small_fused.cu's pack layout differs from "
+                f"models/mlp_fused.py's at input {input_ch}, views "
+                f"{views}, normals {normals}")
 
 
 def blocks_per_sm(input_ch: int, views: int, normals: bool) -> int:
     """The kernel's blocks resident on one SM of the current device."""
-    n = _library().nerf_small_fused_blocks_per_sm(input_ch, views,
-                                                  int(normals))
+    lib = load_library("nerf_small_fused", check_layout).lib
+    n = lib.nerf_small_fused_blocks_per_sm(input_ch, views, int(normals))
     if n < 1:
         raise RuntimeError(f"nerf_small_fused fits no block on an SM ({n})")
     return n

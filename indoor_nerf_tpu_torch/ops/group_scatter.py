@@ -62,7 +62,6 @@ row takes one group).
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Sequence
 
 import torch
@@ -72,20 +71,6 @@ from indoor_nerf_tpu_torch.ops.constants import device_constant
 from indoor_nerf_tpu_torch.ops.table_scatter import cot_rows, unpack_grad
 
 MAX_LEVELS = 32  # the kernel's level table
-
-_LOCK = threading.Lock()
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count`` (not plain calls)."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    with _LOCK:
-        _launches = 0
 
 
 def merged_rows(g: torch.Tensor, p: torch.Tensor, groups: Sequence[int],
@@ -163,11 +148,10 @@ def _c_groups(groups):
     return (ctypes.c_int * len(groups))(*(int(G) for G in groups))
 
 
-def _scatter(launcher, name, g, tensors, groups, n_rows, side, lpf, dtype,
+def _scatter(launcher, g, tensors, groups, n_rows, side, lpf, dtype,
              *hash_args) -> torch.Tensor:
     """Zero-fill the packed buffer, launch ``launcher`` over ``(g, *tensors,
-    packed)``, un-pack; counts one launch."""
-    global _launches
+    packed)``, un-pack. Both forms count as ``group_scatter``."""
     Rn, S, LF = g.shape
     L = len(groups)
     F = LF // L
@@ -179,13 +163,12 @@ def _scatter(launcher, name, g, tensors, groups, n_rows, side, lpf, dtype,
     if g.data_ptr() % 16:
         g = g.clone()  # the kernel loads a member's features as one vector
     packed = torch.zeros((n_rows, lpf, F), dtype=torch.float32, device=g.device)
+    lib = load_library("group_scatter").lib
     launch_on_stream(
-        launcher, _library().group_scatter_error_string, name,
+        getattr(lib, launcher), lib.group_scatter_error_string, "group_scatter",
         (("g", g), *tensors, ("packed", packed)),
         Rn, S, L, F, lpf, side, n_rows, _c_groups(groups), *hash_args,
         int(dtype == torch.bfloat16))
-    with _LOCK:
-        _launches += 1
     return unpack_grad(packed)
 
 
@@ -203,8 +186,8 @@ def group_scatter(g: torch.Tensor, row: torch.Tensor, p: torch.Tensor,
         return group_scatter_plain(g, row, p, groups, n_rows, side, lpf, dtype)
     if g.device.type != "cuda":
         raise ValueError(f"group_scatter runs on cpu or cuda, not {g.device}")
-    return _scatter(_library().group_scatter, "group_scatter", g,
-                    (("p", p), ("row", row)), groups, n_rows, side, lpf, dtype)
+    return _scatter("group_scatter", g, (("p", p), ("row", row)), groups,
+                    n_rows, side, lpf, dtype)
 
 
 def _check_anchored(g, v0, w, level_ids, groups, n_rows, side, lpf, dtype,
@@ -244,8 +227,7 @@ def group_scatter_anchored(g: torch.Tensor, v0: torch.Tensor, w: torch.Tensor,
     only: it launches the kernels or raises."""
     _check_anchored(g, v0, w, level_ids, groups, n_rows, side, lpf, dtype,
                     log2_rows, primes)
-    return _scatter(_library().group_scatter_anchored,
-                    "group_scatter_anchored", g,
+    return _scatter("group_scatter_anchored", g,
                     (("v0", v0), ("w", w), ("level_ids", level_ids)), groups,
                     n_rows, side, lpf, dtype, log2_rows, _c_primes(primes))
 
@@ -263,7 +245,7 @@ def anchor_coords(v0: torch.Tensor, w: torch.Tensor, level_ids: torch.Tensor,
     row = torch.empty((Rn, S, L), dtype=torch.int32, device=v0.device)
     p = torch.empty((Rn, S, L, 3), dtype=torch.float32, device=v0.device)
     if row.numel():
-        lib = _library()
+        lib = load_library("group_scatter").lib
         launch_on_stream(
             lib.group_anchor_coords, lib.group_scatter_error_string,
             "group_anchor_coords",
@@ -271,29 +253,3 @@ def anchor_coords(v0: torch.Tensor, w: torch.Tensor, level_ids: torch.Tensor,
              ("p", p)),
             Rn, S, L, side, _c_groups(groups), log2_rows, _c_primes(primes))
     return row, p
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = load_library("group_scatter").lib
-        ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-        groups = ctypes.POINTER(ctypes.c_int)
-        primes = ctypes.POINTER(ctypes.c_uint)
-        lib.group_scatter.argtypes = [ptr] * 4 + [
-            i64, i32, i32, i32, i32, i32, i64, groups, i32, ptr]
-        lib.group_scatter_anchored.argtypes = [ptr] * 5 + [
-            i64, i32, i32, i32, i32, i32, i64, groups, i32, primes, i32, ptr]
-        lib.group_anchor_coords.argtypes = [ptr] * 5 + [
-            i64, i32, i32, i32, groups, i32, primes, ptr]
-        for fn in (lib.group_scatter, lib.group_scatter_anchored,
-                   lib.group_anchor_coords):
-            fn.restype = ctypes.c_int
-        lib.group_scatter_error_string.argtypes = [ctypes.c_int]
-        lib.group_scatter_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

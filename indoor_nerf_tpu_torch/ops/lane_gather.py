@@ -31,31 +31,12 @@ row.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Dict
-
 import torch
 
 from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
 
 LANES = 128
 KERNELS = ("lane_select_fwd", "lane_select_grad")
-
-_LOCK = threading.Lock()
-_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-
-def launch_count(kernel: str) -> int:
-    """Launches of ``kernel`` (one of ``KERNELS``) since the last
-    ``reset_launch_count`` (plain calls do not count)."""
-    return _launches[kernel]
-
-
-def reset_launch_count() -> None:
-    with _LOCK:
-        for k in KERNELS:
-            _launches[k] = 0
 
 
 def lane_select_plain(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -87,15 +68,13 @@ def _check(values_shape, idx: torch.Tensor, other: torch.Tensor,
 
 def _launch(kernel: str, tensors, N: int, k: int) -> None:
     """Launch ``kernel`` over ``tensors`` (its arguments in C order) or
-    raise; counts the launch."""
+    raise."""
     device = tensors[0][1].device
     if device.type != "cuda":  # before the build: nothing is built for it
         raise ValueError(f"{kernel} runs on cpu or cuda, not {device}")
-    lib = _library()
+    lib = load_library("lane_gather").lib
     launch_on_stream(getattr(lib, kernel), lib.lane_gather_error_string,
                      kernel, tensors, N, k, align=16)
-    with _LOCK:
-        _launches[kernel] += 1
 
 
 def lane_select_fwd(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -149,22 +128,3 @@ def lane_select(values: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     f32, ``idx`` ``[N, k]`` int32 in ``[0, 128)`` -> ``[N, k]`` with
     ``out[i, j] = values[i, idx[i, j]]``, differentiable in ``values``."""
     return _LaneSelect.apply(values, idx)
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = load_library("lane_gather").lib
-        for name in KERNELS:
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.lane_gather_error_string.argtypes = [ctypes.c_int]
-        lib.lane_gather_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

@@ -42,27 +42,10 @@ rounding of the sums, not bitwise.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
 from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
 from indoor_nerf_tpu_torch.ops.tent_contract import tent_factors
-
-_LOCK = threading.Lock()
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count`` (not plain calls)."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    with _LOCK:
-        _launches = 0
 
 
 def cot_rows(g: torch.Tensor, p: torch.Tensor, side: int,
@@ -114,7 +97,6 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
     """``(g [M, F] f32, p [M, 3] f32, flat_row [M] int32) -> [n_rows, F*lpf]``
     f32 table gradient. CPU tensors: plain version. CUDA tensors: the kernels
     (a zero-fill, the scatter into the packed buffer, the un-pack)."""
-    global _launches
     _check(g, p, flat_row, n_rows, side, lpf, dtype)
     if g.device.type == "cpu":
         return table_scatter_plain(g, p, flat_row, n_rows, side, lpf, dtype)
@@ -128,14 +110,12 @@ def table_scatter(g: torch.Tensor, p: torch.Tensor, flat_row: torch.Tensor,
         raise ValueError(f"M={M} exceeds one launch's grid")
     if g.data_ptr() % 16:
         g = g.clone()  # the kernel loads a row of g as one vector
-    lib = _library()
+    lib = load_library("table_scatter").lib
     packed = torch.zeros((n_rows, lpf, F), dtype=torch.float32, device=g.device)
     launch_on_stream(
         lib.table_scatter, lib.table_scatter_error_string, "table_scatter",
         (("g", g), ("p", p), ("flat_row", flat_row), ("packed", packed)),
         M, F, lpf, side, n_rows, int(dtype == torch.bfloat16))
-    with _LOCK:
-        _launches += 1
     return unpack_grad(packed)
 
 
@@ -144,7 +124,7 @@ def unpack_grad(packed: torch.Tensor) -> torch.Tensor:
     of a scatter (this one's or ``ops/group_scatter.py``'s) -> the gradient
     in the master's layout ``[n_rows, F*lpf]``."""
     n_rows, lpf, F = packed.shape
-    lib = _library()
+    lib = load_library("table_scatter").lib
     out = torch.empty((n_rows, F * lpf), dtype=torch.float32,
                       device=packed.device)
     launch_on_stream(
@@ -152,24 +132,3 @@ def unpack_grad(packed: torch.Tensor) -> torch.Tensor:
         "table_scatter_unpack", (("packed", packed), ("out", out)),
         n_rows, F, lpf)
     return out
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = load_library("table_scatter").lib
-        lib.table_scatter.argtypes = [ctypes.c_void_p] * 4 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
-        lib.table_scatter.restype = ctypes.c_int
-        lib.table_scatter_unpack.argtypes = [ctypes.c_void_p] * 2 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        lib.table_scatter_unpack.restype = ctypes.c_int
-        lib.table_scatter_error_string.argtypes = [ctypes.c_int]
-        lib.table_scatter_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

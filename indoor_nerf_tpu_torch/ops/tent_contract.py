@@ -45,27 +45,10 @@ upgrade (ROADMAP.md, Queue 3).
 
 from __future__ import annotations
 
-import ctypes
-import threading
-
 import torch
 
 from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
 from indoor_nerf_tpu_torch.ops.constants import device_constant
-
-_LOCK = threading.Lock()
-_launches = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count`` (not plain calls)."""
-    return _launches
-
-
-def reset_launch_count() -> None:
-    global _launches
-    with _LOCK:
-        _launches = 0
 
 
 def lanes_per_feature(side: int) -> int:
@@ -130,7 +113,7 @@ def pack_rows(table: torch.Tensor, F: int,
     packed = torch.empty((n_rows, lpf, F), dtype=dtype, device=table.device)
     if n_rows == 0:
         return packed
-    lib = _library()
+    lib = load_library("tent_contract").lib
     fn = (lib.tent_pack_rows_bf16 if dtype == torch.bfloat16
           else lib.tent_pack_rows_f32)
     launch_on_stream(fn, lib.tent_contract_error_string, "pack_rows",
@@ -187,7 +170,7 @@ def pack_rows_int8(table: torch.Tensor, F: int, n_levels: int) -> torch.Tensor:
     if n_rows == 0:
         return packed
     scale = int8_level_scales(table, n_levels)
-    lib = _library()
+    lib = load_library("tent_contract").lib
     launch_on_stream(lib.tent_pack_rows_int8, lib.tent_contract_error_string,
                      "pack_rows_int8",
                      (("table", table), ("scale", scale), ("packed", packed)),
@@ -236,7 +219,6 @@ def tent_contract(table: torch.Tensor, flat_row: torch.Tensor,
     """``(table [L*R, lpf, F] f32|bf16 packed, flat_row [M] int32, p [M, 3]
     f32) -> [M, F]`` f32. CPU tensors: plain version. CUDA tensors: the
     kernel."""
-    global _launches
     _check(table, flat_row, p, side, F)
     if table.device.type == "cpu":
         return tent_contract_plain(table, flat_row, p, side, F)
@@ -251,40 +233,11 @@ def tent_contract(table: torch.Tensor, flat_row: torch.Tensor,
         return out
     if M >= (1 << 31) * 256:
         raise ValueError(f"M={M} exceeds one launch's grid")
-    lib = _library()
+    lib = load_library("tent_contract").lib
     fn = (lib.tent_contract_bf16 if table.dtype == torch.bfloat16
           else lib.tent_contract_f32)
     launch_on_stream(
         fn, lib.tent_contract_error_string, "tent_contract",
         (("table", table), ("flat_row", flat_row), ("p", p), ("out", out)),
         M, F, table.shape[1], side, table.shape[0])
-    with _LOCK:
-        _launches += 1
     return out
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = load_library("tent_contract").lib
-        for fn in (lib.tent_contract_f32, lib.tent_contract_bf16):
-            fn.argtypes = [ctypes.c_void_p] * 4 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_longlong, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        for fn in (lib.tent_pack_rows_f32, lib.tent_pack_rows_bf16):
-            fn.argtypes = [ctypes.c_void_p] * 2 + [
-                ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.tent_pack_rows_int8.argtypes = [ctypes.c_void_p] * 3 + [
-            ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-            ctypes.c_void_p]
-        lib.tent_pack_rows_int8.restype = ctypes.c_int
-        lib.tent_contract_error_string.argtypes = [ctypes.c_int]
-        lib.tent_contract_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

@@ -34,10 +34,6 @@ open support), so the axis contributes no gradient there.
 
 from __future__ import annotations
 
-import ctypes
-import threading
-from typing import Dict
-
 import torch
 
 from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
@@ -46,21 +42,6 @@ from indoor_nerf_tpu_torch.ops.tent_contract import tent_factors, tent_weights
 LANES = 128
 SIDE = 5  # a 5^3 tile fills 125 of the 128 lanes
 KERNELS = ("tile_interp_fwd", "tile_interp_bwd_rows")
-
-_LOCK = threading.Lock()
-_launches: Dict[str, int] = dict.fromkeys(KERNELS, 0)
-
-
-def launch_count(kernel: str) -> int:
-    """Launches of ``kernel`` (one of ``KERNELS``) since the last
-    ``reset_launch_count`` (plain calls do not count)."""
-    return _launches[kernel]
-
-
-def reset_launch_count() -> None:
-    with _LOCK:
-        for k in KERNELS:
-            _launches[k] = 0
 
 
 def tile_interp_fwd_plain(rows: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -106,15 +87,13 @@ def _check(name: str, t: torch.Tensor, width: int, like: torch.Tensor) -> None:
 
 def _launch(kernel: str, tensors, M: int) -> None:
     """Launch ``kernel`` over ``tensors`` (its arguments in C order) or
-    raise; counts the launch."""
+    raise."""
     device = tensors[0][1].device
     if device.type != "cuda":  # before the build: nothing is built for it
         raise ValueError(f"{kernel} runs on cpu or cuda, not {device}")
-    lib = _library()
+    lib = load_library("tile_interp").lib
     launch_on_stream(getattr(lib, kernel), lib.tile_interp_error_string,
                      kernel, tensors, M, align=16)
-    with _LOCK:
-        _launches[kernel] += 1
 
 
 def tile_interp_fwd(rows: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -169,22 +148,3 @@ def tile_interp(rows: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     feature planes), ``p`` ``[M, 3]`` positions within the tile -> features
     ``[M, 2]``, differentiable in both."""
     return _TileInterp.apply(rows, p)
-
-
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = load_library("tile_interp").lib
-        for name in KERNELS:
-            fn = getattr(lib, name)
-            fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong,
-                                                   ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-        lib.tile_interp_error_string.argtypes = [ctypes.c_int]
-        lib.tile_interp_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib

@@ -151,15 +151,20 @@ def _sigma_interp_plain(table, row_idx, px, py, pz) -> torch.Tensor:
     return _tent_interp(table.index_select(0, row_idx), px, py, pz, 1)[:, 0]
 
 
+def _sigma_on_kernel(table) -> bool:
+    """Whether pass 1 runs ``tent_contract`` on the sigma table: a float
+    table on the card. CPU tensors and int8 tables take the plain form."""
+    return table.device.type == "cuda" and table.dtype.is_floating_point
+
+
 def _sigma_interp(table, row_idx, px, py, pz) -> torch.Tensor:
     """Pass 1: the sigma tile table ``[n_blocks, 128]`` interpolated at
     in-tile positions of tile ``row_idx`` -> ``[M]`` f32.
 
-    A float table on the card is, as it lies, the packed ``[n_blocks, 128,
-    1]`` table of a side-5 tile with one feature: ``tent_contract`` reads
-    its 8 bracketing vertices (f32 weights). CPU tensors and int8 tables
-    take the plain form."""
-    if table.device.type == "cuda" and table.dtype.is_floating_point:
+    Where ``_sigma_on_kernel``, the table is, as it lies, the packed
+    ``[n_blocks, 128, 1]`` table of a side-5 tile with one feature:
+    ``tent_contract`` reads its 8 bracketing vertices (f32 weights)."""
+    if _sigma_on_kernel(table):
         return tent_contract(table.view(-1, LANES, 1), row_idx.to(torch.int32),
                              torch.stack((px, py, pz), dim=-1), SIDE, 1)[:, 0]
     return _sigma_interp_plain(table, row_idx, px, py, pz)
@@ -596,8 +601,7 @@ def baked_bytes_per_ray(baked: Dict[str, Any], n_samples: int,
     sample (the gathered row, its f32 copy and the weighted product)."""
     sigma_table, voxel_geo = baked["sigma_table"], baked["voxel_geo"]
     per_sample = 32 * 4
-    if not (sigma_table.device.type == "cuda"
-            and sigma_table.dtype.is_floating_point):
+    if not _sigma_on_kernel(sigma_table):
         per_sample += LANES * (sigma_table.element_size() + 5 * 4)
     k = n_samples if k_geo is None else min(k_geo, n_samples)
     return n_samples * per_sample + k * LANES * (voxel_geo.element_size() + 8) + 1024

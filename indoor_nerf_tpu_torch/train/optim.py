@@ -28,16 +28,14 @@ Both take their float32 scalars from ``radam_scalars``.
 
 from __future__ import annotations
 
-import ctypes
 import dataclasses
-import threading
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
-from indoor_nerf_tpu_torch.cuda_build import launch_on_stream, load_library
+from indoor_nerf_tpu_torch.cuda_build import count, launch_on_stream, load_library
 
 Leaves = Dict[str, torch.Tensor]
 
@@ -192,28 +190,6 @@ CHUNK = 4096
 MAX_LEAVES = 32
 _ADAPTIVE, _DECAY, _VECTOR = 1, 2, 4
 
-_LOCK = threading.Lock()
-_launches = 0
-_leaves_updated = 0
-_elements_updated = 0
-
-
-def launch_count() -> int:
-    """Kernel launches since the last ``reset_launch_count``."""
-    return _launches
-
-
-def update_counts() -> Tuple[int, int]:
-    """(leaves, elements) the kernel updated since the last
-    ``reset_launch_count``; a leaf counts once per step."""
-    return _leaves_updated, _elements_updated
-
-
-def reset_launch_count() -> None:
-    global _launches, _leaves_updated, _elements_updated
-    with _LOCK:
-        _launches = _leaves_updated = _elements_updated = 0
-
 
 def n_chunks(numel: int, head: int, chunk: int = CHUNK) -> int:
     """The blocks a leaf takes: the elements from ``head`` on in chunks of
@@ -356,12 +332,13 @@ def radam_update_fused(leaves: Leaves,
                        state: Dict[str, object], lr: float,
                        hyper_fn: Callable[[str], RAdamHyper]) -> None:
     """The kernel: every leaf (on one CUDA device) in one launch per
-    ``MAX_LEAVES``, on the current stream, without a synchronize."""
-    global _launches, _leaves_updated, _elements_updated
+    ``MAX_LEAVES``, on the current stream, without a synchronize. Counts
+    the leaves (once a step each) and elements it updates, as
+    ``fused_radam.leaves`` and ``fused_radam.elements``."""
     t = state["step"] + 1
     table = _leaf_table(leaves, state, hyper_fn)
     table.step(grads, leaves, t, lr)
-    lib = _library()
+    lib = load_library("fused_radam", check_geometry).lib
     device = next(iter(leaves.values())).device
     for args, _ in table.launches:
         launch_on_stream(lib.fused_radam, lib.fused_radam_error_string,
@@ -371,31 +348,15 @@ def radam_update_fused(leaves: Leaves,
     # MLP's weight pack, autograd's saved tensors) sees it.
     for p in leaves.values():
         torch.autograd.graph.increment_version(p)
-    with _LOCK:
-        _launches += len(table.launches)
-        _leaves_updated += len(table.names)
-        _elements_updated += int(table.numel.sum())
+    count("fused_radam.leaves", len(table.names))
+    count("fused_radam.elements", int(table.numel.sum()))
     state["step"] = t
 
 
-_lib = None
-
-
-def _library() -> ctypes.CDLL:
-    """The built kernel library, with every C signature declared."""
-    global _lib
-    if _lib is None:
-        lib = load_library("fused_radam").lib
-        lib.fused_radam.argtypes = [ctypes.c_void_p] * 6 + [
-            ctypes.c_int, ctypes.c_void_p]
-        lib.fused_radam.restype = ctypes.c_int
-        lib.fused_radam_error_string.argtypes = [ctypes.c_int]
-        lib.fused_radam_error_string.restype = ctypes.c_char_p
-        for fn in (lib.fused_radam_chunk, lib.fused_radam_max_leaves):
-            fn.argtypes, fn.restype = [], ctypes.c_int
-        if (lib.fused_radam_chunk(), lib.fused_radam_max_leaves()) != (
-                CHUNK, MAX_LEAVES):
-            raise RuntimeError("csrc/fused_radam.cu's kChunk, kMaxLeaves "
-                               "differ from train/optim.py's")
-        _lib = lib
-    return _lib
+def check_geometry(lib) -> None:
+    """Raise unless the built library's kChunk, kMaxLeaves are ``CHUNK``,
+    ``MAX_LEAVES``."""
+    if (lib.fused_radam_chunk(), lib.fused_radam_max_leaves()) != (
+            CHUNK, MAX_LEAVES):
+        raise RuntimeError("csrc/fused_radam.cu's kChunk, kMaxLeaves "
+                           "differ from train/optim.py's")

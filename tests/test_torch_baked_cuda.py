@@ -15,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.models.field import FieldConfig, init_field_params
 from indoor_nerf_tpu_torch.ops import blockhash
 from indoor_nerf_tpu_torch.ops import tent_contract as tc
@@ -63,13 +64,13 @@ def test_cuda_bake_sweep_matches_plain(gather_dtype, table_dtype):
     cams, _, _ = _cameras()
     kw = dict(resolution=32, table_dtype=table_dtype, blocks_per_chunk=64,
               train_cameras=cams)
-    tc.reset_launch_count()
+    reset_counts()
     got = tb.bake_field(params, fc, **kw)
-    launches = tc.launch_count()
+    launches = launch_counts()["tent_contract"]
     assert launches >= -(-33 ** 3 // (64 * 128)) + 1
     with mock.patch.object(blockhash, "tent_contract", tc.tent_contract_plain):
         want = tb.bake_field(params, fc, **kw)
-    assert tc.launch_count() == launches  # the plain bake launched nothing
+    assert launch_counts()["tent_contract"] == launches  # the plain bake launched nothing
     for key in ("sigma_table", "voxel_geo"):
         g, w = got[key].float(), want[key].float()
         # One level, or one bfloat16 step; entries near 0 are sums that
@@ -103,9 +104,9 @@ def test_cuda_baked_render_matches_cpu(table_dtype, guided):
     on_cpu["color_net"] = [{k: v.cpu() for k, v in l.items()}
                            for l in baked["color_net"]]
     kw = dict(n_samples=16 if guided else 64, guided=guided, n_coarse=32)
-    tc.reset_launch_count()
+    reset_counts()
     got = tb.make_baked_image_renderer(baked, 48, 48, **kw)(c2w, K, 2.0, 6.0)
-    assert (tc.launch_count() > 0) == (table_dtype != "int8")
+    assert (launch_counts()["tent_contract"] > 0) == (table_dtype != "int8")
     want = tb.make_baked_image_renderer(on_cpu, 48, 48, **kw)(c2w, K, 2.0, 6.0)
     tol = 2e-2 if table_dtype == "bfloat16" else 1e-4
     assert float(want["acc_map"].max()) > 0.5

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.ops import blockhash
 from indoor_nerf_tpu_torch.ops import group_scatter as gs
 from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter, table_scatter_plain
@@ -141,9 +142,9 @@ def test_members_are_summed_before_the_rounding():
 
 def test_cpu_tensors_take_the_plain_version():
     g, row, p = _inputs(2, 4, 4, 8, 4, (2, 1), 16)
-    gs.reset_launch_count()
+    reset_counts()
     out = gs.group_scatter(g, row, p, (2, 1), 32, 4, 64, torch.bfloat16)
-    assert gs.launch_count() == 0  # no kernel ran
+    assert launch_counts()["group_scatter"] == 0  # no kernel ran
     np.testing.assert_array_equal(
         out.numpy(),
         gs.group_scatter_plain(g, row, p, (2, 1), 32, 4, 64,
@@ -237,10 +238,10 @@ def _cuda_case(side, F, Rn, S, groups, R, dtype, one_row):
                                            one_row, nonneg=one_row))
     lpf = lanes_per_feature(side)
     n_rows = len(groups) * R
-    gs.reset_launch_count()
+    reset_counts()
     got = gs.group_scatter(g, row, p, groups, n_rows, side, lpf, dtype)
     torch.cuda.synchronize()
-    assert gs.launch_count() == 1
+    assert launch_counts()["group_scatter"] == 1
     want = gs.group_scatter_plain(g, row, p, groups, n_rows, side, lpf, dtype)
     return got, want
 
@@ -316,10 +317,10 @@ def test_cuda_anchored_form_matches_coords_and_plain(block_size, F, dtype,
     assert torch.equal(k_row, row) and torch.equal(k_p, p)
     on_face = ((p == 0) | (p == block_size)).any(-1).float().mean()
     assert float(on_face) > (0.5 if reach > 1 else 0.0)
-    gs.reset_launch_count()
+    reset_counts()
     got = blockhash.grouped_scatter(g, v0, w, level_ids, cfg, groups, n_rows)
     torch.cuda.synchronize()
-    assert gs.launch_count() == 1
+    assert launch_counts()["group_scatter"] == 1
     want = blockhash.grouped_scatter_plain(g, v0, w, level_ids, cfg, groups,
                                            n_rows)
     scale = float(want.abs().max())

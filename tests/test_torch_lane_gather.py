@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from indoor_nerf_tpu_torch import ops
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.ops import lane_gather as lg
 
 torch.set_num_threads(1)
@@ -86,10 +87,10 @@ def test_gradient_is_the_scatter_add():
 
 def test_cpu_tensors_take_the_plain_versions():
     values, idx, g = (T(a) for a in _inputs(2, 64, 8))
-    lg.reset_launch_count()
+    reset_counts()
     out = lg.lane_select_fwd(values, idx)
     d = lg.lane_select_grad(idx, g)
-    assert [lg.launch_count(k) for k in lg.KERNELS] == [0, 0]  # no kernel ran
+    assert [launch_counts()[k] for k in lg.KERNELS] == [0, 0]  # no kernel ran
     assert torch.equal(out, lg.lane_select_plain(values, idx))
     assert torch.equal(d, lg.lane_select_grad_plain(idx, g))
 
@@ -125,11 +126,11 @@ def test_cuda_kernels_match_plain(N, k, repeats):
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     values, idx, g = (T(a).cuda() for a in _inputs(4, N, k, repeats))
     values.requires_grad_(True)
-    lg.reset_launch_count()
+    reset_counts()
     out = lg.lane_select(values, idx)
     (d,) = torch.autograd.grad(out, values, grad_outputs=g)
     torch.cuda.synchronize()
-    assert [lg.launch_count(name) for name in lg.KERNELS] == [1, 1]
+    assert [launch_counts()[name] for name in lg.KERNELS] == [1, 1]
     assert torch.equal(out.detach(), lg.lane_select_plain(values.detach(), idx))
     want = lg.lane_select_grad_plain(idx, g)
     torch.testing.assert_close(d, want, rtol=1e-6,

@@ -12,7 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from indoor_nerf_tpu_torch.models import mlp_fused
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.models.field import (
     FieldConfig,
     encode_position,
@@ -329,12 +329,12 @@ def _parent_query(params, pts, dirs, fc, step=None, view_bias=None):
 def test_eager_query_field_is_the_parents_bit_for_bit(name, grad):
     fc = FIELDS[name]
     params, pts, dirs, bias = _tile(fc)
-    mlp_fused.reset_counts()
+    reset_counts()
     with torch.set_grad_enabled(grad):
         got, _ = query_field(params, "coarse", pts, dirs, fc, None, None,
                              False, bias)
         want, keep = _parent_query(params, pts, dirs, fc, view_bias=bias)
-    assert mlp_fused.launch_count() == 0
+    assert launch_counts()["nerf_small_fused"] == 0
     assert not bool(keep.all()) and bool(keep.any())
     assert got.shape == (24, 9, 7 if fc.predict_normals else 4)
     assert torch.equal(got, want)

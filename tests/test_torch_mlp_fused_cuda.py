@@ -25,6 +25,7 @@ import torch
 from unittest import mock
 
 import indoor_nerf_tpu_torch  # noqa: F401  (sets the TF32 policy)
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.models import field as field_mod
 from indoor_nerf_tpu_torch.models import mlp_fused
 from indoor_nerf_tpu_torch.models.mlp import init_nerf_small
@@ -69,6 +70,12 @@ def _net(device, normals, seed=0, dead=0, input_ch=32, views=16):
     return net
 
 
+def _counts():
+    """(nerf_small_fused launches, rows) since the last reset_counts."""
+    counts = launch_counts()
+    return counts["nerf_small_fused"], counts["nerf_small_fused.rows"]
+
+
 def _inputs(device, rays, samples, seed=0, zero_rows=0, keep_share=0.8,
             input_ch=32, views=16):
     """Features, view features (SH of degree 4 plus a latent's offset at
@@ -93,10 +100,9 @@ def _inputs(device, rays, samples, seed=0, zero_rows=0, keep_share=0.8,
 def _hold(net, feats, vf, samples, keep):
     net64 = copy.deepcopy(net).double()
     with torch.inference_mode():
-        mlp_fused.reset_counts()
+        reset_counts()
         got = nerf_small_fused(net, feats, vf, samples, keep)
-        assert mlp_fused.launch_count() == 1
-        assert mlp_fused.rows_count() == feats.shape[0]
+        assert _counts() == (1, feats.shape[0])
         want = nerf_small_plain(net, feats, vf, samples, keep)
         exact = nerf_small_plain(net64, feats.double(),
                                  None if vf is None else vf.double(),
@@ -226,13 +232,12 @@ def test_800x800_render_against_the_eager_renderer(card):
 
     cfg, params, occ, rays, far = _serving(card)
     samples = cfg.render.n_occ_samples
-    mlp_fused.reset_counts()
+    reset_counts()
     got = render_ray_tiles(params, *rays, cfg.render, 524288, occ)
-    assert (mlp_fused.launch_count(), mlp_fused.rows_count()) == (
-        2, 800 * 800 * samples)
+    assert _counts() == (2, 800 * 800 * samples)
     with mock.patch.object(field_mod, "fused_applies", return_value=False):
         want = render_ray_tiles(params, *rays, cfg.render, 524288, occ)
-    assert mlp_fused.launch_count() == 2
+    assert launch_counts()["nerf_small_fused"] == 2
     _hold_maps(got, want, far)
 
 
@@ -266,10 +271,10 @@ def test_parser_default_field_renders_through_the_kernel(card):
         # A denser field than the seeded one, so most rays meet it: the
         # sigma column positive, over hidden units that are.
         params["coarse"].sigma_net[1]["w"][:, 0].abs_().mul_(4.0)
-    mlp_fused.reset_counts()
+    reset_counts()
     with torch.inference_mode():
         got = render_ray_tiles(params, *rays, cfg.render, 32768, occ)
-    assert (mlp_fused.launch_count(), mlp_fused.rows_count()) == (
+    assert _counts() == (
         2, 200 * 200 * cfg.render.n_samples)
     with mock.patch.object(field_mod, "fused_applies", return_value=False):
         want = render_ray_tiles(params, *rays, cfg.render, 32768, occ)
@@ -296,11 +301,11 @@ def test_training_step_launches_nothing_and_repacks_after_it(card):
     state["opt"]["step"] = 10  # the parameters move in this step
     before = packed(net).clone()
     draws = draw_step(torch.Generator(device=card).manual_seed(1), cfg, 0, 1024)
-    mlp_fused.reset_counts()
+    reset_counts()
     state, m = train_step(state, batch, cfg, draws=draws)
     torch.cuda.synchronize()
     assert np.isfinite(float(m["loss"]))
-    assert mlp_fused.launch_count() == 0
+    assert launch_counts()["nerf_small_fused"] == 0
     net = state["params"]["coarse"]
     after = packed(net)
     assert not torch.equal(after, before)
@@ -331,8 +336,8 @@ def test_acaq_step_launches_nothing(card):
     assert cfg.render.field.quant.target_metric is None
     draws = draw_step(torch.Generator(device=card).manual_seed(1), cfg, 10,
                       1024)
-    mlp_fused.reset_counts()
+    reset_counts()
     state, m = train_step(state, batch, cfg, draws=draws)
     torch.cuda.synchronize()
     assert np.isfinite(float(m["loss"]))
-    assert mlp_fused.launch_count() == 0
+    assert launch_counts()["nerf_small_fused"] == 0

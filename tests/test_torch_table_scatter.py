@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from indoor_nerf_tpu_torch import cuda_build
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.ops import table_scatter as ts
 from indoor_nerf_tpu_torch.ops.tent_contract import lanes_per_feature
 
@@ -91,9 +92,9 @@ def test_collisions_accumulate_every_entry():
 
 def test_cpu_tensors_take_the_plain_version():
     g, p, flat = _inputs(2, 4, 4, 50, 2, 32)
-    ts.reset_launch_count()
+    reset_counts()
     out = ts.table_scatter(g, p, flat, 64, 4, 64, torch.bfloat16)
-    assert ts.launch_count() == 0  # no kernel ran
+    assert launch_counts()["table_scatter"] == 0  # no kernel ran
     np.testing.assert_array_equal(
         out.numpy(),
         ts.table_scatter_plain(g, p, flat, 64, 4, 64, torch.bfloat16).numpy())
@@ -169,10 +170,10 @@ def _cuda_case(side, F, N, L, R, dtype, one_row):
     g, p, flat = (t.cuda() for t in _inputs(4, side, F, N, L, R, one_row,
                                             nonneg=one_row))
     lpf = lanes_per_feature(side)
-    ts.reset_launch_count()
+    reset_counts()
     got = ts.table_scatter(g, p, flat, L * R, side, lpf, dtype)
     torch.cuda.synchronize()
-    assert ts.launch_count() == 1
+    assert launch_counts()["table_scatter"] == 1
     want = ts.table_scatter_plain(g, p, flat, L * R, side, lpf, dtype)
     return got, want
 

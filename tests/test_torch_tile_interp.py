@@ -22,6 +22,7 @@ import numpy as np
 import pytest
 import torch
 
+from indoor_nerf_tpu_torch.cuda_build import launch_counts, reset_counts
 from indoor_nerf_tpu_torch.ops import blockhash as tbh
 from indoor_nerf_tpu_torch.ops import tile_interp as ti
 
@@ -156,10 +157,10 @@ def test_rows_are_kept_only_when_p_needs_a_gradient():
 
 def test_cpu_tensors_take_the_plain_versions():
     rows, p, g = _rows_p_g(5, 50)
-    ti.reset_launch_count()
+    reset_counts()
     out = ti.tile_interp_fwd(T(rows), T(p))
     drows = ti.tile_interp_bwd_rows(T(p), T(g))
-    assert [ti.launch_count(k) for k in ti.KERNELS] == [0, 0]  # no kernel ran
+    assert [launch_counts()[k] for k in ti.KERNELS] == [0, 0]  # no kernel ran
     assert torch.equal(out, ti.tile_interp_fwd_plain(T(rows), T(p)))
     assert torch.equal(drows, ti.tile_interp_bwd_rows_plain(T(p), T(g)))
 
@@ -390,11 +391,11 @@ def test_cuda_kernels_match_plain(M):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
     rows, p, g = (T(a).cuda() for a in _rows_p_g(7, M))
-    ti.reset_launch_count()
+    reset_counts()
     out = ti.tile_interp_fwd(rows, p)
     drows = ti.tile_interp_bwd_rows(p, g)
     torch.cuda.synchronize()
-    assert [ti.launch_count(k) for k in ti.KERNELS] == [1, 1]
+    assert [launch_counts()[k] for k in ti.KERNELS] == [1, 1]
     # Forward: f32 sums in another order. d rows: the same products, no
     # contraction, so bit for bit.
     torch.testing.assert_close(out, ti.tile_interp_fwd_plain(rows, p),
@@ -409,10 +410,10 @@ def test_cuda_autograd_function_runs_both_kernels():
     rows, p, g = (T(a).cuda() for a in _rows_p_g(8, 4096, kinks=False))
     rows.requires_grad_(True)
     p.requires_grad_(True)
-    ti.reset_launch_count()
+    reset_counts()
     out = ti.tile_interp(rows, p)
     d_rows, d_p = torch.autograd.grad(out, (rows, p), grad_outputs=g)
-    assert [ti.launch_count(k) for k in ti.KERNELS] == [1, 1]
+    assert [launch_counts()[k] for k in ti.KERNELS] == [1, 1]
     cr = rows.detach().cpu().requires_grad_(True)
     cp = p.detach().cpu().requires_grad_(True)
     w_rows, w_p = torch.autograd.grad(ti.tile_interp(cr, cp), (cr, cp),

@@ -39,7 +39,6 @@ from indoor_nerf_tpu.train.optim import (
     pocketnerf_hyper_fn as j_hyper_fn,
     radam_update as j_radam_update,
 )
-from indoor_nerf_tpu_torch import bench
 from indoor_nerf_tpu_torch.bridge import state_to_numpy
 from indoor_nerf_tpu_torch.data.pipeline import BatchedRaySampler
 from indoor_nerf_tpu_torch.models.field import sigma_query
@@ -339,25 +338,3 @@ def test_trainer_names_the_loop_flags_without_effect(capsys, tmp_path):
     assert any(f.startswith("verify") and "_spiral_000001_rgb" in f
                for f in files)
 
-
-def test_bench_config_is_the_root_bench_config():
-    """The port's bench times the root bench.py's configuration."""
-    cfg = bench.bench_config()
-    bg, oc = cfg.render.field.block_grid, cfg.render.occupancy
-    assert (bg.n_levels, bg.n_features_per_level, bg.log2_rows,
-            bg.block_size, bg.gather_dtype, bg.scatter_dtype) == \
-        (8, 4, 13, 3, "bfloat16", "bfloat16")
-    assert (oc.resolution, oc.warmup_steps, oc.weighting) == \
-        (64, 8, "transmittance")
-    assert (cfg.render.n_occ_samples, cfg.n_rand, cfg.lrate) == (32, 4096, 0.01)
-    batch = bench.bench_batch(n_rand=64)
-    assert batch["rays_o"].shape == (64, 3)
-    np.testing.assert_allclose(np.linalg.norm(batch["rays_o"], axis=-1), 4.0,
-                               rtol=1e-6)
-
-
-def test_bench_exits_1_without_a_card(capsys):
-    if torch.cuda.is_available():
-        pytest.skip("a card is present: the bench would run")
-    assert bench.main() == 1
-    assert "no CUDA device" in capsys.readouterr().err
