@@ -15,8 +15,8 @@ printing any result.
   (a) device: name, torch / CUDA versions, nvidia-smi name and power limit;
   (b) build: compiles csrc/tent_contract.cu, csrc/table_scatter.cu,
       csrc/group_scatter.cu, csrc/tile_interp.cu, csrc/lane_gather.cu,
-      csrc/fused_radam.cu and csrc/nerf_small_fused.cu with nvcc for
-      sm_90a, one nvcc per source, started together;
+      csrc/fused_radam.cu, csrc/nerf_small_fused.cu and csrc/occ_sample.cu
+      with nvcc for sm_90a, one nvcc per source, started together;
   (c) tent_contract against its plain PyTorch version at the serving shapes
       (flagship side 4 / lpf 64 / F 4 over a bf16 [65536, 256] table with
       M = 16384 rays x 32 samples x 8 levels; side 5 / lpf 128 / F 2; a
@@ -53,6 +53,15 @@ printing any result.
       alternating, against the bound of 8,896 multiply-adds a row and
       1,024 a ray at the float32 FMA rate; (d) holds its launches and
       rows a request on the online server's path;
+  (e4) occ_sample against the plain chain (ops/occupancy.py) at the
+      serving tile (524,288 rays of an 800x800 view, 128 candidates, 32
+      samples, the flagship's 64^3 transmittance grid) and at a training
+      batch (1,024 rays with their draws): the samples the plain chain's
+      bit for bit, one launch; both timed in device time, alternating,
+      against the bound of the rays, draws and samples moved once and the
+      32-byte sectors of the grid the lookups touch; (d) holds 2 launches
+      and 640,000 rays a request, every training run of trainer.train
+      below one launch a step over its batch, (u) none a baked request;
   (f) training: trainer.train on the flagship CLI for 200 steps at full
       width; both kernels must launch, the loss stay finite and the mean
       loss of the last 10 steps fall below that of the first 10. Every
@@ -314,7 +323,8 @@ out is held under UNRESOLVED_SHARE. ``--step-spread N`` also runs each of
 (y2), (sp2), (aq2), (rp2) and (md1)'s step check over N batches and draws.
 
 The line before the last is {"kernels": [...]}: for each of the seven
-kernels (and fused_radam and nerf_small_fused, which replace none) its
+kernels (and fused_radam, nerf_small_fused and occ_sample, which replace
+none; occ_sample's "train_*" keys are (e4)'s training batch) its
 launches on the main path, its error and time against its plain
 version, the least time the card could take for the same work ("bound_ms":
 the larger of bytes moved once over 3.35 TB/s and operations over 67
@@ -538,7 +548,7 @@ F32_FLOPS_PER_S = 67e12
 MD_STEPS = 200
 KERNELS = ("tent_contract", "table_scatter", "group_scatter",
            "tile_interp_fwd", "tile_interp_bwd_rows", "lane_select_fwd",
-           "lane_select_grad")
+           "lane_select_grad", "occ_sample")
 
 
 def bound(n_bytes: float, n_flops: float) -> dict:
@@ -664,7 +674,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     built = build_all(["tent_contract", "table_scatter", "group_scatter",
                        "tile_interp", "lane_gather", "fused_radam",
-                       "nerf_small_fused"])
+                       "nerf_small_fused", "occ_sample"])
     print(f"[b] built {len(built)} kernels in parallel in "
           f"{time.perf_counter() - t0:.2f} s")
     for name, lib in built.items():
@@ -781,6 +791,24 @@ def hold_mlp(tag, requests: int, rows_per_request: int) -> int:
     return launches // requests
 
 
+def hold_occ_sample(tag, units: int, rays_per_unit: int) -> int:
+    """Since the last reset_counts, ``units`` requests or training steps
+    each took the same number of occ_sample launches, at least one, over
+    ``rays_per_unit`` rays: every ray was sampled by the kernel, none by
+    the plain chain. Returns the launches a unit."""
+    from indoor_nerf_tpu_torch import cuda_build
+
+    counts = cuda_build.launch_counts()
+    launches, rays = counts["occ_sample"], counts["occ_sample.rays"]
+    if (launches < units or launches % units
+            or rays != units * rays_per_unit):
+        raise AssertionError(
+            f"[{tag}] occ_sample: {launches} launches over {rays} rays in "
+            f"{units} units (want a launch a tile or step and "
+            f"{rays_per_unit} rays a unit)")
+    return launches // units
+
+
 def phase_serving(torch) -> tuple:
     from indoor_nerf_tpu_torch import serve
     from indoor_nerf_tpu_torch.data.load import load_dataset
@@ -848,6 +876,7 @@ def phase_serving(torch) -> tuple:
         # The serving path's run ends here.
         launches = launch_counts()["tent_contract"]
         mlp = hold_mlp("d", len(requests), 800 * 800 * SERVE_SAMPLES)
+        occ = hold_occ_sample("d", len(requests), 800 * 800)
     finally:
         srv.shutdown()
         srv.server_close()
@@ -857,8 +886,9 @@ def phase_serving(torch) -> tuple:
     peak = torch.cuda.max_memory_allocated()
     print(f"[d] main path: {launches} tent_contract launches over 3 renders, "
           f"nerf_small_fused {mlp} a render over {800 * 800 * SERVE_SAMPLES} "
-          f"rows; peak device memory {peak / 2**30:.2f} GiB")
-    return launches, mlp
+          f"rows, occ_sample {occ} a render over {800 * 800} rays; peak "
+          f"device memory {peak / 2**30:.2f} GiB")
+    return launches, mlp, occ
 
 
 def phase_render_check(torch) -> None:
@@ -1175,6 +1205,97 @@ def phase_nerf_small_fused(torch) -> dict:
             "blocks_per_sm": blocks, **least}
 
 
+# (e4): the serving tile and a training batch of the flagship sampler.
+OCC_TILE, OCC_TRAIN_RAYS = 524288, 1024
+
+
+def phase_occ_sample(torch) -> dict:
+    """(e4) occ_sample against the plain chain at the serving tile (rays of
+    an 800x800 view of the flagship scene) and at a training batch with
+    its draws: each one launch, the samples the plain chain's bit for bit;
+    then both timed in device time (plain, kernel, kernel, plain, each the
+    median of 4 readings of 5 calls) against the bound of the bytes moved
+    once: the rays' 32 B, the draws, the samples, and the 32-byte sectors
+    of the grid the tile's lookups touch."""
+    from indoor_nerf_tpu_torch import cuda_build
+    from indoor_nerf_tpu_torch.data.load import load_dataset
+    from indoor_nerf_tpu_torch.ops import occupancy as oc
+    from indoor_nerf_tpu_torch.ops.sampling import draw_pdf_u
+    from indoor_nerf_tpu_torch.render.renderer import pose_rays
+    from indoor_nerf_tpu_torch.train.config import parse_args
+    from indoor_nerf_tpu_torch.train.trainer import build_train_config
+
+    dev = torch.device("cuda:0")
+    cli = parse_args(SERVE_FLAGS)
+    scene = load_dataset(cli)
+    rc = build_train_config(cli, scene).render
+    config, samples = rc.occupancy, rc.n_occ_samples
+    g = torch.Generator(device=dev).manual_seed(17)
+    # A grid of scattered occupied cells, as a trained room's: most empty.
+    r = torch.rand(config.n_cells, generator=g, device=dev)
+    occ = {"density": torch.where(r < 0.08, 60.0 * r, torch.zeros_like(r))}
+    H = W = 800
+    focal = scene.hwf[2] * (W / scene.hwf[1])
+    K = torch.tensor([[focal, 0, 0.5 * W], [0, focal, 0.5 * H], [0, 0, 1]],
+                     dtype=torch.float32, device=dev)
+    c2w = torch.as_tensor(scene.poses[scene.i_test[0]][:3, :4],
+                          dtype=torch.float32, device=dev)
+    ro, rd, _, near, far = pose_rays(c2w[None], K, H, W, scene.near,
+                                     scene.far, rc)
+    n = OCC_TRAIN_RAYS
+    cases = {"serving_tile": (ro[:OCC_TILE], rd[:OCC_TILE], near[:OCC_TILE],
+                              far[:OCC_TILE], None, None, None),
+             "training_batch": (
+                 ro[:n], rd[:n], near[:n], far[:n],
+                 torch.rand((n, config.n_candidates), generator=g, device=dev),
+                 draw_pdf_u(g, n, samples), 5000)}
+    out = {"bound_by": "bytes"}
+    with torch.inference_mode():
+        for label, (ro_, rd_, near_, far_, t_rand, u, step) in cases.items():
+            rays = ro_.shape[0]
+            fns = {"kernel": lambda: oc.occupancy_z_vals(
+                       ro_, rd_, near_, far_, occ, config, samples, step,
+                       t_rand=t_rand, u=u),
+                   "plain": lambda: oc.occupancy_z_vals_plain(
+                       ro_, rd_, near_, far_, occ, config, samples, step,
+                       t_rand=t_rand, u=u)}
+            reset_counts()
+            got = fns["kernel"]()
+            launches = cuda_build.launch_counts()["occ_sample"]
+            differ = int((got != fns["plain"]()).sum())
+            z, _ = oc.candidate_densities(ro_, rd_, near_, far_, occ, config,
+                                          t_rand)
+            cells = oc._cell_index(
+                ro_[..., None, :] + rd_[..., None, :] * z[..., :, None],
+                config)
+            sectors = int(torch.unique(cells // 8).numel())
+            del z, cells
+            draws = nbytes(*(t for t in (t_rand, u) if t is not None))
+            least = bound(rays * 32 + draws + nbytes(got) + 32 * sectors, 0)
+            if launches != 1 or differ:
+                raise AssertionError(f"[e4] {label}: {launches} launches, "
+                                     f"{differ} samples differ from the "
+                                     f"plain chain's")
+            times = [float(np.median(device_ms(torch, fns[k], 5)))
+                     for k in ("plain", "kernel", "kernel", "plain")]
+            ms, plain_ms = (times[1] + times[2]) / 2, (times[0] + times[3]) / 2
+            print(f"[e4] occ_sample {label}: {rays} rays x "
+                  f"{config.n_candidates} candidates -> {samples} samples, "
+                  f"{config.weighting}, {launches} launch, the plain chain's "
+                  f"samples bit for bit; kernel {ms:.4f} ms ({times[1]:.4f}, "
+                  f"{times[2]:.4f}), plain chain {plain_ms:.4f} ms "
+                  f"({times[0]:.4f}, {times[3]:.4f}) device time; the "
+                  f"lookups touch {sectors} sectors of the grid; bound "
+                  f"{least['bound_ms']:.4f} ms ({least['bound_by']}), "
+                  f"{100 * least['bound_ms'] / ms:.1f}% of it")
+            key = "" if label == "serving_tile" else "train_"
+            out.update({f"{key}ms": ms, f"{key}plain_ms": plain_ms,
+                        f"{key}rays": rays, f"{key}grid_sectors": sectors,
+                        f"{key}bound_ms": least["bound_ms"]})
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_training(torch, tag, flags, steps, expect, forbid=(), updated=None):
     """(f), (j), (l), (p): ``steps`` steps through trainer.train, the CLI's
     entry point; every kernel in ``expect`` must launch, none in ``forbid``;
@@ -1189,6 +1310,8 @@ def phase_training(torch, tag, flags, steps, expect, forbid=(), updated=None):
     launches = launch_counts()  # ... and ends here
     radam = hold_optimizer(tag, len(out["losses"]), out["state"]["params"],
                            updated)
+    if hold_occ_sample(tag, len(out["losses"]), args.N_rand) != 1:
+        raise AssertionError(f"[{tag}] occ_sample: not one launch a step")
     losses = np.asarray(out["losses"])
     first, last = float(losses[:10].mean()), float(losses[-10:].mean())
     steps_s = steps / out["seconds"]
@@ -1914,7 +2037,8 @@ def phase_tile_render(torch) -> None:
         torch.cuda.synchronize()
         peaks[name] = torch.cuda.max_memory_allocated() / 2**30
         ran = {k: v for k, v in launch_counts().items() if v}
-        want = {"tile_interp_fwd"} if name == "tile_interp" else {"tent_contract"}
+        want = {"tile_interp_fwd" if name == "tile_interp" else "tent_contract",
+                "occ_sample"}  # both routes sample through the grid
         if set(ran) != want:
             raise AssertionError(f"{name} route render launched {ran}")
     for k in ("rgb_map", "depth_map"):
@@ -2098,9 +2222,10 @@ def phase_bake(torch, flags, state, scene) -> int:
     return launches
 
 
-def phase_baked_requests(torch, flags, scene, basedir) -> int:
+def phase_baked_requests(torch, flags, scene, basedir) -> tuple:
     """(u) baked serving beside online serving; returns the tent_contract
-    launches of the baked requests."""
+    and the occ_sample launches of the baked requests (the baked renderer
+    samples its own tiles: no occ_sample launch)."""
     from indoor_nerf_tpu_torch import profile_step, serve
     from indoor_nerf_tpu_torch.ops.rays import get_rays
     from indoor_nerf_tpu_torch.render import baked as bk
@@ -2145,7 +2270,8 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
             ms.setdefault(name, []).append(dt * 1e3)
             maps.setdefault(name, []).append(out["rgb_map"])
         if name == "baked":
-            launches = launch_counts()["tent_contract"]  # ... and ends here
+            counts = launch_counts()  # ... and ends here
+            launches, occ = counts["tent_contract"], counts["occ_sample"]
         peak[name] = (torch.cuda.max_memory_allocated() - resident) / 2**30
     for name, rgbs in maps.items():
         if not all(np.all(np.isfinite(r)) and r.shape == (size, size, 3)
@@ -2169,6 +2295,8 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
             f"{GUIDED_PSNR_GAP} dB of baked)")
     if launches <= 0:
         raise AssertionError("baked requests launched no tent_contract kernel")
+    if occ:
+        raise AssertionError(f"baked requests launched occ_sample {occ} times")
     if min(quality["baked"]) < BAKED_PSNR_FLOOR:
         raise AssertionError(f"baked vs online PSNR {quality['baked']}")
     if min(g - b for g, b in zip(quality["guided4"], quality["baked"])) \
@@ -2225,7 +2353,7 @@ def phase_baked_requests(torch, flags, scene, basedir) -> int:
     if not (scale > 0 and err <= PASS1_RTOL * scale):
         raise AssertionError(f"pass 1 kernel vs plain {err} > {PASS1_RTOL} x "
                              f"{scale}")
-    return launches
+    return launches, occ
 
 
 def ckpt_files(logdir):
@@ -4030,7 +4158,8 @@ def phase_fit(torch, ap) -> dict:
     if set(saved) != {"views", "mean_zero", "mean_fitted"} or \
             len(views) != len(saved["views"]) or not views:
         raise AssertionError(f"[ap2] {saved}")
-    if any(n for k, n in total.items() if k != "tent_contract") or \
+    if any(n for k, n in total.items()
+           if k not in ("tent_contract", "occ_sample")) or \
             any(v["fit"]["tent_contract"] <= 0 for v in views):
         raise AssertionError(f"[ap2] launches {total}")
 
@@ -4501,11 +4630,12 @@ def main() -> int:
         return 0
     phase_build()
     tent = phase_kernel(torch)
-    serve_launches, serve_mlp = phase_serving(torch)
+    serve_launches, serve_mlp, serve_occ = phase_serving(torch)
     phase_render_check(torch)
     scatter = phase_scatter(torch)
     radam = phase_fused_radam(torch)
     mlp = phase_nerf_small_fused(torch)
+    occ_sample = phase_occ_sample(torch)
     trained, flat_launches = phase_training(
         torch, "f", SERVE_FLAGS, TRAIN_STEPS, ("tent_contract", "table_scatter"))
     phase_step_check(torch, "g", SERVE_FLAGS, trained["state"])
@@ -4530,7 +4660,8 @@ def main() -> int:
         bake_launches = phase_bake(torch, run_flags, state, scene)
         del state
         torch.cuda.empty_cache()
-        baked_launches = phase_baked_requests(torch, run_flags, scene, basedir)
+        baked_launches, baked_occ = phase_baked_requests(torch, run_flags,
+                                                         scene, basedir)
     torch.cuda.empty_cache()
     phase_precision(torch)
     torch.cuda.empty_cache()
@@ -4579,7 +4710,7 @@ def main() -> int:
               f"{t3 - t2:.1f}, ap3 {time.perf_counter() - t3:.1f}")
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
-        phase_nerfacto(torch, workdir)
+        nf = phase_nerfacto(torch, workdir)
         print(f"[nf3] seconds: nf1-nf3 {time.perf_counter() - t0:.1f}")
         torch.cuda.empty_cache()
         md = phase_multihost(torch, workdir, files)
@@ -4698,6 +4829,14 @@ def main() -> int:
          "source": csrc + "nerf_small_fused.cu", "replaces": None,
          "launches": serve_mlp,
          "launches_by_path": {"serving (a request)": serve_mlp}, **mlp},
+        {"name": "occ_sample", "route": "cuda",
+         "source": csrc + "occ_sample.cu", "replaces": None,
+         "launches": serve_occ,
+         "launches_by_path": {"serving (a request)": serve_occ,
+                              **by_path("occ_sample"),
+                              "baked_serving": baked_occ,
+                              "training_nerfacto": nf["training"]["occ_sample"]},
+         **occ_sample},
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),

@@ -77,6 +77,12 @@ SIGNATURES: Dict[str, Dict[str, str]] = {
         "nerf_small_fused_blocks_per_sm": "i32 i32 i32 -> i32",
         "nerf_small_fused": "ptr ptr ptr ptr ptr i64 i32 i32 i32 i32 ptr -> i32",
     },
+    "occ_sample": {
+        "occ_sample_max_candidates": "-> i32",
+        "occ_sample_max_samples": "-> i32",
+        "occ_sample": "ptr ptr ptr ptr ptr ptr ptr ptr i64 i32 i32 i32 i32 "
+                      "i32 i32 i32 ptr i32* ptr -> i32",
+    },
 }
 KINDS = {"ptr": ctypes.c_void_p, "i32": ctypes.c_int, "i64": ctypes.c_longlong,
          "i32*": ctypes.POINTER(ctypes.c_int),

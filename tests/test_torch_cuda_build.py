@@ -21,6 +21,7 @@ from indoor_nerf_tpu_torch.cuda_build import (
 )
 from indoor_nerf_tpu_torch.models.mlp import init_nerf_small
 from indoor_nerf_tpu_torch.models.mlp_fused import nerf_small_fused
+from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig, occupancy_z_vals
 from indoor_nerf_tpu_torch.ops.group_scatter import group_scatter
 from indoor_nerf_tpu_torch.ops.lane_gather import lane_select
 from indoor_nerf_tpu_torch.ops.table_scatter import table_scatter
@@ -33,7 +34,7 @@ from indoor_nerf_tpu_torch.ops.tile_interp import tile_interp
 from indoor_nerf_tpu_torch.train.optim import init_radam_state, radam_update
 
 LIBRARIES = ("tent_contract", "table_scatter", "group_scatter", "tile_interp",
-             "lane_gather", "fused_radam", "nerf_small_fused")
+             "lane_gather", "fused_radam", "nerf_small_fused", "occ_sample")
 # The C types of the extern "C" blocks, const dropped, as SIGNATURES' kinds.
 C_KINDS = {"void*": "ptr", "int": "i32", "long long": "i64", "int*": "i32*",
            "unsigned int*": "u32*", "char*": "str"}
@@ -103,6 +104,12 @@ def test_plain_calls_count_nothing():
         nerf_small_fused(net, torch.randn((M, 32), generator=g),
                          torch.randn((M // 4, 16), generator=g), 4,
                          torch.ones(M, dtype=torch.bool))
+    occ = OccupancyConfig(bbox_min=(-1.0,) * 3, bbox_max=(1.0,) * 3,
+                          resolution=4, n_candidates=16,
+                          weighting="transmittance")
+    occupancy_z_vals(torch.zeros((M, 3)), torch.randn((M, 3), generator=g),
+                     torch.full((M, 1), 0.1), torch.full((M, 1), 2.0),
+                     {"density": torch.rand(64, generator=g)}, occ, 4)
     leaves = {"table": master.clone()}
     radam_update(leaves, {"table": torch.ones_like(master)},
                  init_radam_state(leaves), 0.01)
