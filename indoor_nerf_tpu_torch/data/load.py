@@ -11,11 +11,12 @@ white-background composite, ``K`` from ``hwf`` where the loader gives none,
 bounding box (none for LINEMOD and deepvoxels, which the block-hash grid
 then refuses).
 
-Under ``--nerfacto`` the poses are normalised as nerfstudio's dataparser
-does (``normalize_poses_nerfstudio``: the camera centres' mean at the
-origin, the largest coordinate at 1; the render poses with them), the
-rays' bounds are ``--near_plane``/``--far_plane``, and the box is the
-contracted scene's, [-2, 2]^3.
+Under a proposal-chain model (``--nerfacto``, ``--mipnerf360``) the poses
+are normalised as nerfstudio's dataparser does
+(``normalize_poses_nerfstudio``: the camera centres' mean at the origin,
+the largest coordinate at 1; the render poses with them), the rays' bounds
+are ``--near_plane``/``--far_plane``, and the box is the contracted
+scene's, [-2, 2]^3.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ import dataclasses
 from typing import List, Optional, Tuple
 
 import numpy as np
+
+from indoor_nerf_tpu_torch.train.config import proposal_model
 
 
 @dataclasses.dataclass
@@ -198,7 +201,7 @@ def load_dataset(args) -> SceneData:
 
     if args.render_test:
         render_poses = np.array(poses[i_test])
-    if getattr(args, "nerfacto", False):
+    if proposal_model(args) is not None:
         poses, render_poses = normalize_poses_nerfstudio(poses, render_poses)
         near, far = args.near_plane, args.far_plane
         bounding_box = ((-2.0, -2.0, -2.0), (2.0, 2.0, 2.0))

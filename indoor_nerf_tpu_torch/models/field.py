@@ -39,6 +39,12 @@ embedding ``params["embedding_appearance"]`` (its mean in evaluation;
 and a bias-free sigma net (``ProposalField``, ``proposal_density``), are
 ``params["proposal_0"]`` and ``params["proposal_1"]``.
 
+Mip-NeRF 360 (``--mipnerf360``, ``MipNeRF360Config``): no grid; the
+integrated positional encoding of each interval's Gaussian
+(``ops/intervals.py``) feeds ``params["proposal_mlp"]``, one proposal MLP
+for both proposal levels, and ``params["nerf_mlp"]``, the NeRF MLP
+(``models/mlp.py::MipMLP``).
+
 Inside a sharded step with a model axis (the active mesh of
 ``parallel/collectives.py::mesh_context``) the grid encodes go through the
 level-sharded encode, as JAX ``encode_position`` routes them (:442-448):
@@ -68,6 +74,7 @@ from indoor_nerf_tpu_torch.models.mlp import (
     _linear,
     apply_nerf_big,
     init_linear,
+    init_mip_mlp,
     init_nerf_big,
     init_nerf_small,
 )
@@ -233,7 +240,9 @@ def params_device(params: Params) -> torch.device:
     """The device the params live on."""
     if "table" in params:
         return params["table"].device
-    return next(params["coarse"].parameters()).device
+    first = next(iter(params.values()))
+    return first.device if torch.is_tensor(first) else next(
+        first.parameters()).device
 
 
 def serving_params(params: Params, config: FieldConfig,
@@ -784,3 +793,59 @@ def nerfacto_query(params: Params, x: torch.Tensor, viewdirs: torch.Tensor,
         density = torch.where(keep, trunc_exp(raw[:, 3]), 0.0)
         rgb = torch.sigmoid(raw[:, :3])
     return density.reshape(r, s), rgb.reshape(r, s, 3)
+
+
+@dataclasses.dataclass(frozen=True)
+class MipNeRF360Config:
+    """Mip-NeRF 360's sample counts and nets (multinerf ``configs/360.gin``
+    and ``internal/models.py`` defaults): ``proposal_samples`` intervals a
+    ray at each proposal level, ``nerf_samples`` at the NeRF level; the
+    NeRF MLP ``netdepth`` x ``netwidth`` with its bottleneck and view
+    layer, the proposal MLP ``prop_netdepth`` x ``prop_netwidth``; the IPE
+    at degrees ``0 .. ipe_degrees - 1``, the direction's PE at ``0 ..
+    view_degrees - 1``; ``pixel_radius``, a ray's base radius at unit
+    depth, ``2 / sqrt(12)`` times the spacing of neighbouring pixels'
+    directions (``1 / focal``)."""
+
+    proposal_samples: Tuple[int, ...] = (64, 64)
+    nerf_samples: int = 32
+    netdepth: int = 8
+    netwidth: int = 1024
+    prop_netdepth: int = 4
+    prop_netwidth: int = 256
+    bottleneck_width: int = 256
+    views_width: int = 128
+    ipe_degrees: int = 12
+    view_degrees: int = 4
+    pixel_radius: float = 0.0
+
+    @property
+    def input_ch(self) -> int:
+        return 6 * self.ipe_degrees
+
+    @property
+    def views_ch(self) -> int:
+        return 3 + 6 * self.view_degrees
+
+
+def pixel_radius(focal: float) -> float:
+    """A camera ray's base radius at unit depth: ``2 / sqrt(12)`` of the
+    distance between neighbouring pixels' directions, ``1 / focal`` on the
+    port's rays (mip-NeRF's cone)."""
+    return float(2.0 / np.sqrt(12.0) / focal)
+
+
+def init_mipnerf360_params(generator: torch.Generator, mc: MipNeRF360Config,
+                           device=None) -> Params:
+    """Fresh Mip-NeRF 360 params: the proposal MLP (``proposal_mlp``), then
+    the NeRF MLP (``nerf_mlp``), ``he_uniform`` weights and zero biases."""
+    return {
+        "proposal_mlp": init_mip_mlp(generator, mc.prop_netdepth,
+                                     mc.prop_netwidth, mc.input_ch,
+                                     device=device),
+        "nerf_mlp": init_mip_mlp(generator, mc.netdepth, mc.netwidth,
+                                 mc.input_ch,
+                                 bottleneck_width=mc.bottleneck_width,
+                                 views_width=mc.views_width,
+                                 views_ch=mc.views_ch, device=device),
+    }

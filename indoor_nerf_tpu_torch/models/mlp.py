@@ -1,6 +1,8 @@
 """The NeRF MLPs of models/mlp.py of the JAX package as ``nn.Module``s:
 ``NeRFSmall`` (the grid encoders' net) and ``NeRFBig`` (the classic NeRF of
-the PE path, 8 x 256 with a skip at layer 4).
+the PE path, 8 x 256 with a skip at layer 4); and Mip-NeRF 360's two nets
+(``MipMLP``: multinerf ``internal/models.py``'s ``MLP`` as its ``NerfMLP``
+and ``PropMLP`` run it, which the JAX package does not have).
 
 Weights keep the JAX layout ``[in_dim, out_dim]`` (``y = x @ w``), so the
 bridge moves them across without a transpose. The state-dict keys
@@ -224,3 +226,107 @@ def apply_nerf_big(model: NeRFBig, input_pts: torch.Tensor,
         rgb = _linear(model.rgb_linear, h)
         return torch.cat([rgb, alpha], dim=-1)
     return _linear(model.output_linear, h)
+
+
+class MipMLP(nn.Module):
+    """Mip-NeRF 360's MLP (multinerf ``internal/models.py::MLP``, axis
+    basis, no normals): a trunk of biased ReLU layers (``trunk``), the
+    encoded input concatenated after the trunk's output at every ``skip``-th
+    layer but the first (after layer 4 of 8: the 6th layer reads ``W +
+    input_ch``), a density head ``softplus(w h + b - 1)`` (``density``)
+    and, for the NeRF MLP, a linear ``bottleneck``, the view layers
+    (``views``: ReLU on ``[bottleneck, view features]``) and ``rgb``, out
+    as ``1.002 sigmoid(.) - 0.001``. A proposal MLP has no colour head.
+
+    forward(x [N, input_ch], views [N, view_ch] | None) -> (density [N],
+    rgb [N, 3] | None)."""
+
+    def __init__(self, trunk, density, bottleneck=None, views=None, rgb=None):
+        super().__init__()
+        self.trunk = nn.ModuleList(trunk)
+        self.density = density
+        if rgb is not None:
+            self.bottleneck = bottleneck
+            self.views = nn.ModuleList(views)
+            self.rgb = rgb
+
+    @property
+    def has_rgb(self) -> bool:
+        return hasattr(self, "rgb")
+
+    def forward(self, x: torch.Tensor, views: Optional[torch.Tensor] = None):
+        return apply_mip_mlp(self, x, views)
+
+
+# multinerf's MLP defaults: the skip period, the density's bias, the rgb
+# padding.
+MIP_SKIP = 4
+MIP_DENSITY_BIAS = -1.0
+MIP_RGB_PADDING = 0.001
+
+
+def _he_linear(generator: torch.Generator, in_dim: int, out_dim: int,
+               device=None) -> nn.ParameterDict:
+    """multinerf's ``he_uniform`` Dense: ``w ~ U(+-sqrt(6 / fan_in))``
+    ``[in_dim, out_dim]``, ``b = 0``."""
+    bound = float(np.sqrt(6.0 / in_dim))
+    u = torch.rand((in_dim, out_dim), generator=generator,
+                   dtype=torch.float32, device=device)
+    return nn.ParameterDict({
+        "w": nn.Parameter(u * (2 * bound) - bound),
+        "b": nn.Parameter(torch.zeros(out_dim, device=device))})
+
+
+def mip_trunk_widths(depth: int, width: int, input_ch: int) -> list:
+    """``(in, out)`` of each trunk layer, then the width the heads read."""
+    dims, cur = [], input_ch
+    for i in range(depth):
+        dims.append((cur, width))
+        cur = width + (input_ch if i % MIP_SKIP == 0 and i > 0 else 0)
+    return dims + [cur]
+
+
+def init_mip_mlp(generator: torch.Generator, depth: int, width: int,
+                 input_ch: int, bottleneck_width: Optional[int] = None,
+                 views_width: int = 128, views_ch: int = 0,
+                 device=None) -> MipMLP:
+    """A fresh ``MipMLP`` (``he_uniform`` weights, zero biases): the
+    proposal MLP without ``bottleneck_width``, the NeRF MLP with it and
+    one view layer (multinerf's ``net_depth_viewdirs``)."""
+    dims = mip_trunk_widths(depth, width, input_ch)
+    trunk = [_he_linear(generator, i, o, device) for i, o in dims[:-1]]
+    head = dims[-1]
+    density = _he_linear(generator, head, 1, device)
+    if bottleneck_width is None:
+        return MipMLP(trunk, density)
+    bottleneck = _he_linear(generator, head, bottleneck_width, device)
+    views = [_he_linear(generator, bottleneck_width + views_ch, views_width,
+                        device)]
+    rgb = _he_linear(generator, views_width, 3, device)
+    return MipMLP(trunk, density, bottleneck, views, rgb)
+
+
+def _affine(p: nn.ParameterDict, x: torch.Tensor) -> torch.Tensor:
+    """``b + x @ w`` in one GEMM with the bias as its addend."""
+    return torch.addmm(p["b"], x, p["w"])
+
+
+def apply_mip_mlp(model: MipMLP, x: torch.Tensor,
+                  views: Optional[torch.Tensor] = None):
+    """Forward ``MipMLP`` (its docstring)."""
+    h = x
+    for i, layer in enumerate(model.trunk):
+        h = torch.relu(_affine(layer, h))
+        if i % MIP_SKIP == 0 and i > 0:
+            h = torch.cat([h, x], dim=-1)
+    density = torch.nn.functional.softplus(
+        _affine(model.density, h)[:, 0] + MIP_DENSITY_BIAS)
+    if not model.has_rgb:
+        return density, None
+    h = _affine(model.bottleneck, h)
+    if views is not None:
+        h = torch.cat([h, views], dim=-1)
+    for layer in model.views:
+        h = torch.relu(_affine(layer, h))
+    rgb = torch.sigmoid(_affine(model.rgb, h))
+    return density, rgb * (1.0 + 2.0 * MIP_RGB_PADDING) - MIP_RGB_PADDING

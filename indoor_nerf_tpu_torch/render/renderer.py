@@ -3,8 +3,9 @@
 ``render_rays`` runs the occupancy-guided single pass (the flagship), the
 stratified single pass (``n_importance == 0``), the hierarchical one
 (stratified coarse samples, then ``n_importance`` more drawn from the
-coarse weights, and the fine net on all of them) or, with ``nerfacto``,
-nerfacto's proposal chain (``render/proposal.py``). Full images are rendered
+coarse weights, and the fine net on all of them) or, with ``chain``, a
+proposal-chain model's render (nerfacto, Mip-NeRF 360:
+``render/proposal.py``). Full images are rendered
 as a Python loop over ray tiles in place of the JAX ``lax.map``, tiles
 sized from the card's free memory and the config (``bytes_per_ray``).
 Serving draws no random numbers: ``test_mode`` sets ``perturb = 0`` and no
@@ -21,10 +22,7 @@ import numpy as np
 import torch
 
 from indoor_nerf_tpu_torch.models.field import (
-    APPEARANCE_DIM,
-    PROPOSAL_HIDDEN,
     FieldConfig,
-    NerfactoConfig,
     params_device,
     query_field,
     serving_params,
@@ -66,17 +64,28 @@ class RenderConfig:
     ndc: bool = False
     occupancy: Optional[OccupancyConfig] = None
     n_occ_samples: int = 64
-    nerfacto: Optional[NerfactoConfig] = None
+    # A proposal-chain model (render/proposal.py's ProposalChain).
+    chain: Optional[proposal.ProposalChain] = None
 
     def test_mode(self) -> "RenderConfig":
         """Test-time variant: no jitter, no sigma noise."""
         return dataclasses.replace(self, perturb=0.0, raw_noise_std=0.0)
 
+    def for_camera(self, K) -> "RenderConfig":
+        """The config for the rays of a camera of intrinsics ``K`` (a chain
+        whose samples read the pixel's footprint takes its focal
+        length)."""
+        if self.chain is None:
+            return self
+        chain = self.chain.for_camera(K)
+        return self if chain is self.chain else dataclasses.replace(
+            self, chain=chain)
+
 
 def _draw_shapes(config: RenderConfig, n_rays: int) -> Dict[str, Tuple[int, int]]:
     """The draws a render of ``n_rays`` rays takes under ``config``."""
-    if config.nerfacto is not None:
-        return (proposal.draw_shapes(config.nerfacto, n_rays)
+    if config.chain is not None:
+        return (config.chain.draw_shapes(n_rays)
                 if config.perturb != 0.0 else {})
     occ = config.occupancy
     n_samples = config.n_samples if occ is None else config.n_occ_samples
@@ -107,7 +116,7 @@ def draw_render(generator: torch.Generator, n_rays: int,
     ``test_mode()`` configs."""
     out = {}
     for k, shape in _draw_shapes(config, n_rays).items():
-        if k == "t_rand" or config.nerfacto is not None:
+        if k == "t_rand" or config.chain is not None:
             out[k] = draw_stratified(generator, *shape)
         elif k == "u":
             out[k] = draw_pdf_u(generator, *shape)
@@ -149,17 +158,17 @@ def render_rays(params: Dict[str, Any], rays_o: torch.Tensor,
     fake quantizer is bypassed. ``view_bias`` ``[N, D]`` (appearance
     latents) goes to the queries of both passes.
 
-    With ``config.nerfacto`` the render is ``proposal.render_rays_proposal``
+    With ``config.chain`` the render is ``proposal.render_rays_proposal``
     (its outputs; ``quant_state`` comes back unchanged): ``step`` is None
     in evaluation, ``update_proposals`` runs the proposal fields under
-    autograd, ``camera_idx`` picks the rays' appearance embedding rows."""
+    autograd, ``camera_idx`` picks nerfacto's appearance embedding rows."""
     draws = draws or {}
     missing = sorted(set(_draw_shapes(config, rays_o.shape[0])) - set(draws))
     if missing:
         raise ValueError(f"render with perturb={config.perturb}, raw_noise_std="
                          f"{config.raw_noise_std} needs the draws {missing} "
                          "(draw_render), or a test_mode() config")
-    if config.nerfacto is not None:
+    if config.chain is not None:
         return proposal.render_rays_proposal(
             params, rays_o, rays_d, near, far, config,
             step if train else None, draws, update_proposals,
@@ -279,20 +288,6 @@ def _act_quant_bytes(fc: FieldConfig) -> int:
     return ACT_QUANT_COPIES * 4 * fc.hidden_dim
 
 
-def _nerfacto_bytes(config: RenderConfig) -> int:
-    """Device bytes one ray of a nerfacto render holds, its three passes
-    counted as if they were live together: each proposal pass's samples at
-    its hash grid's encode bytes and its sigma net's, the field's at
-    ``_sample_bytes`` and its appearance row."""
-    nc, fc = config.nerfacto, config.field
-    total = 0
-    for g, n in zip(nc.proposal_grids, nc.proposal_samples):
-        total += n * (g.n_levels * (32 + 32 + 64 * g.n_features_per_level)
-                      + 4 * (g.out_dim + 2 * PROPOSAL_HIDDEN)
-                      + SAMPLE_BYTES)
-    return total + nc.nerf_samples * (_sample_bytes(fc) + 4 * APPEARANCE_DIM)
-
-
 def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
     """Device bytes one ray of a test-mode render holds at its peak.
 
@@ -312,8 +307,8 @@ def bytes_per_ray(config: Optional[RenderConfig] = None) -> int:
     if config is None:
         return BYTES_PER_RAY
     fc = config.field
-    if config.nerfacto is not None:
-        return _nerfacto_bytes(config)
+    if config.chain is not None:
+        return config.chain.bytes_per_ray(fc)
     if fc.i_embed != 3:
         n = (config.n_occ_samples if config.occupancy is not None
              else config.n_samples + config.n_importance)
@@ -396,6 +391,7 @@ def _render_pose_block(params: Dict[str, Any], c2ws: torch.Tensor,
     (rounded bits, the calibrated levels). ``view_bias`` ``[D]`` is one
     appearance latent for every ray (JAX renderer.py:316-319); without it
     the field renders with the zero latent."""
+    config = config.for_camera(K)
     B = c2ws.shape[0]
     rays = pose_rays(c2ws, K, H, W, near, far, config)
     flat = render_ray_tiles(params, *rays, config, tile_rays, occ_state,

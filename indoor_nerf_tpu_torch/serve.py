@@ -164,9 +164,10 @@ def build(args):
     # is made once here, from the RESTORED table (valid while these params
     # are served unchanged), fake-quantized first for a quantized field.
     quant, occ = state["quant"], state["occ"]
-    if getattr(args, "baked", False) and cfg.render.nerfacto is not None:
-        raise ValueError("--baked with --nerfacto: the bake reads the "
-                         "block-hash and hash-grid fields, not nerfacto's "
+    chain = cfg.render.chain
+    if getattr(args, "baked", False) and chain is not None:
+        raise ValueError(f"--baked with --{chain.name}: the bake reads the "
+                         "block-hash and hash-grid fields, not a proposal "
                          "chain; serve it online")
     if getattr(args, "baked", False):
         # The bake reads the unquantized params, as the JAX bake does.

@@ -5,9 +5,12 @@ The port keeps its own copy of ``build_parser``, ``_read_config_file``,
 nothing of ``indoor_nerf_tpu``): every flag of the JAX package's
 ``train/config.py`` with the same name, type and default, so the
 ``configs/*.txt`` files parse to the same values, plus the flags the port
-adds: ``--device`` and nerfacto's (``--nerfacto``, which applies
+adds: ``--device``, nerfacto's (``--nerfacto``, which applies
 ``NERFACTO_PRESET`` as ``--flagship`` applies its preset, and
-``NERFACTO_FLAGS``). ``tests/test_torch_config.py`` holds the two
+``NERFACTO_FLAGS``, whose sample counts and ray bounds both proposal-chain
+models read) and Mip-NeRF 360's (``--mipnerf360``, ``MIPNERF360_PRESET``,
+``MIPNERF360_FLAGS``). ``proposal_model(args)`` names the proposal-chain
+model a parse selects. ``tests/test_torch_config.py`` holds the two
 parsers equal on every other flag. Flags of features the port does not run yet are parsed here
 and refused by ``train/trainer.py`` with the ROADMAP.md item that brings
 them.
@@ -325,17 +328,34 @@ def build_parser() -> argparse.ArgumentParser:
              "per-image appearance embedding); config-file and CLI values "
              "still win")
     add("--proposal_samples", type=str, default="256,96",
-        help="nerfacto: samples a ray of the initial spacing and of each "
-             "proposal round but the last (comma list, one per proposal "
-             "field)")
+        help="nerfacto, mipnerf360: samples a ray of the initial spacing "
+             "and of each proposal round but the last (comma list, one per "
+             "proposal level)")
     add("--nerf_samples", type=int, default=48,
-        help="nerfacto: the field's samples a ray")
+        help="nerfacto, mipnerf360: the field's samples a ray")
     add("--near_plane", type=float, default=0.05,
-        help="nerfacto: the rays' near bound (replaces the dataset's)")
+        help="nerfacto, mipnerf360: the rays' near bound (replaces the "
+             "dataset's)")
     add("--far_plane", type=float, default=1000.0,
-        help="nerfacto: the rays' far bound (replaces the dataset's)")
+        help="nerfacto, mipnerf360: the rays' far bound (replaces the "
+             "dataset's)")
     add("--proposal_log2_hashmap_size", type=int, default=17,
         help="nerfacto: log2 rows a level of the proposal fields' tables")
+    # Mip-NeRF 360 (multinerf; render/proposal.py): the NeRF MLP's depth and
+    # width are --netdepth and --netwidth.
+    add("--mipnerf360", action="store_true",
+        help="train Mip-NeRF 360 (MIPNERF360_PRESET: conical-frustum "
+             "Gaussians, their contraction and integrated encoding, one "
+             "proposal MLP at two levels and the NeRF MLP); config-file and "
+             "CLI values still win")
+    add("--prop_netdepth", type=int, default=4,
+        help="mipnerf360: the proposal MLP's layers")
+    add("--prop_netwidth", type=int, default=256,
+        help="mipnerf360: the proposal MLP's width")
+    add("--bottleneck_width", type=int, default=256,
+        help="mipnerf360: the NeRF MLP's bottleneck")
+    add("--netwidth_views", type=int, default=128,
+        help="mipnerf360: the NeRF MLP's view layer")
     # The port's device flag.
     add("--device", type=str, default="cuda",
         help="torch device the trainer and the server run on: 'cuda' (the "
@@ -390,9 +410,44 @@ NERFACTO_PRESET = {
     "sparse_loss_weight": 0.0,
     "tv_loss_weight": 0.0,
 }
-# The flags the port adds for nerfacto (read only under --nerfacto).
+# The flags the port adds for nerfacto (read only under --nerfacto; the
+# sample counts and bounds also under --mipnerf360).
 NERFACTO_FLAGS = ("nerfacto", "proposal_samples", "nerf_samples",
                   "near_plane", "far_plane", "proposal_log2_hashmap_size")
+
+
+# The Mip-NeRF 360 preset (--mipnerf360 / `mipnerf360 = True` in a config
+# file): google-research/multinerf configs/360.gin on its
+# internal/configs.py and internal/models.py defaults, on the port's flags.
+# Values are defaults, as the other presets'.
+MIPNERF360_PRESET = {
+    "N_rand": 16384,  # Config.batch_size
+    "N_importance": 0,
+    "use_viewdirs": True,
+    "netdepth": 8,  # NerfMLP.net_depth, net_width
+    "netwidth": 1024,
+    "proposal_samples": "64,64",  # Model.num_prop_samples, two levels
+    "nerf_samples": 32,  # Model.num_nerf_samples
+    "lrate": 2e-3,  # Config.lr_init (to lr_final 2e-5 over 250k steps)
+    "distortion_loss_weight": 0.01,  # Config.distortion_loss_mult
+    "sparse_loss_weight": 0.0,
+    "tv_loss_weight": 0.0,
+}
+# The flags the port adds for Mip-NeRF 360 (read only under --mipnerf360).
+MIPNERF360_FLAGS = ("mipnerf360", "prop_netdepth", "prop_netwidth",
+                    "bottleneck_width", "netwidth_views")
+# The proposal-chain models, each by its flag, and their presets.
+PROPOSAL_PRESETS = {"nerfacto": NERFACTO_PRESET,
+                    "mipnerf360": MIPNERF360_PRESET}
+
+
+def proposal_model(args) -> Optional[str]:
+    """The proposal-chain model ``args`` select (``"nerfacto"``,
+    ``"mipnerf360"``), or None; both at once is an error."""
+    on = [m for m in PROPOSAL_PRESETS if getattr(args, m, False)]
+    if len(on) > 1:
+        raise ValueError(f"--{on[0]} and --{on[1]}: one model at a time")
+    return on[0] if on else None
 
 
 def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
@@ -403,8 +458,9 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
         # Preset layer: weaker than config-file values, which are weaker
         # than explicit CLI flags (configargparse-style precedence).
         parser.set_defaults(**FLAGSHIP_PRESET)
-    if args.nerfacto:
-        parser.set_defaults(**NERFACTO_PRESET)
+    for model, preset in PROPOSAL_PRESETS.items():
+        if getattr(args, model):
+            parser.set_defaults(**preset)
     if args.config:
         file_values = _read_config_file(args.config)
         # Map file keys to parser actions; booleans in the file are words.
@@ -425,7 +481,8 @@ def parse_args(argv: Optional[Sequence[str]] = None) -> argparse.Namespace:
             # `flagship = True` INSIDE a config file: the preset still sits
             # below the file's own explicit values (preset < file < CLI).
             defaults = {**FLAGSHIP_PRESET, **defaults}
-        if defaults.get("nerfacto"):
-            defaults = {**NERFACTO_PRESET, **defaults}
+        for model, preset in PROPOSAL_PRESETS.items():
+            if defaults.get(model):
+                defaults = {**preset, **defaults}
         parser.set_defaults(**defaults)
     return parser.parse_args(argv)

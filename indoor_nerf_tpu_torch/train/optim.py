@@ -29,6 +29,7 @@ Both take their float32 scalars from ``radam_scalars``.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -90,6 +91,35 @@ def nerfacto_hyper_fn(name: str) -> RAdamHyper:
     """Nerfacto's one group: nerfstudio's Adam settings for its fields and
     proposal networks (eps 1e-15, no weight decay) on every leaf."""
     return RAdamHyper(eps=1e-15, weight_decay=0.0)
+
+
+# multinerf's optimizer (internal/configs.py defaults): Adam's betas and
+# eps, and the learning rate's log-linear decay and its warm-up.
+MIP_BETAS, MIP_ADAM_EPS = (0.9, 0.999), 1e-6
+MIP_LR_FINAL, MIP_MAX_STEPS = 2e-5, 250_000
+MIP_LR_DELAY_STEPS, MIP_LR_DELAY_MULT = 512, 0.01
+
+
+def mipnerf360_lr(lr_init: float, lrate_decay: int, t: int) -> float:
+    """multinerf's ``learning_rate_decay`` at step ``t``: ``log_lerp(t /
+    MIP_MAX_STEPS, lr_init, MIP_LR_FINAL)`` times the warm-up's ``mult + (1
+    - mult) sin(pi/2 clip(t / MIP_LR_DELAY_STEPS, 0, 1))``, in double, then
+    rounded to float32. ``lrate_decay`` is not read: the decay's length is
+    multinerf's (the signature is ``exp_decay_lr``'s)."""
+    f = min(max(t / MIP_MAX_STEPS, 0.0), 1.0)
+    lr = math.exp(f * (math.log(MIP_LR_FINAL) - math.log(lr_init))
+                  + math.log(lr_init))
+    w = min(max(t / MIP_LR_DELAY_STEPS, 0.0), 1.0)
+    delay = MIP_LR_DELAY_MULT + (1.0 - MIP_LR_DELAY_MULT) * math.sin(
+        0.5 * math.pi * w)
+    return float(np.float32(delay * lr))
+
+
+def mipnerf360_hyper_fn(name: str) -> RAdamHyper:
+    """Mip-NeRF 360's one group: Adam's betas (0.9, 0.999), eps 1e-6, no
+    weight decay, on every leaf."""
+    return RAdamHyper(beta1=MIP_BETAS[0], beta2=MIP_BETAS[1],
+                      eps=MIP_ADAM_EPS, weight_decay=0.0)
 
 
 def _rectified_step(h: RAdamHyper, t: int):

@@ -38,16 +38,20 @@ gate only multiplies its term. ``--use_appearance`` adds the rows of
 ``params["appearance"]`` of the batch's ``img_idx`` to its rays' view
 features (``_view_bias``).
 
-With ``render.nerfacto`` the step is nerfacto's (``_train_step_nerfacto``):
-the proposal chain's render (``render/proposal.py``), the loss MSE +
-``INTERLEVEL_LOSS_WEIGHT`` x the interlevel loss (``losses/interlevel.py``)
-+ ``distortion_loss_weight`` x the interval distortion of the field's
-weights, and RAdam at one group (``nerfacto_hyper_fn``). The proposal
-fields take part in the backward and the update only on the steps
-``proposal.update_due`` names from ``state["proposal_since"]`` (steps
-since their last update, reset by an update, one more after every step);
-on the others their leaves keep their values and moments. The step count
-of RAdam's rectifier stays the state's one counter.
+With ``render.chain`` the step is a proposal-chain model's
+(``_train_step_proposal``; nerfacto, Mip-NeRF 360): the chain's render
+(``render/proposal.py``), and the model's training, ``chain_training``
+(a ``ChainTraining``): the loss its data term (nerfacto's MSE, Mip-NeRF
+360's Charbonnier) + ``INTERLEVEL_LOSS_WEIGHT`` x the interlevel loss
+(``losses/interlevel.py``) + ``distortion_loss_weight`` x the interval
+distortion of the field's weights, the gradients clipped to its global
+norm where it names one (a scale computed and applied on the device,
+``clip_grad_norm_``), and RAdam at its one group and learning rate. The proposal levels take part in the backward and the
+update only on the steps the chain's ``update_due`` names from
+``state["proposal_since"]`` (steps since their last update, reset by an
+update, one more after every step; every step for Mip-NeRF 360); on the
+others their leaves keep their values and moments. The step count of
+RAdam's rectifier stays the state's one counter.
 
 With a ``mesh`` (``parallel/shard.py::make_sharded_train_step``) the step
 is the JAX global-view step: the batch is this data rank's share, the
@@ -67,7 +71,7 @@ from __future__ import annotations
 import copy
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -89,7 +93,6 @@ from indoor_nerf_tpu_torch.losses.priors import (
 )
 from indoor_nerf_tpu_torch.models.field import (
     init_field_params,
-    init_nerfacto_params,
     sigma_query,
 )
 from indoor_nerf_tpu_torch.ops.blockhash import block_tv_loss, draw_tv_rows
@@ -115,8 +118,11 @@ from indoor_nerf_tpu_torch.parallel.collectives import (
 from indoor_nerf_tpu_torch.render import proposal
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig, draw_render, render_rays
 from indoor_nerf_tpu_torch.train.optim import (
+    RAdamHyper,
     exp_decay_lr,
     init_radam_state,
+    mipnerf360_hyper_fn,
+    mipnerf360_lr,
     named_leaves,
     nerfacto_hyper_fn,
     pocketnerf_hyper_fn,
@@ -125,8 +131,54 @@ from indoor_nerf_tpu_torch.train.optim import (
 from indoor_nerf_tpu_torch.utils.spans import span
 
 TrainState = Dict[str, Any]
-# Nerfacto's weight of the interlevel loss (nerfstudio's interlevel_loss_mult).
+# The proposal chains' weight of the interlevel loss (nerfstudio's
+# interlevel_loss_mult, multinerf's interlevel_loss_mult).
 INTERLEVEL_LOSS_WEIGHT = 1.0
+# multinerf's guard on the clip's division (float32's epsilon).
+_CLIP_EPS = float(torch.finfo(torch.float32).eps)
+# multinerf's gradient clip and the Charbonnier padding of its data loss
+# (internal/configs.py defaults).
+MIP_GRAD_MAX_NORM = 1e-3
+MIP_CHARB_PADDING = 1e-3
+
+
+def mse_data_loss(rgb: torch.Tensor, target: torch.Tensor
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the loss's data term, the MSE the PSNR reads): the MSE twice."""
+    mse = torch.mean((rgb - target) ** 2)
+    return mse, mse
+
+
+def charbonnier_data_loss(rgb: torch.Tensor, target: torch.Tensor
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(the mean Charbonnier ``sqrt(x^2 + MIP_CHARB_PADDING^2)``, the
+    MSE)."""
+    diff = rgb - target
+    sq = diff * diff
+    return (torch.mean(torch.sqrt(sq + MIP_CHARB_PADDING ** 2)),
+            torch.mean(sq))
+
+
+@dataclasses.dataclass(frozen=True)
+class ChainTraining:
+    """How a proposal-chain model trains, beside its render chain
+    (``RenderConfig.chain``): the data term ``data_loss(rgb, target) ->
+    (term, mse)``, the learning rate ``learning_rate(lrate, lrate_decay,
+    step)``, the one optimizer group ``hyper_fn`` and the global norm the
+    gradients are clipped to (None: no clip)."""
+
+    learning_rate: Callable[[float, int, int], float]
+    hyper_fn: Callable[[str], RAdamHyper]
+    data_loss: Callable = mse_data_loss
+    grad_max_norm: Optional[float] = None
+
+
+NERFACTO_TRAINING = ChainTraining(learning_rate=exp_decay_lr,
+                                  hyper_fn=nerfacto_hyper_fn)
+MIPNERF360_TRAINING = ChainTraining(learning_rate=mipnerf360_lr,
+                                    hyper_fn=mipnerf360_hyper_fn,
+                                    data_loss=charbonnier_data_loss,
+                                    grad_max_norm=MIP_GRAD_MAX_NORM)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -169,6 +221,8 @@ class TrainConfig:
     reg_depth_tv_weight: float = 0.0
     reg_mode: str = "tv"
     reg_start_iter: int = 0
+    # A proposal-chain model's training (with ``render.chain``).
+    chain_training: Optional[ChainTraining] = None
 
 
 def default_prior_weights() -> Dict[str, float]:
@@ -232,20 +286,19 @@ def init_quant(config: TrainConfig, device=None) -> Optional[QuantState]:
 def init_train_state(generator: torch.Generator, config: TrainConfig,
                      device=None) -> TrainState:
     """Fresh train state: seeded params, zero moments, a fully occupied
-    grid, and the params EMA where ``config.ema_decay > 0``; nerfacto's
-    params and its proposal-update counter ``proposal_since`` with
-    ``render.nerfacto``."""
-    nc = config.render.nerfacto
-    if nc is not None:
-        params = init_nerfacto_params(generator, config.render.field, nc,
-                                      device)
+    grid, and the params EMA where ``config.ema_decay > 0``; a
+    proposal-chain model's params and its proposal-update counter
+    ``proposal_since`` with ``render.chain``."""
+    chain = config.render.chain
+    if chain is not None:
+        params = chain.init_params(generator, config.render.field, device)
     else:
         params = init_field_params(generator, config.render.field, device)
     occ = (init_occupancy(config.render.occupancy, device)
            if config.render.occupancy is not None else None)
     state = make_train_state(params, occ, ema=config.ema_decay > 0.0,
                              quant=init_quant(config, device))
-    if nc is not None:
+    if chain is not None:
         state["proposal_since"] = 0
     return state
 
@@ -523,28 +576,40 @@ def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                            prior_weights, mesh)
 
 
-def _train_step_nerfacto(state, batch, config, generator, draws):
-    """Nerfacto's step (the module docstring)."""
+def clip_grad_norm_(grads, max_norm: float) -> None:
+    """Scale ``grads`` (a sequence; None entries skipped) in place by
+    ``min(1, max_norm / (eps + |g|))``, ``|g|`` their global norm
+    (multinerf's ``clip_gradients``): the norm, the scale and the products
+    stay on the device, so the host does not wait."""
+    gs = [g for g in grads if g is not None]
+    norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(gs)))
+    scale = torch.clamp_max(max_norm / (norm + _CLIP_EPS), 1.0)
+    torch._foreach_mul_(gs, scale)
+
+
+def _train_step_proposal(state, batch, config, generator, draws):
+    """A proposal-chain model's step (the module docstring)."""
     rc = config.render
+    chain, training = rc.chain, config.chain_training
     step = state["step"]
     params = state["params"]
     rays_o, rays_d, target = batch["rays_o"], batch["rays_d"], batch["target"]
     if draws is None:
         draws = draw_step(generator, config, step, rays_o.shape[0])
-    update = proposal.update_due(step, state["proposal_since"])
+    update = chain.update_due(step, state["proposal_since"])
     near = config.near * torch.ones_like(rays_d[..., :1])
     far = config.far * torch.ones_like(rays_d[..., :1])
     out, _ = render_rays(params, rays_o, rays_d, None, near, far, rc,
                          step=step, draws=draws, train=True,
                          update_proposals=update,
                          camera_idx=batch.get("img_idx"))
-    img_loss = torch.mean((out["rgb_map"] - target) ** 2)
+    data_loss, img_loss = training.data_loss(out["rgb_map"], target)
     with span("interlevel"):
         interlevel = interlevel_loss(out["edges"], out["weights"],
                                      out["proposal_edges"],
                                      out["proposal_weights"])
     distortion = interval_distortion(out["edges"], out["weights"])
-    loss = (img_loss + INTERLEVEL_LOSS_WEIGHT * interlevel
+    loss = (data_loss + INTERLEVEL_LOSS_WEIGHT * interlevel
             + config.distortion_loss_weight * distortion)
     leaves = named_leaves(params)
     wrt = [k for k in leaves if update or not k.startswith("proposal_")]
@@ -553,10 +618,13 @@ def _train_step_nerfacto(state, batch, config, generator, draws):
         # zero.
         grads = torch.autograd.grad(loss, [leaves[k] for k in wrt],
                                     allow_unused=True)
-    lr = exp_decay_lr(config.lrate, config.lrate_decay, state["opt"]["step"])
+    lr = training.learning_rate(config.lrate, config.lrate_decay,
+                                state["opt"]["step"])
     with span("optimizer"):
+        if training.grad_max_norm is not None:
+            clip_grad_norm_(grads, training.grad_max_norm)
         radam_update({k: leaves[k] for k in wrt}, dict(zip(wrt, grads)),
-                     state["opt"], lr, nerfacto_hyper_fn)
+                     state["opt"], lr, training.hyper_fn)
     if update:
         proposal.count_update()
     state["proposal_since"] = (0 if update else state["proposal_since"]) + 1
@@ -571,11 +639,11 @@ def _train_step_nerfacto(state, batch, config, generator, draws):
 
 def _train_step(state, batch, config, generator, draws, prior_weights, mesh):
     rc = config.render
-    if rc.nerfacto is not None:
+    if rc.chain is not None:
         if mesh is not None:
-            raise NotImplementedError("nerfacto trains on one device: no "
-                                      "sharded step")
-        return _train_step_nerfacto(state, batch, config, generator, draws)
+            raise NotImplementedError(f"{rc.chain.name} trains on one "
+                                      "device: no sharded step")
+        return _train_step_proposal(state, batch, config, generator, draws)
     fc = rc.field
     step = state["step"]
     params = state["params"]

@@ -110,7 +110,12 @@ from indoor_nerf_tpu_torch.data.pipeline import (
     UnobservedPatchSampler,
 )
 from indoor_nerf_tpu_torch.losses.quantization import QuantConfig, flat_bits
-from indoor_nerf_tpu_torch.models.field import FieldConfig, NerfactoConfig
+from indoor_nerf_tpu_torch.models.field import (
+    FieldConfig,
+    MipNeRF360Config,
+    NerfactoConfig,
+    pixel_radius,
+)
 from indoor_nerf_tpu_torch.ops.blockhash import BlockHashConfig
 from indoor_nerf_tpu_torch.ops.encoding import HashGridConfig
 from indoor_nerf_tpu_torch.ops.occupancy import OccupancyConfig
@@ -122,9 +127,13 @@ from indoor_nerf_tpu_torch.parallel.shard import (
     shard_state,
 )
 from indoor_nerf_tpu_torch.render.path import render_path, write_video
+from indoor_nerf_tpu_torch.render.proposal import MipNeRF360Chain, NerfactoChain
 from indoor_nerf_tpu_torch.render.renderer import RenderConfig
-from indoor_nerf_tpu_torch.train.config import parse_args
+from indoor_nerf_tpu_torch.train.config import parse_args, proposal_model
 from indoor_nerf_tpu_torch.train.step import (
+    MIPNERF360_TRAINING,
+    NERFACTO_TRAINING,
+    ChainTraining,
     TrainConfig,
     draw_step,
     eval_params,
@@ -243,34 +252,47 @@ def enable_normals(args) -> None:
         args.predict_normals = True
 
 
-# What ``--nerfacto`` refuses: (flag, its value without the flag, why).
-_NERFACTO_REFUSES = (
-    ("use_occupancy", False, "the proposal chain is nerfacto's sampler"),
+# What a proposal-chain model (``--nerfacto``, ``--mipnerf360``) refuses:
+# (flag, its value without the flag, why).
+_PROPOSAL_REFUSES = (
+    ("use_occupancy", False, "the proposal chain is the model's sampler"),
     ("N_importance", 0, "the proposal chain replaces the fine pass"),
-    ("use_structural_priors", False, "nerfacto predicts no normals"),
-    ("predict_normals", False, "nerfacto predicts no normals"),
+    ("use_structural_priors", False, "the model predicts no normals"),
+    ("predict_normals", False, "the model predicts no normals"),
     ("use_quantization", False, "A-CAQ quantizes the block and hash grids "
      "of the other fields"),
     ("use_acaq", False, "A-CAQ quantizes the other fields"),
     ("ray_groups", None, "a block-hash encode option"),
     ("ray_strides", None, "a block-hash encode option"),
     ("use_pallas", False, "a block-hash encode option"),
-    ("use_appearance", False, "nerfacto has its own appearance embedding"),
+    ("use_appearance", False, "the other fields' per-image latents"),
     ("reg_views", 0, "the patches render through the other samplers"),
-    ("multihost", False, "nerfacto trains on one device (no data or model "
-     "axis yet)"),
-    ("mesh_shape", None, "nerfacto trains on one device (no data or model "
+    ("multihost", False, "the model trains on one device (no data or "
+     "model axis yet)"),
+    ("mesh_shape", None, "the model trains on one device (no data or model "
      "axis yet)"),
     ("render_baked", False, "the bake reads the other fields"),
-    ("ema_decay", 0.0, "not carried to nerfacto's step"),
-    ("table_decay_weight", 0.0, "not carried to nerfacto's step"),
-    ("freq_anneal_iters", 0, "not carried to nerfacto's field"),
-    ("view_anneal_iters", 0, "not carried to nerfacto's field"),
-    ("raw_noise_std", 0.0, "not carried to nerfacto's field"),
-    ("lindisp", False, "nerfacto has its own spacing"),
+    ("ema_decay", 0.0, "not carried to the proposal chain's step"),
+    ("table_decay_weight", 0.0, "not carried to the proposal chain's step"),
+    ("freq_anneal_iters", 0, "not carried to the model's field"),
+    ("view_anneal_iters", 0, "not carried to the model's field"),
+    ("raw_noise_std", 0.0, "not carried to the model's field"),
+    ("lindisp", False, "the model has its own spacing"),
     ("render_fit_appearance", False, "the fit trains the other fields' "
      "latents"),
 )
+# What ``--mipnerf360`` refuses besides.
+_MIPNERF360_REFUSES = (
+    ("precision", "f32", "the nets run in float32 (TF32 off)"),
+)
+
+
+def _refuse_chain(args, scene: SceneData, model: str, table) -> None:
+    for flag, off, why in table:
+        if getattr(args, flag) != off:
+            raise ValueError(f"--{model} refuses --{flag}: {why}")
+    if scene.ndc and not args.no_ndc:
+        raise ValueError(f"--{model} contracts world rays: pass --no_ndc")
 
 
 # Nerfacto's proposal fields: nerfstudio's two, 5 levels x 2 features each,
@@ -283,14 +305,10 @@ def _nerfacto_train_config(args, scene: SceneData) -> TrainConfig:
     proposal fields' on the contracted box, the chain's sample counts and
     schedule, one appearance row per training image, the rays' bounds
     ``--near_plane``/``--far_plane`` (the scene loader set them)."""
-    for flag, off, why in _NERFACTO_REFUSES:
-        if getattr(args, flag) != off:
-            raise ValueError(f"--nerfacto refuses --{flag}: {why}")
+    _refuse_chain(args, scene, "nerfacto", _PROPOSAL_REFUSES)
     if args.i_embed != 1:
         raise ValueError(f"--nerfacto runs the hash grid (--i_embed 1; got "
                          f"{args.i_embed})")
-    if scene.ndc and not args.no_ndc:
-        raise ValueError("--nerfacto contracts world rays: pass --no_ndc")
     box_min, box_max = (-2.0, -2.0, -2.0), (2.0, 2.0, 2.0)
     samples = _per_level(args.proposal_samples)
     if len(samples) != len(PROPOSAL_FINEST):
@@ -315,20 +333,58 @@ def _nerfacto_train_config(args, scene: SceneData) -> TrainConfig:
         proposal_samples=samples, nerf_samples=args.nerf_samples,
         n_images=len(scene.i_train))
     render = RenderConfig(field=field, perturb=args.perturb,
-                          white_bkgd=args.white_bkgd, nerfacto=nerfacto)
+                          white_bkgd=args.white_bkgd,
+                          chain=NerfactoChain(nerfacto))
+    return _chain_train_config(args, scene, render, NERFACTO_TRAINING)
+
+
+def _chain_train_config(args, scene: SceneData, render: RenderConfig,
+                        training: ChainTraining) -> TrainConfig:
     return TrainConfig(
         render=render, near=scene.near, far=scene.far, n_rand=args.N_rand,
         lrate=args.lrate, lrate_decay=args.lrate_decay,
         sparse_loss_weight=0.0, tv_loss_weight=0.0,
-        distortion_loss_weight=args.distortion_loss_weight)
+        distortion_loss_weight=args.distortion_loss_weight,
+        chain_training=training)
+
+
+def _mipnerf360_train_config(args, scene: SceneData) -> TrainConfig:
+    """The static config of ``--mipnerf360``: the two MLPs' widths, the
+    chain's sample counts (``--proposal_samples``, one value per proposal
+    level, ``--nerf_samples``), the rays' base radius from the scene's
+    focal length, the rays' bounds ``--near_plane``/``--far_plane`` (the
+    scene loader set them)."""
+    _refuse_chain(args, scene, "mipnerf360",
+                  _PROPOSAL_REFUSES + _MIPNERF360_REFUSES)
+    samples = _per_level(args.proposal_samples)
+    if len(samples) != 2:
+        raise ValueError(f"--proposal_samples {args.proposal_samples}: one "
+                         "value per proposal level (2)")
+    mc = MipNeRF360Config(
+        proposal_samples=samples, nerf_samples=args.nerf_samples,
+        netdepth=args.netdepth, netwidth=args.netwidth,
+        prop_netdepth=args.prop_netdepth, prop_netwidth=args.prop_netwidth,
+        bottleneck_width=args.bottleneck_width,
+        views_width=args.netwidth_views,
+        pixel_radius=pixel_radius(scene.hwf[2]))
+    field = FieldConfig(i_embed=0, use_viewdirs=True, netdepth=args.netdepth,
+                        netwidth=args.netwidth)
+    render = RenderConfig(field=field, perturb=args.perturb,
+                          white_bkgd=args.white_bkgd,
+                          chain=MipNeRF360Chain(mc))
+    return _chain_train_config(args, scene, render, MIPNERF360_TRAINING)
 
 
 def build_train_config(args, scene: SceneData) -> TrainConfig:
     """Assemble the static config from CLI args + scene geometry (the JAX
     ``build_train_config``, for what the port runs; ``--nerfacto``:
-    ``_nerfacto_train_config``)."""
-    if getattr(args, "nerfacto", False):
+    ``_nerfacto_train_config``; ``--mipnerf360``:
+    ``_mipnerf360_train_config``)."""
+    model = proposal_model(args)
+    if model == "nerfacto":
         return _nerfacto_train_config(args, scene)
+    if model == "mipnerf360":
+        return _mipnerf360_train_config(args, scene)
     if args.use_occupancy and args.N_importance > 0:
         raise ValueError(
             f"--use_occupancy with --N_importance {args.N_importance}: the "
@@ -519,8 +575,9 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
         sampler = BatchedRaySampler(scene.images, scene.poses, scene.i_train,
                                     H, W, scene.K, n_rand, seed=seed)
         sample = skip = lambda i: sampler.next()
-    nerfacto = cfg.render.nerfacto is not None
-    drop = (set() if cfg.render.field.n_appearance > 0 or nerfacto
+    chain = cfg.render.chain
+    by_image = chain is not None and chain.uses_camera_idx
+    drop = (set() if cfg.render.field.n_appearance > 0 or by_image
             else {"img_idx"})
     # Nerfacto's appearance embedding has one row per training image: its
     # rays carry their image's position among the training views.
@@ -539,7 +596,7 @@ def make_sampler(args, scene: SceneData, cfg: TrainConfig, seed: int,
     def sample_batch(i):
         with span("sampler"):
             b = sample(i)
-            if nerfacto:
+            if by_image:
                 b["img_idx"] = train_pos[b["img_idx"]]
             if reg is not None:
                 b.update(reg.next())

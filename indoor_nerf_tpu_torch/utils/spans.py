@@ -53,8 +53,9 @@ NAMES = (
     "priors", "backward", "acaq_fp_forward", "optimizer", "occ_update",
     # the field and the renderer: models/field.py, render/renderer.py
     "sample", "encode", "mlp", "composite",
-    # nerfacto: render/proposal.py, train/step.py
-    "contract", "proposal", "pdf", "interlevel",
+    # the proposal chains: render/proposal.py, train/step.py ("ipe":
+    # Mip-NeRF 360's frustums, Gaussians, contraction and encoding)
+    "contract", "proposal", "pdf", "interlevel", "ipe",
     # the encodes' backward: ops/blockhash.py, ops/encoding.py
     "encode_bwd",
     # serving: serve.py

@@ -31,11 +31,12 @@ def _actions(parser):
 
 
 def test_parsers_share_every_flag_and_default():
-    """``--device`` and nerfacto's flags are the only flags the port adds;
-    every other flag has the JAX parser's option strings, type, choices and
-    default."""
+    """``--device``, nerfacto's and Mip-NeRF 360's flags are the only flags
+    the port adds; every other flag has the JAX parser's option strings,
+    type, choices and default."""
     ja, ta = _actions(jconfig.build_parser()), _actions(tconfig.build_parser())
-    assert set(ta) - set(ja) == {"device", *tconfig.NERFACTO_FLAGS}
+    assert set(ta) - set(ja) == {"device", *tconfig.NERFACTO_FLAGS,
+                                 *tconfig.MIPNERF360_FLAGS}
     assert not set(ja) - set(ta)
     for dest, a in ja.items():
         b = ta[dest]
@@ -63,7 +64,8 @@ def _same(argv):
     got = vars(tconfig.parse_args(argv))
     assert got.pop("device") == "cuda"
     defaults = tconfig.build_parser()
-    for k in tconfig.NERFACTO_FLAGS:  # the port's own, at their defaults
+    for k in tconfig.NERFACTO_FLAGS + tconfig.MIPNERF360_FLAGS:
+        # the port's own, at their defaults
         assert got.pop(k) == defaults.get_default(k), k
     assert got == want
 
